@@ -1,0 +1,36 @@
+"""gnuradio4_tpu_torch — the PyTorch + CUDA port of gnuradio4_tpu.
+
+The same flowgraph model as the JAX package (blocks under the same registry
+names and settings, the same rate algebra, ``Graph`` → ``compile_graph`` →
+``Scheduler``), running on PyTorch tensors on one device: a CUDA GPU when one is
+present, else the CPU. Kernels the JAX package wrote in Pallas for the TPU are
+hand-written CUDA C++ for Hopper here (``csrc/``, built at first use); every one
+has a plain PyTorch version that runs on the CPU.
+
+This package imports torch and NumPy and never JAX.
+"""
+
+from .core.block import (Block, BlockCtx, Port, PortRef, SinkBlock,
+                         SourceBlock)
+from .core.compiler import CompiledGraph, compile_graph, default_device
+from .core.errors import Error, GrError
+from .core.graph import Edge, Graph
+from .core.lifecycle import State
+from .core.registry import BlockRegistry, global_registry, register_block
+from .core.scheduler import Scheduler
+from .core.settings import Setting, Settings
+from .core.tags import Tag, TagPropagation
+
+# importing the block library populates the global registry
+from . import blocks  # noqa: E402,F401
+from . import ops  # noqa: E402,F401
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "Block", "BlockCtx", "Port", "PortRef", "SinkBlock", "SourceBlock",
+    "CompiledGraph", "compile_graph", "default_device", "Error", "GrError",
+    "Edge", "Graph", "State", "BlockRegistry", "global_registry",
+    "register_block", "Scheduler", "Setting", "Settings", "Tag",
+    "TagPropagation",
+]

@@ -1,0 +1,203 @@
+"""Filter blocks (≈ reference blocks/filter/time_domain_filter.hpp).
+
+``FirFilter`` (:24 fir_filter with decimation) and ``FreqXlatingFir`` (channel
+extraction). Both filter through ops/fir.py ``fir_apply``, i.e. the hand-written
+banded FIR kernel on a CUDA device.
+"""
+
+from __future__ import annotations
+
+from fractions import Fraction
+from typing import Any
+
+import numpy as np
+import torch
+
+from ..core.block import Block, Port
+from ..core.errors import GrError
+from ..core.registry import register_block
+from ..core.settings import Setting
+from ..ops import filter_design as fd
+from ..ops.cuda_kernels import nco_mix
+from ..ops.fir import PRECISIONS, fir_apply, fir_init_state, freq_xlating_taps
+from ..ops.signal import complex_exp_ramp, phase_increment
+from .basic import phase_state
+
+
+@register_block("FirFilter")
+class FirFilter(Block):
+    """Overlap-save FIR with optional decimation (≈ fir_filter + Decimator fused).
+
+    State carries the last ``ntaps-1`` inputs (the HistoryBuffer analog).
+    """
+
+    IN = (Port("in"),)
+    OUT = (Port("out"),)
+    taps = Setting(default=(1.0,), kind="static", description="FIR taps b[k]")
+    decim = Setting(default=1, kind="static", limits=(1, 1 << 16))
+    precision = Setting(default="auto", kind="static", choices=PRECISIONS,
+                        description="precision rung of this block's FIR: "
+                                    "auto/highest = full float32; the other "
+                                    "rungs are not ported to this package "
+                                    "yet and raise")
+    uncertain = Setting(default=False, kind="static",
+                        description="input is a 2-plane (value, sigma) stream "
+                                    "(not ported to this package yet; raises)")
+
+    def __init__(self, name=None, taps: Any = None, **settings):
+        if taps is not None:
+            settings["taps"] = tuple(np.asarray(taps).tolist())
+        super().__init__(name=name, **settings)
+
+    @property
+    def ratio(self):
+        return Fraction(1, int(self.settings.get("decim")))
+
+    @property
+    def alignment(self):
+        return int(self.settings.get("decim"))
+
+    def _taps_array(self):
+        t = np.asarray(self.settings.get("taps"))
+        if t.size == 0:
+            t = np.ones(1)  # identity filter when no taps configured
+        return t.astype(np.complex64 if np.iscomplexobj(t) else np.float32)
+
+    def _prec(self):
+        p = str(self.settings.get("precision"))
+        return None if p == "auto" else p
+
+    def out_dtype(self, port, in_dtypes):
+        t = self._taps_array()
+        up = next(iter(in_dtypes.values()), np.float32)
+        if np.iscomplexobj(t) or np.dtype(up) == np.dtype(np.complex64):
+            return np.dtype(np.complex64)
+        return up
+
+    def _check_ported(self):
+        if self.settings.get("uncertain"):
+            raise GrError(f"{self.name}: uncertain mode is not ported to this "
+                          f"package yet", block=self.name)
+
+    def init_state(self, ctx):
+        self._check_ported()
+        t = self._taps_array()
+        # history follows the STREAM dtype — a real stream with complex taps
+        # stays real (ops/fir.py keeps the real rail)
+        ch = ctx.channels.get("in", 0)
+        return fir_init_state(ch, len(t), ctx.dtype("in"), ctx.device)
+
+    def apply(self, state, ins, ctx):
+        y, new_state = fir_apply(ins["in"], self._taps_array(), state,
+                                 decim=int(self.settings.get("decim")),
+                                 precision=self._prec())
+        return new_state, {"out": y}
+
+
+@register_block("FreqXlatingFir")
+class FreqXlatingFir(FirFilter):
+    """Frequency-translating FIR: heterodyne + low-pass + decimate in one pass
+    (taps rotated by center_freq; output de-rotated by the decimated NCO).
+    ≈ GNU Radio's freq_xlating_fir; reference analog: IQDemodulator front-end."""
+
+    IN = (Port("in", dtype="complex64"),)
+    OUT = (Port("out", dtype="complex64"),)
+    center_freq = Setting(default=0.0, kind="static", unit="Hz")
+    sample_rate_in = Setting(default=0.0, kind="static", unit="Hz",
+                             description="0 → inherit resolved edge rate")
+    f_cut = Setting(default=0.0, kind="static", unit="Hz",
+                    description="> 0 → auto-design a lowpass prototype at the "
+                                "resolved rate instead of explicit taps")
+    ntaps = Setting(default=121, kind="static", limits=(1, 1 << 16),
+                    description="prototype length when f_cut is set")
+    window = Setting(default="Hamming", kind="static")
+
+    _fs_cached: float = 1.0
+
+    def _fs(self, ctx_rate: float = 1.0) -> float:
+        fs = float(self.settings.get("sample_rate_in"))
+        return fs if fs > 0 else ctx_rate
+
+    def _taps_array(self):
+        f_cut = float(self.settings.get("f_cut"))
+        if f_cut > 0.0:
+            return fd.design_fir(
+                "lowpass", int(self.settings.get("ntaps")),
+                sample_rate=self._fs(self._fs_cached), f_low=f_cut,
+                window=self.settings.get("window")).astype(np.float32)
+        return super()._taps_array()
+
+    def _rotated_taps(self, fs: float):
+        self._fs_cached = fs
+        base = np.asarray(self._taps_array(), dtype=np.float64)
+        return freq_xlating_taps(base, float(self.settings.get("center_freq")), fs)
+
+    def init_state(self, ctx):
+        self._check_ported()
+        self._fs_cached = ctx.sample_rate     # design rate for f_cut mode
+        ntaps = len(self._taps_array())
+        ch = ctx.channels.get("in", 0)
+        # complex input → history holds complex64 (ROTATED samples on the
+        # rotate-then-filter path); real input → the raw real stream
+        in_dt = ctx.dtype("in", np.complex64)
+        dt = np.complex64 if in_dt == np.dtype(np.complex64) else np.float32
+        return {"hist": fir_init_state(ch, ntaps, dt, ctx.device),
+                "phase": phase_state()}
+
+    def rotation_descriptor(self, ctx_rate: float):
+        """Compiler rotation-absorption hook. ``dphi_out`` is the uint32
+        increment of the SKIPPED de-rotation: consumers must RE-APPLY
+        e^{j·2π·frac32(m·dphi_out)/2³²} per output sample m, plus a
+        step-constant phase all absorbing consumers are invariant to. See
+        FFT._rotation_window and QuadratureDemod.apply for the two consumers."""
+        fc = float(self.settings.get("center_freq"))
+        if fc == 0.0:
+            return None
+        decim = int(self.settings.get("decim"))
+        return {"dphi_out": int(phase_increment(-fc * decim,
+                                                self._fs(ctx_rate)))}
+
+    def apply(self, state, ins, ctx):
+        x = ins["in"]
+        fs = self._fs(ctx.sample_rate)
+        decim = int(self.settings.get("decim"))
+        fc = float(self.settings.get("center_freq"))
+        hist = state["hist"]
+        stream_dt = torch.complex64 if x.is_complex() else torch.float32
+        if getattr(self, "_rotation_absorbed", False) or fc == 0.0:
+            # absorbed: every consumer absorbs the residual rotation, so the
+            # heterodyned-taps FIR runs with NO NCO pass (history = raw x).
+            # fc == 0: no translation, plain FIR over the raw stream.
+            taps = self._rotated_taps(fs) if fc != 0.0 else self._taps_array()
+            self._fs_cached = fs
+            y, new_hist = fir_apply(x.to(stream_dt), taps, hist.to(stream_dt),
+                                    decim=decim, precision=self._prec())
+            return ({"hist": new_hist.to(hist.dtype), "phase": state["phase"]},
+                    {"out": y.to(torch.complex64)})
+        if x.is_complex():
+            # Rotate-then-filter: the heterodyned-taps form's output
+            # de-rotation cancels the tap heterodyne EXACTLY —
+            #   e^{-jωn}·Σₖ h[k]e^{jωk} x[n−k] = Σₖ h[k]·(x·e^{-jω·})[n−k]
+            # — so rotating the INPUT (the nco_mix kernel) lets the FIR run
+            # with REAL taps. History carries the rotated stream; the phase
+            # accumulates at the INPUT rate.
+            dphi = int(phase_increment(-fc, fs))
+            xr, phase = nco_mix(x.to(torch.complex64).contiguous(),
+                                int(state["phase"]), dphi)
+            self._fs_cached = fs
+            y, new_hist = fir_apply(xr, self._taps_array(),
+                                    hist.to(torch.complex64), decim=decim,
+                                    precision=self._prec())
+            return {"hist": new_hist, "phase": phase_state(phase)}, {"out": y}
+        # Real input: heterodyned complex taps over the REAL rail + de-rotation
+        # at the decimated output rate (n/decim NCO samples).
+        y, new_hist = fir_apply(x.to(torch.float32), self._rotated_taps(fs),
+                                hist.to(torch.float32), decim=decim,
+                                precision=self._prec())
+        n_out = y.shape[-1]
+        dphi = int(phase_increment(-fc * decim, fs))
+        y = y * complex_exp_ramp(int(state["phase"]), dphi, n_out,
+                                 device=y.device)
+        return ({"hist": new_hist, "phase": phase_state(int(state["phase"])
+                                                        + dphi * n_out)},
+                {"out": y})

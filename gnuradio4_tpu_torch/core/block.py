@@ -1,0 +1,204 @@
+"""Block & port model (≈ reference ``Block<Derived>``, Block.hpp:711).
+
+A block is a Python object carrying
+
+- **port declarations** (:class:`Port`) — typed, named streams;
+- **settings** (:class:`~.settings.Settings`) — staged, split into dynamic (host
+  parameters of each step) and static (shape the compiled graph);
+- a **step function** ``apply(state, ins, ctx) → (state, outs)`` over fixed-shape
+  time blocks held in torch tensors on the graph's device (the analog of
+  processBulk over spans);
+- static **rate descriptors**: ``ratio`` (out/in chunk ratio ≈ ``Resampling``,
+  annotated.hpp:122) and ``alignment``, resolved by the graph's rate algebra.
+
+States are tensors or dicts of tensors, created by :meth:`Block.init_state` on
+the compiled graph's device.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import itertools
+from fractions import Fraction
+from typing import Any, ClassVar
+
+import numpy as np
+import torch
+
+from .errors import GrError
+from .settings import Setting, Settings
+from .stream import canonical_dtype
+from .tags import Tag, TagPropagation
+
+_instance_counter = itertools.count()
+
+
+@dataclasses.dataclass(frozen=True)
+class Port:
+    """Typed named port (≈ reference Port<T, portDirection, ...>, Port.hpp).
+
+    ``dtype=None`` → polymorphic (resolved at compile time from the upstream edge).
+    ``optional`` ports may stay unconnected (≈ Optional attribute, Port.hpp:329).
+    """
+
+    name: str
+    dtype: Any = None
+    optional: bool = False
+
+    def __post_init__(self):
+        if self.dtype is not None:
+            object.__setattr__(self, "dtype", canonical_dtype(self.dtype))
+
+
+@dataclasses.dataclass
+class BlockCtx:
+    """Static + dynamic context handed to ``apply``.
+
+    ``in_len``/``out_len`` give the static per-port samples-per-step resolved by the
+    rate algebra; ``sample_rate`` is the input-side rate; ``params`` holds the
+    block's dynamic settings as host values; ``device`` is where the block's
+    tensors live.
+    """
+
+    in_len: dict[str, int]
+    out_len: dict[str, int]
+    sample_rate: float
+    params: dict[str, Any]
+    channels: dict[str, int] = dataclasses.field(default_factory=dict)
+    dtypes: dict[str, Any] = dataclasses.field(default_factory=dict)
+    device: torch.device = torch.device("cpu")
+
+    def p(self, key: str, default: Any = None) -> Any:
+        """Dynamic param lookup with default."""
+        v = self.params.get(key)
+        return default if v is None else v
+
+    def dtype(self, port: str, default: Any = None) -> np.dtype:
+        d = self.dtypes.get(port)
+        if d is None:
+            return np.dtype(default if default is not None else np.float32)
+        return np.dtype(d)
+
+
+class Block:
+    """Base class for all blocks. Subclasses declare ports + settings and implement
+    :meth:`apply` (device path)."""
+
+    IN: ClassVar[tuple[Port, ...]] = ()
+    OUT: ClassVar[tuple[Port, ...]] = ()
+    TAG_POLICY: ClassVar[TagPropagation] = TagPropagation.TPP_ALL_TO_ALL
+    _settings_spec: ClassVar[dict[str, Setting]] = {}
+
+    def __init__(self, name: str | None = None, **settings: Any):
+        cls = type(self)
+        self.unique_name = f"{cls.__name__}#{next(_instance_counter)}"
+        self.name = name or self.unique_name
+        self.in_ports: tuple[Port, ...] = tuple(cls.IN)
+        self.out_ports: tuple[Port, ...] = tuple(cls.OUT)
+        self.tag_policy: TagPropagation = cls.TAG_POLICY
+        spec = dict(cls._settings_spec)
+        self.settings = Settings(spec, init=None)
+        unknown = self.settings.set(settings)
+        if unknown:
+            raise GrError(f"{self.name}: unknown settings {sorted(unknown)}; "
+                          f"known: {sorted(spec)}")
+        self.settings.apply_staged()
+        self.settings.store_defaults()
+        self._graph = None  # back-ref set by Graph.add
+
+    # -- rate/overlap descriptors (static; read by the rate algebra) -----------
+    @property
+    def ratio(self) -> Fraction:
+        """Output/input chunk ratio (≈ Resampling<inputChunkSize, outputChunkSize>)."""
+        return Fraction(1)
+
+    @property
+    def alignment(self) -> int:
+        """Input block length must be a multiple of this (e.g. FFT size)."""
+        return 1
+
+    def out_channels(self, port: str, in_channels: dict[str, int]) -> int:
+        """Channel count produced on ``port``; default: the first input's (0 ⇒ 1-D)."""
+        if in_channels:
+            return next(iter(in_channels.values()))
+        return 0
+
+    def out_dtype(self, port: str, in_dtypes: dict[str, Any]) -> Any:
+        """Output dtype on ``port``; default: declared port dtype, else first input's."""
+        for p in self.out_ports:
+            if p.name == port and p.dtype is not None:
+                return p.dtype
+        if in_dtypes:
+            return next(iter(in_dtypes.values()))
+        return np.float32
+
+    # -- device path -----------------------------------------------------------
+    def init_state(self, ctx: BlockCtx) -> Any:
+        """Carried state (≈ HistoryBuffer FIR tails, NCO phase…). Default none."""
+        return None
+
+    def apply(self, state: Any, ins: dict[str, torch.Tensor], ctx: BlockCtx
+              ) -> tuple[Any, dict[str, torch.Tensor]]:
+        """One step over one time block, on the tensors' device."""
+        raise NotImplementedError(f"{type(self).__name__}.apply")
+
+    def prepare_params(self, params: dict[str, Any]) -> dict[str, Any]:
+        """Host hook: derive extra dynamic params from applied settings (runs on the
+        host, cheap). E.g. an NCO derives its integer phase increment in float64
+        here so the device never loses precision. Default: passthrough."""
+        return params
+
+    def host_done(self, abs_out: int, n: int) -> int | None:
+        """For device-generating sources: return remaining valid samples (≤ n) when
+        this step is the last one, else None (keep going)."""
+        return None
+
+    # -- plumbing --------------------------------------------------------------
+    def port(self, name: str, *, output: bool | None = None) -> "PortRef":
+        for p in self.out_ports:
+            if p.name == name and output is not False:
+                return PortRef(self, name, True)
+        for p in self.in_ports:
+            if p.name == name and output is not True:
+                return PortRef(self, name, False)
+        raise GrError(f"{self.name}: no port named {name!r}")
+
+    def __getitem__(self, port_name: str) -> "PortRef":
+        return self.port(port_name)
+
+    def __repr__(self) -> str:
+        return f"<{type(self).__name__} {self.name!r}>"
+
+
+@dataclasses.dataclass(frozen=True)
+class PortRef:
+    """(block, port, direction) handle used by Graph.connect."""
+
+    block: Block
+    port: str
+    is_output: bool
+
+
+class SourceBlock(Block):
+    """Convenience base: no stream inputs; apply(state, {}, ctx) generates a block."""
+
+    IN: ClassVar[tuple[Port, ...]] = ()
+
+
+class SinkBlock(Block):
+    """Convenience base: no stream outputs. The scheduler hands this block's
+    *input* tensors to :meth:`consume` after each step (≈ DataSink egress).
+
+    ``WANTS_HOST_DATA = False`` skips the device→host copy — consume() then
+    receives the device tensors (metrics-only sinks).
+    """
+
+    OUT: ClassVar[tuple[Port, ...]] = ()
+    WANTS_HOST_DATA: ClassVar[bool] = True
+
+    def apply(self, state, ins, ctx):
+        return state, {}
+
+    def consume(self, arrays: dict[str, Any], tags: dict[str, list[Tag]],
+                n_valid: int, abs_index: int) -> None:
+        """Host callback with this step's input arrays (numpy) + tags."""

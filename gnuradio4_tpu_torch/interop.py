@@ -1,0 +1,52 @@
+"""Carry block states and params from the JAX package into this one.
+
+In this system the "weights" are block settings (taps, frequencies): both
+packages build the same graph from the same settings and registry names. What a
+running graph adds is its carried state (FIR history, NCO phases, the demod's
+last sample). These helpers take the JAX package's states or gathered params as
+NumPy (``np.asarray`` of each leaf) and return the port's, so a stream started
+in one package can continue in the other.
+
+The two packages number their blocks independently, so the block keys differ;
+``names`` maps the JAX package's ``unique_name`` keys onto this package's
+(default: keep the keys).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Mapping
+
+import numpy as np
+import torch
+
+
+def _state_leaf(v: Any, device: torch.device | str):
+    if v is None:
+        return None
+    if isinstance(v, Mapping):
+        return {k: _state_leaf(x, device) for k, x in v.items()}
+    a = np.asarray(v)
+    if a.dtype == np.uint32:
+        # NCO phases: int64 host scalars holding the uint32 value
+        return torch.from_numpy(a.astype(np.int64))
+    return torch.from_numpy(np.array(a, copy=True)).to(device)
+
+
+def states_from_numpy(tree: Mapping[str, Any], device: torch.device | str,
+                      names: Mapping[str, str] | None = None) -> dict[str, Any]:
+    """JAX block states (``CompiledGraph.init_states()`` or the states after a
+    step, leaves as NumPy) → this package's states on ``device``. uint32 phases
+    become int64 host scalars; complex64 histories stay complex64."""
+    names = names or {}
+    return {names.get(k, k): _state_leaf(v, device) for k, v in tree.items()}
+
+
+def params_from_numpy(tree: Mapping[str, Mapping[str, Any]],
+                      names: Mapping[str, str] | None = None
+                      ) -> dict[str, dict[str, np.ndarray]]:
+    """JAX gathered params (leaves as NumPy) → this package's params. Params are
+    host values in both packages; ``_dphi`` and ``_phase0_u32`` stay numpy
+    uint32."""
+    names = names or {}
+    return {names.get(k, k): {p: np.array(v, copy=True) for p, v in d.items()}
+            for k, d in tree.items()}

@@ -1,0 +1,359 @@
+"""Hand-written CUDA kernels of the port and their plain PyTorch versions.
+
+Counterpart of gnuradio4_tpu/ops/pallas_kernels.py. Sources live in ``csrc/``
+and are compiled for Hopper (``sm_90a``) by ``nvcc`` into one shared library
+with a plain C interface, at first use, into ``_build/`` keyed by a hash of the
+sources and flags; ``ctypes`` loads it. Nothing is built or imported from CUDA
+when this module is imported.
+
+Each kernel has a wrapper that dispatches on its input tensor's device alone:
+a CPU tensor takes the plain version beside it; a CUDA tensor launches the
+kernel (counting the launch in ``<wrapper>.launches``) or raises. No path falls
+back from a failed build or launch to the plain version.
+
+=================  =========================================  ==================
+wrapper            replaces (gnuradio4_tpu/ops/pallas_kernels.py)  plain version
+=================  =========================================  ==================
+fir_banded         fir_planar_pallas, fir_ilv_pallas          fir_banded_ref
+nco_mix            nco_mix_pallas                             nco_mix_ref
+=================  =========================================  ==================
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import functools
+import hashlib
+import math
+import os
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from ..core.errors import GrError
+from .signal import MASK32, nco_phases
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+_ANGLE = float(np.float32(2.0 * np.pi)) / 4294967296.0   # f32(2π)·2^-32
+
+
+@dataclasses.dataclass
+class KernelLibrary:
+    """The loaded kernel library: its path, build seconds (0 when the library
+    was already built for these sources) and the compiler's report
+    (``-Xptxas -v``: registers, shared memory and spills per kernel)."""
+
+    lib: ctypes.CDLL
+    path: Path
+    seconds: float
+    log: str
+
+
+_library: KernelLibrary | None = None
+_library_lock = threading.Lock()
+
+
+def _source_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sorted(CSRC.glob("*.cu*")):
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+    if not CUDA_HOME:
+        raise GrError("cannot build the CUDA kernels: no CUDA toolkit found "
+                      "(set CUDA_HOME or put nvcc on PATH)")
+    return str(Path(CUDA_HOME) / "bin" / "nvcc")
+
+
+def build() -> KernelLibrary:
+    """Compile ``csrc/*.cu`` (once per source hash) and load the library."""
+    global _library
+    with _library_lock:
+        if _library is not None:
+            return _library
+        so = BUILD_DIR / f"libgr4kernels_{_source_hash()}.so"
+        t0 = time.perf_counter()
+        log = ""
+        if not so.exists():
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+                   *map(str, sorted(CSRC.glob("*.cu")))]
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            log = proc.stdout + proc.stderr
+            if proc.returncode != 0:
+                raise GrError(f"nvcc failed with exit code {proc.returncode}:\n{log}")
+            os.replace(tmp, so)
+        lib = ctypes.CDLL(str(so))
+        lib.gr4_fir_banded.argtypes = [ctypes.c_void_p] * 4 + [
+            ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        lib.gr4_fir_banded.restype = ctypes.c_int
+        lib.gr4_nco_mix.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                    ctypes.c_int64, ctypes.c_int64,
+                                    ctypes.c_uint32, ctypes.c_uint32,
+                                    ctypes.c_void_p]
+        lib.gr4_nco_mix.restype = ctypes.c_int
+        lib.gr4_error_string.argtypes = [ctypes.c_int]
+        lib.gr4_error_string.restype = ctypes.c_char_p
+        _library = KernelLibrary(lib, so, time.perf_counter() - t0, log)
+        return _library
+
+
+def _check(err: int, name: str) -> None:
+    if err:
+        msg = build().lib.gr4_error_string(err).decode()
+        raise GrError(f"{name}: CUDA error {err} ({msg})")
+
+
+def _require_cuda(name: str, *tensors: torch.Tensor) -> torch.device:
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device != dev or dev.type != "cuda":
+            raise GrError(f"{name}: the kernel needs every operand on one CUDA "
+                          f"device; got {[str(u.device) for u in tensors]}")
+        if not t.is_contiguous():
+            raise GrError(f"{name}: operands must be contiguous")
+    return dev
+
+
+def _stream(dev: torch.device) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def _host_taps(taps) -> np.ndarray:
+    if torch.is_tensor(taps):
+        taps = taps.detach().cpu().numpy()
+    t = np.asarray(taps)
+    return t.astype(np.complex64 if np.iscomplexobj(t) else np.float32)
+
+
+@functools.lru_cache(maxsize=64)
+def _device_taps_cached(key: bytes, dtype: str, device: str) -> torch.Tensor:
+    arr = np.frombuffer(key, dtype=dtype).copy()
+    return torch.from_numpy(arr).to(device)
+
+
+def _device_taps(taps, device: torch.device) -> torch.Tensor:
+    """Taps as a contiguous tensor on ``device`` (host taps upload once)."""
+    if torch.is_tensor(taps) and taps.device == device:
+        return taps.contiguous()
+    t = _host_taps(taps)
+    return _device_taps_cached(t.tobytes(), t.dtype.str, str(device))
+
+
+# -- banded FIR ----------------------------------------------------------------
+
+def fir_banded(x: torch.Tensor, hist: torch.Tensor, taps, decim: int = 1
+               ) -> torch.Tensor:
+    """Decimating FIR over the history-prefixed stream ``[hist, x]``:
+    ``y[..., m] = Σ_k taps[k]·xc[..., m·decim + K−1−k]`` for ``m < T // decim``.
+
+    ``x``: [T] or [C, T], complex64 or float32; ``hist``: [K−1] or [C, K−1] of
+    the same dtype; ``taps``: [K] float32 or complex64 (host array or tensor).
+    The output is complex64 when the stream or the taps are complex.
+    CPU tensors take :func:`fir_banded_ref`; CUDA tensors launch the kernel in
+    ``csrc/fir_banded.cu``."""
+    if x.device.type == "cpu":
+        return fir_banded_ref(x, hist, taps, decim)
+    name = "fir_banded"
+    if x.dtype not in (torch.complex64, torch.float32) or hist.dtype != x.dtype:
+        raise GrError(f"{name}: stream and history must both be complex64 or "
+                      f"float32; got {x.dtype}, {hist.dtype}")
+    dev = _require_cuda(name, x, hist)
+    h = _device_taps(taps, dev)
+    if h.dtype not in (torch.complex64, torch.float32) or h.ndim != 1:
+        raise GrError(f"{name}: taps must be 1-D float32 or complex64")
+    _require_cuda(name, x, h)
+    k = h.shape[0]
+    if decim < 1 or x.ndim not in (1, 2) or hist.ndim != x.ndim \
+            or hist.shape[:-1] != x.shape[:-1] or hist.shape[-1] != k - 1:
+        raise GrError(f"{name}: bad shapes x{tuple(x.shape)} hist"
+                      f"{tuple(hist.shape)} taps[{k}] decim={decim}")
+    channels = 1 if x.ndim == 1 else x.shape[0]
+    t = x.shape[-1]
+    out_dt = torch.complex64 if (x.is_complex() or h.is_complex()) else torch.float32
+    y = torch.empty((*x.shape[:-1], t // decim), dtype=out_dt, device=dev)
+    if y.numel() == 0:
+        return y
+    err = build().lib.gr4_fir_banded(
+        x.data_ptr(), hist.data_ptr(), h.data_ptr(), y.data_ptr(),
+        channels, t, k, int(decim), int(x.is_complex()), int(h.is_complex()),
+        _stream(dev))
+    _check(err, name)
+    fir_banded.launches += 1
+    return y
+
+
+fir_banded.launches = 0
+
+
+def _check_f32_matmul(site: str) -> None:
+    """The plain FIR runs its banded products as float32 matmuls; TF32 would
+    keep ~3 decimal digits. Refuse to run under any setting that allows it."""
+    if torch.get_float32_matmul_precision() != "highest" \
+            or torch.backends.cuda.matmul.allow_tf32:
+        raise GrError(f"{site}: float32 matmuls must run in full float32 "
+                      f"(torch.get_float32_matmul_precision() == 'highest' and "
+                      f"torch.backends.cuda.matmul.allow_tf32 False); got "
+                      f"{torch.get_float32_matmul_precision()!r}, allow_tf32="
+                      f"{torch.backends.cuda.matmul.allow_tf32}")
+
+
+def _next_pow2(v: int) -> int:
+    p = 1
+    while p < v:
+        p <<= 1
+    return p
+
+
+def _choose_tile(n: int, ntaps: int, decim: int) -> int:
+    """Tile length: ≥ ntaps−1 (framing constraint), multiple of decim,
+    128–1024-class. The stream is zero-padded up to a tile multiple; a stream
+    shorter than one tile gets a single smaller tile, never below ntaps−1 (the
+    JAX package's version drops that bound and fails for T < ntaps−1 there)."""
+    base = max(128, _next_pow2(ntaps - 1))
+    tile = base * decim // math.gcd(base, decim)
+    return min(tile, max(_next_pow2(max(n, 1)), decim, _next_pow2(ntaps - 1)))
+
+
+@functools.lru_cache(maxsize=256)
+def _toeplitz_np(taps_key, ntaps: int, tile: int, decim: int) -> np.ndarray:
+    """Banded Toeplitz weights W[j, i]: frame[j] → output column i (decimated).
+
+    frame[m, j] = xc[m·L + j]; y[m·L + i·decim] = Σ_k h[k]·xc[m·L + i·decim +
+    (K−1) − k]  ⇒  W[j, i] = h[i·decim + K−1 − j] (0 ≤ · < K).
+    """
+    h = np.asarray(taps_key)
+    k = ntaps
+    n_out = tile // decim
+    w = np.zeros((tile + k - 1, n_out), dtype=h.dtype)
+    for i in range(n_out):
+        j0 = i * decim
+        w[j0: j0 + k, i] = h[::-1]
+    return w
+
+
+@functools.lru_cache(maxsize=64)
+def _banded_weights(taps_key, tile: int, decim: int, dtype: torch.dtype,
+                    device: str) -> tuple[torch.Tensor, torch.Tensor]:
+    """(W_lo, W_hi) [tile, tile/decim] on ``device``: the Toeplitz split so that
+    y[m] = A[m] @ W_lo + A[m+1] @ W_hi over rows A of the padded stream."""
+    k = len(taps_key)
+    w = _toeplitz_np(taps_key, k, tile, decim)
+    w_hi = np.zeros_like(w[:tile])
+    w_hi[: k - 1] = w[tile:]
+    np_dt = np.complex64 if dtype is torch.complex64 else np.float32
+    to = lambda a: torch.from_numpy(np.ascontiguousarray(a, np_dt)).to(device)
+    return to(w[:tile]), to(w_hi)
+
+
+def fir_banded_ref(x: torch.Tensor, hist: torch.Tensor, taps, decim: int = 1
+                   ) -> torch.Tensor:
+    """Plain version of :func:`fir_banded`: the JAX package's ``_fir_matmul``
+    (gnuradio4_tpu/ops/fir.py) — zero-copy two-view banded matmul. The stream
+    ``xc = [hist, x]`` is zero-padded to ``(n+1)`` tiles and viewed as rows
+    A [n+1, tile]; ``y[m] = A[m] @ W_lo + A[m+1] @ W_hi`` in full float32."""
+    _check_f32_matmul("fir_banded_ref")
+    taps_np = _host_taps(taps)
+    squeeze = x.ndim == 1
+    x2 = x[None] if squeeze else x
+    h2 = hist[None] if squeeze else hist
+    xc = torch.cat([h2.to(x2.dtype), x2], dim=-1)
+    b, tc = xc.shape
+    k = taps_np.shape[-1]
+    if h2.shape[-1] != k - 1 or decim < 1:
+        raise GrError(f"fir_banded_ref: bad shapes hist{tuple(hist.shape)} "
+                      f"taps[{k}] decim={decim}")
+    t = tc - (k - 1)
+    tile = _choose_tile(t, k, decim)
+    n = -(-t // tile)
+    total = (n + 1) * tile
+    if total != tc:
+        xc = torch.cat([xc, xc.new_zeros(b, total - tc)], dim=-1)
+    a = xc.reshape(b, n + 1, tile)
+    dev = str(xc.device)
+    cx_t = np.iscomplexobj(taps_np)
+
+    def banded(rows, key, dt):
+        lo, hi = _banded_weights(key, tile, decim, dt, dev)
+        return rows[:, :-1] @ lo + rows[:, 1:] @ hi
+
+    real_key = tuple((taps_np.real if cx_t else taps_np).tolist())
+    if xc.is_complex() and cx_t:
+        y = banded(a, tuple(taps_np.tolist()), torch.complex64)
+    elif xc.is_complex():
+        y = torch.complex(banded(a.real, real_key, torch.float32),
+                          banded(a.imag, real_key, torch.float32))
+    elif cx_t:
+        y = torch.complex(banded(a, real_key, torch.float32),
+                          banded(a, tuple(taps_np.imag.tolist()), torch.float32))
+    else:
+        y = banded(a, real_key, torch.float32)
+    y = y.reshape(b, -1)[:, : t // decim]
+    return y[0] if squeeze else y
+
+
+# -- integer-NCO mixer ---------------------------------------------------------
+
+def nco_mix(x: torch.Tensor, phase0: int, dphi: int
+            ) -> tuple[torch.Tensor, int]:
+    """``y[..., n] = x[..., n]·e^{j2π((phase0 + n·dphi) mod 2³²)/2³²}`` over the
+    last axis of a complex64 ``[T]`` or ``[C, T]`` stream. Returns ``(y, phase)``
+    with the continuing phase ``(phase0 + T·dphi) mod 2³²`` computed on the
+    host. CPU tensors take :func:`nco_mix_ref`; CUDA tensors launch the kernel
+    in ``csrc/nco_mix.cu``."""
+    if x.device.type == "cpu":
+        return nco_mix_ref(x, phase0, dphi)
+    name = "nco_mix"
+    if x.dtype != torch.complex64:
+        raise GrError(f"{name}: stream must be complex64; got {x.dtype}")
+    dev = _require_cuda(name, x)
+    t = x.shape[-1]
+    y = torch.empty_like(x)
+    if y.numel() == 0:
+        return y, (int(phase0) + t * int(dphi)) & MASK32
+    err = build().lib.gr4_nco_mix(x.data_ptr(), y.data_ptr(), x.numel(), t,
+                                  int(phase0) & MASK32, int(dphi) & MASK32,
+                                  _stream(dev))
+    _check(err, name)
+    nco_mix.launches += 1
+    return y, (int(phase0) + t * int(dphi)) & MASK32
+
+
+nco_mix.launches = 0
+
+
+def nco_mix_ref(x: torch.Tensor, phase0: int, dphi: int
+                ) -> tuple[torch.Tensor, int]:
+    """Plain version of :func:`nco_mix`, per sample in the same form as the
+    kernel: angle = f32(phase)·f32(2π)·2⁻³², then cos/sin and a complex
+    multiply."""
+    t = x.shape[-1]
+    ang = nco_phases(phase0, dphi, t, x.device).to(torch.float32) * _ANGLE
+    c, s = torch.cos(ang), torch.sin(ang)
+    xr, xi = x.real, x.imag
+    y = torch.complex(xr * c - xi * s, xr * s + xi * c)
+    return y, (int(phase0) + t * int(dphi)) & MASK32
+
+
+def reset_launch_counts() -> None:
+    fir_banded.launches = 0
+    nco_mix.launches = 0
+
+
+def launch_counts() -> dict[str, int]:
+    return {"fir_banded": fir_banded.launches, "nco_mix": nco_mix.launches}

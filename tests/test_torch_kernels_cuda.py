@@ -1,0 +1,128 @@
+"""The port's hand-written CUDA kernels against their plain PyTorch versions,
+on the card. Skipped where there is no CUDA device.
+
+This file imports neither JAX nor the JAX package, so it also runs where JAX is
+not installed; there, run it without the suite's conftest (which imports JAX):
+
+    python -m pytest --noconftest -q tests/test_torch_kernels_cuda.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from gnuradio4_tpu_torch.core.errors import GrError
+from gnuradio4_tpu_torch.ops import cuda_kernels as ck
+from gnuradio4_tpu_torch.ops import filter_design as fd
+from gnuradio4_tpu_torch.ops.fir import fir_apply, freq_xlating_taps
+from gnuradio4_tpu_torch.ops.signal import phase_increment
+
+pytestmark = pytest.mark.cuda
+
+# f32 accumulation over ≤127 taps of unit-variance samples, two summation orders
+FIR_ATOL = 2e-4
+# sincosf against torch's sin/cos, |x| ≲ 5
+NCO_ATOL = 1e-5
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    return torch.device("cuda")
+
+
+def _taps(kind: str) -> np.ndarray:
+    fs = 20e6
+    if kind == "xlating127":
+        return freq_xlating_taps(fd.design_fir("lowpass", 127, sample_rate=fs,
+                                               f_low=2e6), 3e6, fs)
+    if kind == "real127":
+        return fd.design_fir("lowpass", 127, sample_rate=fs, f_low=2e6
+                             ).astype(np.float32)
+    if kind == "real63":
+        return fd.design_fir("lowpass", 63, sample_rate=fs, f_low=1e6
+                             ).astype(np.float32)
+    return np.ones(1, np.float32)
+
+
+@pytest.mark.parametrize("x_dt,taps,decim,shape", [
+    (torch.complex64, "xlating127", 1, (1 << 20,)),
+    (torch.complex64, "real127", 1, (1 << 20,)),
+    (torch.float32, "real63", 8, (1 << 20,)),
+    (torch.float32, "xlating127", 1, (65536,)),
+    (torch.complex64, "xlating127", 1, (4, 100003)),
+    (torch.float32, "real63", 8, (3, 100005)),
+    (torch.complex64, "real63", 3, (5000,)),
+    (torch.complex64, "one", 1, (1000,)),
+    (torch.float32, "real63", 8, (7,)),          # fewer samples than one output
+])
+def test_fir_banded_matches_plain(cuda, x_dt, taps, decim, shape):
+    g = torch.Generator(device=cuda).manual_seed(7)
+    h = _taps(taps)
+    k = len(h)
+    x = torch.randn(shape, dtype=x_dt, device=cuda, generator=g)
+    hist = torch.randn((*shape[:-1], k - 1), dtype=x_dt, device=cuda, generator=g)
+    before = ck.fir_banded.launches
+    y = ck.fir_banded(x, hist, h, decim)
+    y_ref = ck.fir_banded_ref(x, hist, h, decim)
+    torch.cuda.synchronize()
+    # an empty output launches nothing and counts nothing
+    assert ck.fir_banded.launches == before + (1 if y.numel() else 0)
+    assert y.shape == y_ref.shape == (*shape[:-1], shape[-1] // decim)
+    assert y.dtype == y_ref.dtype
+    if y.numel():
+        assert float((y - y_ref).abs().max()) <= FIR_ATOL
+
+
+def test_fir_apply_state_carry_on_card(cuda):
+    """Two chunks through fir_apply with the carried history equal one pass."""
+    g = torch.Generator(device=cuda).manual_seed(8)
+    h = _taps("xlating127")
+    x = torch.randn(1 << 16, dtype=torch.complex64, device=cuda, generator=g)
+    st0 = torch.zeros(126, dtype=torch.complex64, device=cuda)
+    y_one, st_one = fir_apply(x, h, st0)
+    y1, st = fir_apply(x[: 1 << 15], h, st0)
+    y2, st = fir_apply(x[1 << 15:], h, st)
+    torch.cuda.synchronize()
+    assert float((torch.cat([y1, y2]) - y_one).abs().max()) <= FIR_ATOL
+    assert torch.equal(st, st_one)
+
+
+@pytest.mark.parametrize("shape", [(1 << 20,), (4, 100003)])
+def test_nco_mix_matches_plain_across_wrap(cuda, shape):
+    g = torch.Generator(device=cuda).manual_seed(9)
+    x = torch.randn(shape, dtype=torch.complex64, device=cuda, generator=g)
+    dphi = int(phase_increment(-3e6, 20e6))
+    phase0 = (1 << 32) - 12345
+    before = ck.nco_mix.launches
+    y, ph = ck.nco_mix(x, phase0, dphi)
+    y_ref, ph_ref = ck.nco_mix_ref(x, phase0, dphi)
+    torch.cuda.synchronize()
+    assert ck.nco_mix.launches == before + 1
+    assert ph == ph_ref == (phase0 + shape[-1] * dphi) % (1 << 32)
+    assert float((y - y_ref).abs().max()) <= NCO_ATOL
+    # continuity: two halves with the carried phase equal one pass
+    half = shape[-1] // 2
+    y1, p1 = ck.nco_mix(x[..., :half].contiguous(), phase0, dphi)
+    y2, _ = ck.nco_mix(x[..., half:].contiguous(), p1, dphi)
+    torch.cuda.synchronize()
+    assert float((torch.cat([y1, y2], -1) - y).abs().max()) <= NCO_ATOL
+
+
+def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    x = torch.randn(64, 2, dtype=torch.complex64, device=cuda).t()  # non-contiguous
+    with pytest.raises(GrError, match="contiguous"):
+        ck.nco_mix(x, 0, 1)
+    with pytest.raises(GrError, match="complex64"):
+        ck.nco_mix(torch.zeros(8, device=cuda), 0, 1)
+    with pytest.raises(GrError, match="one CUDA device"):
+        ck.fir_banded(torch.zeros(8, device=cuda), torch.zeros(2), np.ones(3))
+    with pytest.raises(GrError, match="shapes"):
+        ck.fir_banded(torch.zeros(8, device=cuda), torch.zeros(5, device=cuda),
+                      np.ones(3))
+    with pytest.raises(GrError, match="float32"):
+        ck.fir_banded(torch.zeros(8, dtype=torch.float64, device=cuda),
+                      torch.zeros(2, dtype=torch.float64, device=cuda), np.ones(3))
