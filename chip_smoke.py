@@ -19,9 +19,24 @@ result line:
    and demod constant checked, kernel launches counted, Msps timed;
 5. the same chain with absorption off (GR4TPU_NO_ROTATION_ABSORB=1), which runs
    the NCO mixer kernel; its sinks must match phase 4;
-6. the chain at block_len 2^16 on the CPU (plain versions) against the card.
+6. the chain at block_len 2^16 on the CPU (plain versions) against the card;
+7. Path A, suite config 3: ComplexToneSource(10 kHz) → WbfmReceiver (nested
+   graph: FreqXlatingFir(127) → QuadratureDemod → FirFilter(127, ÷5) →
+   FmDeemphasis) at quad rate 250 kHz, block_len 2^22 (rounded to a multiple
+   of 5), 4 steps: two banded-FIR launches per step, the audio settles to the
+   tone's constant 10/75, Msps timed; CPU against the card at block_len 5·8192
+   (blocked one-pole de-emphasis) and 5·8191 (its O(log T) scan);
+8. Path B: SignalGenerator(Sin 1 kHz, 16 channels) → IirFilter(Butterworth 5,
+   15 kHz, engine auto) at 48 kHz, block_len 2^20, 3 steps: one biquad-cascade
+   launch per step, the sink against scipy's float64 sosfilt, ms/step timed;
+   the order-4 design takes the parallel engine (no launch); CPU against the
+   card at block_len 2^12;
+9. the fused FIR→demod entry point ``fir_quad_demod_fused`` streamed over 4
+   chunks of 2^22 samples of Path A's input with Path A's channel taps: one
+   launch per chunk, the demod constant checked.
 
-The last two lines are a JSON object of per-kernel results and
+Each path's kernel launches are counted from zero just before it runs and read
+just after. The last two lines are a JSON object of per-kernel results and
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -47,6 +62,33 @@ NCO_ATOL = 1e-5
 # spectra: relative to the peak bin (f32 FFT of 4096 points)
 SPEC_RTOL = 1e-5
 AUDIO_ATOL = 1e-4
+# Path A (suite config 3)
+QUAD_RATE = 250e3
+WBFM_BLOCK_LEN = 1 << 22
+WBFM_IN_LEN = 5 * round(WBFM_BLOCK_LEN / 5)   # the rate algebra's rounding
+WBFM_STEPS = 4
+WBFM_CPU_BLOCK_LENS = (5 * 8192, 5 * 8191)
+WBFM_GAIN = QUAD_RATE / (2 * 3.141592653589793 * 75e3)
+WBFM_CONST = 10e3 / 75e3          # demod of a 10 kHz tone at 75 kHz deviation
+# audio after the filters' transient (FIR 126 + 126/5 samples, de-emphasis
+# time constant 3.75 samples): f32 sums and the one-pole scan, |audio| ≈ 0.13
+WBFM_ATOL = 1e-5
+WBFM_SKIP = 1000
+# Path B (IirFilter)
+IIR_FS = 48e3
+IIR_BLOCK_LEN = 1 << 20
+IIR_STEPS = 3
+IIR_CHANNELS = 16
+IIR_CPU_BLOCK_LEN = 1 << 12
+# f32 biquads against each other: max|Δ| relative to the output RMS (FMA
+# contraction and summation order differ; ~4e-7 measured on the CPU)
+IIR_RTOL = 1e-5
+# f32 against scipy's float64 sosfilt, relative to the RMS; the f32 error of a
+# stable low-pass settles (~5e-7 measured on the CPU at T = 2^12..2^16)
+SCIPY_RTOL = 2e-5
+# fused FIR→demod against FIR then demod: rad·gain, differences wrapped into
+# (−π, π] (tests/test_pallas_kernels.py:128 uses the same 2e-3)
+DEMOD_ATOL = 2e-3
 KERNELS = {
     "fir_banded": {
         "source": "gnuradio4_tpu_torch/csrc/fir_banded.cu",
@@ -56,6 +98,14 @@ KERNELS = {
     "nco_mix": {
         "source": "gnuradio4_tpu_torch/csrc/nco_mix.cu",
         "replaces": "gnuradio4_tpu/ops/pallas_kernels.py:124",
+    },
+    "iir_sos": {
+        "source": "gnuradio4_tpu_torch/csrc/iir_sos.cu",
+        "replaces": "gnuradio4_tpu/ops/pallas_kernels.py:79",
+    },
+    "fir_demod": {
+        "source": "gnuradio4_tpu_torch/csrc/fir_demod.cu",
+        "replaces": "gnuradio4_tpu/ops/pallas_kernels.py:391",
     },
 }
 
@@ -86,11 +136,34 @@ def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in marks)
 
 
-def kernel_vs_plain_ms(kernel, plain) -> tuple[float, float]:
+def kernel_vs_plain_ms(kernel, plain, plain_reps: int = 10
+                       ) -> tuple[float, float]:
     """Median ms of the kernel and of its plain version, measured in turns
-    (plain, kernel, kernel, plain) so drift on the card hits both alike."""
-    p1, k1, k2, p2 = (cuda_ms(f) for f in (plain, kernel, kernel, plain))
+    (plain, kernel, kernel, plain) so drift on the card hits both alike.
+    ``plain_reps`` < 10 shortens a slow plain version's runs."""
+    def plain_ms():
+        return cuda_ms(plain, reps=plain_reps, warmup=min(2, plain_reps))
+    p1, k1, k2, p2 = plain_ms(), cuda_ms(kernel), cuda_ms(kernel), plain_ms()
     return statistics.median((k1, k2)), statistics.median((p1, p2))
+
+
+def events_ms_per_step(step, n_steps: int, windows: int = 5):
+    """Median over ``windows`` windows of ``n_steps`` calls of ``step``: ms per
+    call from CUDA events, with every window's (events ms, host wall ms)."""
+    import torch
+    out = []
+    for _ in range(windows):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        for _ in range(n_steps):
+            step()
+        end.record()
+        torch.cuda.synchronize()
+        out.append((start.elapsed_time(end) / n_steps,
+                    (time.perf_counter() - t0) / n_steps * 1e3))
+    return statistics.median(w[0] for w in out), out
 
 
 def build_chain(sinks: str):
@@ -172,6 +245,138 @@ def compare_sinks(a, b, label: str, skip_audio: int = 0) -> None:
     print(f"  {label}: spectrum max|Δ| {ds:.3e} (tol {tol_s:.3e}), "
           f"audio max|Δ| {da:.3e} (tol {AUDIO_ATOL})")
     check(ds <= tol_s and da <= AUDIO_ATOL, f"{label}: sinks disagree")
+
+
+def build_wbfm(sink: str):
+    """Path A, as bench_suite.py:134-148 builds suite config 3: the receiver is
+    a nested graph made by the registry. ``sink``: 'vector' or 'null'."""
+    import gnuradio4_tpu_torch as gt
+    g = gt.Graph()
+    src = gt.global_registry.create("ComplexToneSource", frequency=10e3)
+    rx = gt.global_registry.create("WbfmReceiver", quad_rate=QUAD_RATE,
+                                   audio_decim=5)
+    snk = gt.global_registry.create("VectorSink" if sink == "vector" else "NullSink",
+                                    name="audio")
+    g.add(rx)
+    g.connect(src, rx["in"])
+    g.connect(rx["out"], snk)
+    return g, snk
+
+
+def run_wbfm(device: str, block_len: int, steps: int):
+    import gnuradio4_tpu_torch as gt
+    g, snk = build_wbfm("vector")
+    sched = gt.Scheduler(g, block_len=block_len, sample_rate=QUAD_RATE,
+                         device=device)
+    sched.run_and_wait(steps)
+    if device == "cuda":
+        import torch
+        torch.cuda.synchronize()
+    names = [b.name for b in sched.compiled.order]
+    check(names[1:5] == ["wbfm.channel", "wbfm.demod", "wbfm.audio", "wbfm.deemph"],
+          f"Path A flattened order {names}")
+    return sched.compiled, snk.data()
+
+
+def check_wbfm_audio(audio, n_audio: int, steps: int, label: str) -> None:
+    import numpy as np
+    check(audio.shape == (n_audio * steps,), f"{label}: audio shape {audio.shape}")
+    check(bool(np.all(np.isfinite(audio))), f"{label}: non-finite audio")
+    dev = float(np.max(np.abs(audio[WBFM_SKIP:] - WBFM_CONST)))
+    print(f"  {label}: audio max|Δ| from {WBFM_CONST:.8f} after {WBFM_SKIP} "
+          f"samples = {dev:.3e} (tol {WBFM_ATOL})")
+    check(dev <= WBFM_ATOL, f"{label}: audio deviates {dev} from {WBFM_CONST}")
+
+
+def iir_design(order: int):
+    from gnuradio4_tpu_torch.ops import filter_design as fd
+    return fd.design_iir("butterworth", "lowpass", order, sample_rate=IIR_FS,
+                         f_low=15e3)
+
+
+def build_iir_path(order: int, sink: str, source_only: bool = False):
+    """Path B: SignalGenerator(Sin, 1 kHz, 16 channels) → IirFilter(b, a,
+    engine auto) → sink. ``source_only``: the generator straight into the
+    sink (its samples, for the float64 reference)."""
+    import gnuradio4_tpu_torch as gt
+    from gnuradio4_tpu_torch.blocks.filter import IirFilter
+    g = gt.Graph()
+    src = gt.global_registry.create("SignalGenerator", signal="Sin",
+                                    frequency=1e3, channels=IIR_CHANNELS)
+    snk = gt.global_registry.create("VectorSink" if sink == "vector" else "NullSink")
+    res = iir_design(order)
+    iir = IirFilter(b=res.b, a=res.a, engine="auto")
+    if source_only:
+        g.connect(src, snk)
+    else:
+        g.connect_chain(src, iir, snk)
+    return g, iir, snk
+
+
+def run_iir_path(device: str, order: int, block_len: int, steps: int,
+                 source_only: bool = False):
+    import gnuradio4_tpu_torch as gt
+    g, iir, snk = build_iir_path(order, "vector", source_only)
+    gt.Scheduler(g, block_len=block_len, sample_rate=IIR_FS,
+                 device=device).run_and_wait(steps)
+    if device == "cuda":
+        import torch
+        torch.cuda.synchronize()
+    return iir, snk.data()
+
+
+def rms_err(got, want) -> float:
+    import numpy as np
+    scale = max(float(np.sqrt(np.mean(np.abs(want) ** 2))), 1e-3)
+    return float(np.max(np.abs(got - want))) / scale
+
+
+def check_against_scipy(y, x, order: int, label: str) -> float:
+    """y (f32 filter output) against scipy's float64 sosfilt of x."""
+    import numpy as np
+    from scipy import signal
+    want = signal.sosfilt(iir_design(order).sos, x.astype(np.float64), axis=-1)
+    check(y.shape == want.shape, f"{label}: shape {y.shape} vs {want.shape}")
+    check(bool(np.all(np.isfinite(y))), f"{label}: non-finite output")
+    err = rms_err(y.astype(np.float64), want)
+    print(f"  {label}: max|Δ| to scipy float64 sosfilt = {err:.3e}·RMS "
+          f"(tol {SCIPY_RTOL})")
+    check(err <= SCIPY_RTOL, f"{label}: {err} > {SCIPY_RTOL} against scipy")
+    return err
+
+
+def wbfm_channel_taps():
+    """The receiver's channel filter taps (make_wbfm_receiver's design)."""
+    import numpy as np
+    from gnuradio4_tpu_torch.ops import filter_design as fd
+    return fd.design_fir("lowpass", 127, sample_rate=QUAD_RATE,
+                         f_low=100e3).astype(np.float32)
+
+
+def fused_front_end(device, n: int, chunks: int):
+    """Path A's input (the 10 kHz tone) through ``fir_quad_demod_fused``, the
+    JAX package's fused entry point, chunk by chunk with its framing: the
+    history-prefixed stream in, v[-1] carried by the caller. Returns the demod
+    output of every chunk and the chunks' inputs."""
+    import torch
+    from gnuradio4_tpu_torch.ops.fir import fir_quad_demod_fused
+    from gnuradio4_tpu_torch.ops.signal import complex_exp_ramp, phase_increment
+    taps = wbfm_channel_taps()
+    k = len(taps)
+    h_rev = torch.from_numpy(taps[::-1].copy()).to(device)
+    dphi = int(phase_increment(10e3, QUAD_RATE))
+    hist = torch.zeros(k - 1, dtype=torch.complex64, device=device)
+    prev = torch.ones((), dtype=torch.complex64, device=device)
+    outs, inputs = [], []
+    for i in range(chunks):
+        x = complex_exp_ramp(i * n * dphi, dphi, n, device=device)
+        xc = torch.cat([hist, x])
+        outs.append(fir_quad_demod_fused(xc[None], taps, 1, prev, WBFM_GAIN)[0])
+        inputs.append(xc)
+        # the last FIR output of this chunk, the next chunk's v[-1]
+        prev = (xc[-k:] * h_rev).sum()
+        hist = x[-(k - 1):]
+    return outs, inputs
 
 
 def main() -> int:
@@ -285,6 +490,125 @@ def main() -> int:
     results["fir_banded"].update(ms=main_fir["ms"], plain_ms=main_fir["plain_ms"])
     results["nco_mix"].update(ms=main_nco["ms"], plain_ms=main_nco["plain_ms"])
 
+    # Path A's audio FIR (f32, 127 taps, ÷5): its real input length, and the
+    # shorter stream of the same shape class
+    lp_audio = fd.design_fir("lowpass", 127, sample_rate=QUAD_RATE,
+                             f_low=15e3).astype(np.float32)
+    fir_case(f"f32 x f32 taps K=127 decim 5 T={WBFM_IN_LEN} (Path A audio FIR)",
+             (WBFM_IN_LEN,), torch.float32, lp_audio, 5, timed=True)
+    fir_case("f32 x f32 taps K=127 decim 5 T=838865", (838865,),
+             torch.float32, lp_audio, 5)
+
+    # iir_sos: against its plain loop where the loop is affordable (T = 4096),
+    # against scipy's float64 sosfilt at Path B's shape
+    from gnuradio4_tpu_torch.ops.iir import sos_init_state
+    sos5 = iir_design(5).sos
+    for label, ch, t in (("C=16 T=4096 S=3", 16, 4096), ("C=1 T=4096 S=3", 0, 4096)):
+        shape = (t,) if ch == 0 else (ch, t)
+        x = torch.randn(shape, device=dev, generator=gen)
+        s0 = 0.1 * torch.randn(sos_init_state(ch, 3).shape, device=dev, generator=gen)
+        y, st = ck.iir_sos(x, sos5, s0)
+        y_ref, st_ref = ck.iir_sos_ref(x, sos5, s0)
+        torch.cuda.synchronize()
+        err = max(rms_err(y.cpu().numpy(), y_ref.cpu().numpy()),
+                  rms_err(st.cpu().numpy(), st_ref.cpu().numpy()))
+        row = {"case": label, "max_abs_err": err, "tol": IIR_RTOL}
+        if ch == 16:
+            row["ms"], row["plain_ms"] = kernel_vs_plain_ms(
+                lambda: ck.iir_sos(x, sos5, s0),
+                lambda: ck.iir_sos_ref(x, sos5, s0), plain_reps=3)
+            results["iir_sos"].update(ms=row["ms"], plain_ms=row["plain_ms"])
+        print(f"  iir_sos {label}: max|Δ| {err:.3e}·RMS (tol {IIR_RTOL})"
+              + (f"; kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms"
+                 if "ms" in row else ""))
+        check(err <= IIR_RTOL, f"iir_sos {label}: {err} > {IIR_RTOL}")
+        results["iir_sos"]["max_abs_err"] = max(results["iir_sos"]["max_abs_err"], err)
+    # two chunks with the carried state against one pass of the plain loop
+    x = torch.randn(16, 4096, device=dev, generator=gen)
+    s0 = torch.zeros(16, 3, 2, device=dev)
+    y1, st = ck.iir_sos(x[:, :1500].contiguous(), sos5, s0)
+    y2, st = ck.iir_sos(x[:, 1500:].contiguous(), sos5, st)
+    y_ref, st_ref = ck.iir_sos_ref(x, sos5, s0)
+    torch.cuda.synchronize()
+    err = max(rms_err(torch.cat([y1, y2], -1).cpu().numpy(), y_ref.cpu().numpy()),
+              rms_err(st.cpu().numpy(), st_ref.cpu().numpy()))
+    print(f"  iir_sos C=16 two chunks 1500+2596, state carried: max|Δ| "
+          f"{err:.3e}·RMS (tol {IIR_RTOL})")
+    check(err <= IIR_RTOL, f"iir_sos state carry: {err} > {IIR_RTOL}")
+    results["iir_sos"]["max_abs_err"] = max(results["iir_sos"]["max_abs_err"], err)
+    x = torch.randn(IIR_CHANNELS, IIR_BLOCK_LEN, device=dev, generator=gen)
+    s0 = torch.zeros(IIR_CHANNELS, 3, 2, device=dev)
+    y, _ = ck.iir_sos(x, sos5, s0)
+    torch.cuda.synchronize()
+    check_against_scipy(y.cpu().numpy(), x.cpu().numpy(), 5,
+                        "iir_sos C=16 T=2^20 S=3")
+    iir_big_ms = cuda_ms(lambda: ck.iir_sos(x, sos5, s0), reps=5)
+    print(f"  iir_sos C=16 T=2^20 S=3: kernel {iir_big_ms:.4f} ms "
+          f"({IIR_CHANNELS * IIR_BLOCK_LEN / (iir_big_ms * 1e-3) / 1e6:.2f} "
+          f"Msamples/s over all channels)")
+    del x, y
+
+    # fir_demod against FIR then demod, on FM-modulated input (away from the
+    # |v| ≈ 0 points where atan2 turns f32 rounding into any angle)
+    def fm_stream(shape):
+        n = shape[-1]
+        walk = torch.randn(shape, device=dev, generator=gen).cumsum(-1) * 0.05
+        ph = torch.sin(walk) * 1.5 + torch.arange(n, device=dev) * 0.3
+        noise = torch.randn(shape, dtype=torch.complex64, device=dev, generator=gen)
+        return (torch.polar(torch.ones_like(ph), ph) + 0.05 * noise).contiguous()
+
+    def wrapped(a, b):
+        d = (a - b) / WBFM_GAIN
+        return float(torch.remainder(d + np.pi, 2 * np.pi).sub(np.pi).abs().max()
+                     ) * WBFM_GAIN
+
+    chan = wbfm_channel_taps()
+    xl_wbfm = freq_xlating_taps(chan, 60e3, QUAD_RATE)
+    tol_d = DEMOD_ATOL * WBFM_GAIN
+    for label, taps, decim, shape, timed in (
+            ("c64 x f32 taps K=127 T=2^22 (Path A)", chan, 1, (WBFM_BLOCK_LEN,), True),
+            ("c64 x c64 taps K=127 T=2^23", xl_wbfm, 1, (1 << 23,), True),
+            ("c64 x f32 taps K=127 decim 2 ragged T=1000003", chan, 2, (1000003,), False),
+            ("c64 x c64 taps K=127 C=4 T=2^18+77", xl_wbfm, 1, (4, (1 << 18) + 77), False)):
+        k = len(taps)
+        xc = fm_stream((*shape[:-1], shape[-1] + k - 1))
+        prev = torch.polar(torch.ones(shape[:-1], device=dev),
+                           torch.full(shape[:-1], 0.7, device=dev))
+        h = torch.from_numpy(np.ascontiguousarray(taps)).to(dev)
+        y = ck.fir_demod(xc, h, decim, prev, WBFM_GAIN)
+        y_ref = ck.fir_demod_ref(xc, h, decim, prev, WBFM_GAIN)
+        torch.cuda.synchronize()
+        check(y.shape == y_ref.shape == (*shape[:-1], shape[-1] // decim),
+              f"fir_demod {label}: shape {y.shape} vs {y_ref.shape}")
+        err = wrapped(y, y_ref)
+        row = {"case": label, "max_abs_err": err, "tol": tol_d}
+        if timed:
+            row["ms"], row["plain_ms"] = kernel_vs_plain_ms(
+                lambda: ck.fir_demod(xc, h, decim, prev, WBFM_GAIN),
+                lambda: ck.fir_demod_ref(xc, h, decim, prev, WBFM_GAIN))
+            if "Path A" in label:
+                results["fir_demod"].update(ms=row["ms"], plain_ms=row["plain_ms"])
+        print(f"  fir_demod {label}: max|Δ| {err:.3e} (tol {tol_d:.3e}, wrapped)"
+              + (f"; kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms"
+                 if timed else ""))
+        check(err <= tol_d, f"fir_demod {label}: {err} > {tol_d}")
+        results["fir_demod"]["max_abs_err"] = max(results["fir_demod"]["max_abs_err"], err)
+    # carry across two calls: the second call's prev is the first's last FIR output
+    n = 1 << 20
+    xc = fm_stream((2 * n + 126,))
+    one = torch.ones((), dtype=torch.complex64, device=dev)
+    y_one = ck.fir_demod(xc, xl_wbfm, 1, one, WBFM_GAIN)
+    y1 = ck.fir_demod(xc[: n + 126], xl_wbfm, 1, one, WBFM_GAIN)
+    v_last = ck.fir_banded_ref(xc[126: n + 126], xc[:126], xl_wbfm)[-1]
+    y2 = ck.fir_demod(xc[n:], xl_wbfm, 1, v_last, WBFM_GAIN)
+    torch.cuda.synchronize()
+    err = wrapped(torch.cat([y1, y2]), y_one)
+    print(f"  fir_demod c64 x c64 taps two calls of 2^20, v[-1] carried: max|Δ| "
+          f"to one call {err:.3e} (tol {tol_d:.3e})")
+    check(err <= tol_d, f"fir_demod carry: {err} > {tol_d}")
+    results["fir_demod"]["max_abs_err"] = max(results["fir_demod"]["max_abs_err"], err)
+    del xc, y_one, y1, y2
+
     # 4 + 5. the main path, absorbed then not: launches counted over both runs
     ck.reset_launch_counts()
     print(f"[4 chain] block_len 2^23, {STEPS} steps, rotation absorbed")
@@ -350,6 +674,114 @@ def main() -> int:
         cpu = run_chain("cpu", CPU_BLOCK_LEN, CPU_STEPS, absorb)
         gpu = run_chain("cuda", CPU_BLOCK_LEN, CPU_STEPS, absorb)
         compare_sinks(cpu, gpu, f"cpu vs gpu, {label}")
+
+    # 7. Path A: suite config 3, the WBFM receiver as a nested graph
+    print(f"[7 wbfm] block_len 2^22 → {WBFM_IN_LEN}, {WBFM_STEPS} steps")
+    ck.reset_launch_counts()
+    compiled, audio = run_wbfm("cuda", WBFM_BLOCK_LEN, WBFM_STEPS)
+    counts = ck.launch_counts()
+    print(f"  launches {counts}")
+    check(compiled.block_len == WBFM_IN_LEN, f"Path A block_len {compiled.block_len}")
+    check(counts["fir_banded"] == 2 * WBFM_STEPS,
+          f"fir_banded launched {counts['fir_banded']} times on Path A, "
+          f"expected {2 * WBFM_STEPS}")
+    check(counts["nco_mix"] == counts["iir_sos"] == counts["fir_demod"] == 0,
+          f"unexpected launches on Path A: {counts}")
+    for k in KERNELS:
+        results[k]["launches"] += counts[k]
+    check_wbfm_audio(audio, WBFM_IN_LEN // 5, WBFM_STEPS, "Path A (card)")
+    del audio, compiled
+    g, _ = build_wbfm("null")
+    sched = gt.Scheduler(g, block_len=WBFM_BLOCK_LEN, sample_rate=QUAD_RATE,
+                         device="cuda")
+    for _ in range(3):
+        sched.step_once()
+    torch.cuda.synchronize()
+    ms_a, windows = events_ms_per_step(sched.step_once, 20)
+    print(f"  Path A: {WBFM_IN_LEN / (ms_a * 1e-3) / 1e6:.2f} Msps (median {ms_a:.4f} "
+          f"ms/step over 5 windows of 20 steps, CUDA events; windows (events ms, "
+          f"wall ms) {[(round(a, 4), round(b, 4)) for a, b in windows]}) on {card}")
+    del sched, g
+    for bl in WBFM_CPU_BLOCK_LENS:
+        cpu = run_wbfm("cpu", bl, CPU_STEPS)[1]
+        gpu = run_wbfm("cuda", bl, CPU_STEPS)[1]
+        check_wbfm_audio(gpu, bl // 5, CPU_STEPS, f"Path A card, block_len {bl}")
+        d = float(np.max(np.abs(cpu - gpu))) if cpu.shape == gpu.shape else np.inf
+        print(f"  Path A cpu vs gpu, block_len {bl}: audio max|Δ| {d:.3e} "
+              f"(tol {WBFM_ATOL})")
+        check(d <= WBFM_ATOL, f"Path A cpu vs gpu at block_len {bl}: {d}")
+
+    # 8. Path B: the IIR filter block, whose engine picks the kernel
+    print(f"[8 iir] block_len 2^20, {IIR_STEPS} steps, {IIR_CHANNELS} channels")
+    _, x_src = run_iir_path("cuda", 5, IIR_BLOCK_LEN, IIR_STEPS, source_only=True)
+    ck.reset_launch_counts()
+    iir, y_b = run_iir_path("cuda", 5, IIR_BLOCK_LEN, IIR_STEPS)
+    counts = ck.launch_counts()
+    print(f"  launches {counts}; engine {iir._engine(dev)}")
+    check(counts["iir_sos"] == IIR_STEPS,
+          f"iir_sos launched {counts['iir_sos']} times, expected {IIR_STEPS}")
+    check(counts["fir_banded"] == counts["nco_mix"] == counts["fir_demod"] == 0,
+          f"unexpected launches on Path B: {counts}")
+    for k in KERNELS:
+        results[k]["launches"] += counts[k]
+    check(x_src.shape == (IIR_CHANNELS, IIR_BLOCK_LEN * IIR_STEPS),
+          f"Path B source shape {x_src.shape}")
+    check_against_scipy(y_b, x_src, 5, "Path B order 5 (iir_sos)")
+    ck.reset_launch_counts()
+    iir4, y4 = run_iir_path("cuda", 4, IIR_BLOCK_LEN, IIR_STEPS)
+    counts = ck.launch_counts()
+    print(f"  order 4: launches {counts}; engine {iir4._engine(dev)}")
+    check(iir4._engine(dev) == "parallel" and counts["iir_sos"] == 0,
+          f"order 4 under auto: engine {iir4._engine(dev)}, launches {counts}")
+    check_against_scipy(y4, x_src, 4, "Path B order 4 (parallel engine)")
+    del y_b, y4, x_src
+    g, _, _ = build_iir_path(5, "null")
+    sched = gt.Scheduler(g, block_len=IIR_BLOCK_LEN, sample_rate=IIR_FS,
+                         device="cuda")
+    sched.step_once()
+    torch.cuda.synchronize()
+    ms_b, windows = events_ms_per_step(sched.step_once, 5)
+    print(f"  Path B: {ms_b:.4f} ms/step (median over 5 windows of 5 steps, CUDA "
+          f"events; windows (events ms, wall ms) "
+          f"{[(round(a, 4), round(b, 4)) for a, b in windows]}) on {card}")
+    del sched, g
+    _, cpu = run_iir_path("cpu", 5, IIR_CPU_BLOCK_LEN, CPU_STEPS)
+    _, gpu = run_iir_path("cuda", 5, IIR_CPU_BLOCK_LEN, CPU_STEPS)
+    check(cpu.shape == gpu.shape, f"Path B cpu vs gpu shapes {cpu.shape} {gpu.shape}")
+    err = rms_err(gpu, cpu)
+    print(f"  Path B cpu (scan engine) vs gpu (iir_sos), block_len 2^12: max|Δ| "
+          f"{err:.3e}·RMS (tol {SCIPY_RTOL}: direct form against the cascade)")
+    check(err <= SCIPY_RTOL, f"Path B cpu vs gpu: {err}")
+
+    # 9. the fused FIR→demod entry point at Path A's shapes
+    print(f"[9 fused front end] fir_quad_demod_fused, 4 chunks of 2^22")
+    ck.reset_launch_counts()
+    outs, inputs = fused_front_end(dev, WBFM_BLOCK_LEN, 4)
+    torch.cuda.synchronize()
+    counts = ck.launch_counts()
+    print(f"  launches {counts}")
+    check(counts["fir_demod"] == 4 and counts["fir_banded"] == 0,
+          f"fused front end launches {counts}")
+    for k in KERNELS:
+        results[k]["launches"] += counts[k]
+    y = torch.cat(outs)
+    check(y.shape == (4 * WBFM_BLOCK_LEN,) and bool(torch.isfinite(y).all()),
+          f"fused front end output {tuple(y.shape)}")
+    dev_c = float((y[WBFM_SKIP:] - WBFM_CONST).abs().max())
+    print(f"  demod max|Δ| from {WBFM_CONST:.8f} after {WBFM_SKIP} samples = "
+          f"{dev_c:.3e} (tol {WBFM_ATOL})")
+    check(dev_c <= WBFM_ATOL, f"fused front end deviates {dev_c}")
+    prev = torch.ones((), dtype=torch.complex64, device=dev)
+    taps = wbfm_channel_taps()
+    err = 0.0
+    for xc, got in zip(inputs, outs):
+        want = ck.fir_demod_ref(xc, taps, 1, prev, WBFM_GAIN)
+        err = max(err, float((got - want).abs().max()))
+        prev = ck.fir_banded_ref(xc[126:], xc[:126], taps)[-1]
+    print(f"  against FIR then demod (plain), chunk by chunk: max|Δ| {err:.3e} "
+          f"(tol {tol_d:.3e})")
+    check(err <= tol_d, f"fused front end against the composition: {err}")
+    del outs, inputs, y
 
     kernels = [{"name": name, "route": "cuda", **meta,
                 "launches": results[name]["launches"],

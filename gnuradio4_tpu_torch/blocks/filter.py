@@ -1,8 +1,9 @@
 """Filter blocks (≈ reference blocks/filter/time_domain_filter.hpp).
 
 ``FirFilter`` (:24 fir_filter with decimation) and ``FreqXlatingFir`` (channel
-extraction). Both filter through ops/fir.py ``fir_apply``, i.e. the hand-written
-banded FIR kernel on a CUDA device.
+extraction) filter through ops/fir.py ``fir_apply``, i.e. the hand-written
+banded FIR kernel on a CUDA device. ``IirFilter`` (:64 iir_filter) runs one of
+ops/iir.py's engines, or the hand-written biquad-cascade kernel.
 """
 
 from __future__ import annotations
@@ -18,7 +19,8 @@ from ..core.errors import GrError
 from ..core.registry import register_block
 from ..core.settings import Setting
 from ..ops import filter_design as fd
-from ..ops.cuda_kernels import nco_mix
+from ..ops import iir as iir_ops
+from ..ops.cuda_kernels import iir_sos, nco_mix
 from ..ops.fir import PRECISIONS, fir_apply, fir_init_state, freq_xlating_taps
 from ..ops.signal import complex_exp_ramp, phase_increment
 from .basic import phase_state
@@ -201,3 +203,75 @@ class FreqXlatingFir(FirFilter):
         return ({"hist": new_hist, "phase": phase_state(int(state["phase"])
                                                         + dphi * n_out)},
                 {"out": y})
+
+
+@register_block("IirFilter")
+class IirFilter(Block):
+    """Direct-form IIR y[n] = Σb·x − Σa·y (≈ iir_filter, time_domain_filter.hpp:64).
+
+    Engines: ``scan`` — transposed DF-II loop over time (ops/iir.py
+    ``iir_apply``, state [C, order]); ``parallel`` — partial fractions into
+    one-pole recurrences of O(log T) depth (needs separable poles, state
+    [C, S] complex64); ``pallas`` — the biquad cascade, the ``iir_sos`` CUDA
+    kernel on the card and its plain loop on the CPU (state [C, S, 2]).
+    ``auto`` decides from the block's device: ``scan`` on the CPU; on CUDA
+    ``parallel`` when the sections allow it, else ``pallas``."""
+
+    IN = (Port("in", dtype="float32"),)
+    OUT = (Port("out", dtype="float32"),)
+    b = Setting(default=(1.0,), kind="static", description="feed-forward coeffs")
+    a = Setting(default=(1.0,), kind="static", description="feedback coeffs, a[0]=1")
+    engine = Setting(default="auto", kind="static",
+                     choices=("auto", "scan", "parallel", "pallas"),
+                     description="'parallel': O(log T) associative-scan partial "
+                                 "fractions (needs separable poles); 'pallas': "
+                                 "the biquad-cascade kernel (one time loop per "
+                                 "channel)")
+    uncertain = Setting(default=False, kind="static",
+                        description="input is a 2-plane (value, sigma) stream "
+                                    "(not ported to this package yet; raises)")
+
+    def __init__(self, name=None, b: Any = None, a: Any = None, **settings):
+        if b is not None:
+            settings["b"] = tuple(np.asarray(b, dtype=np.float64).tolist())
+        if a is not None:
+            settings["a"] = tuple(np.asarray(a, dtype=np.float64).tolist())
+        super().__init__(name=name, **settings)
+
+    def _sos(self) -> np.ndarray:
+        return fd.ba_to_sos(self.settings.get("b"), self.settings.get("a"))
+
+    def _engine(self, device: torch.device) -> str:
+        eng = str(self.settings.get("engine"))
+        if eng != "auto":
+            return eng
+        if device.type != "cuda":
+            return "scan"
+        return "parallel" if iir_ops.sos_supports_parallel(self._sos()) else "pallas"
+
+    def init_state(self, ctx):
+        if self.settings.get("uncertain"):
+            raise GrError(f"{self.name}: uncertain mode is not ported to this "
+                          f"package yet", block=self.name)
+        ch = ctx.channels.get("in", 0)
+        eng = self._engine(ctx.device)
+        if eng == "parallel":
+            return iir_ops.sos_parallel_init_state(ch, self._sos().shape[0],
+                                                   ctx.device)
+        if eng == "pallas":
+            return iir_ops.sos_init_state(ch, self._sos().shape[0], ctx.device)
+        return iir_ops.iir_init_state(ch, len(self.settings.get("b")),
+                                      len(self.settings.get("a")), ctx.device)
+
+    def apply(self, state, ins, ctx):
+        x = ins["in"]
+        eng = self._engine(ctx.device)
+        if eng == "parallel":
+            y, new_state = iir_ops.sos_parallel_apply(x, self._sos(), state)
+        elif eng == "pallas":
+            y, new_state = iir_sos(x.contiguous(), self._sos(), state)
+        else:
+            y, new_state = iir_ops.iir_apply(
+                x, np.asarray(self.settings.get("b"), dtype=np.float64),
+                np.asarray(self.settings.get("a"), dtype=np.float64), state)
+        return new_state, {"out": y}

@@ -1,5 +1,10 @@
-"""SDR demodulation blocks (≈ reference blocks/filter IQDemodulator,
-FrequencyEstimator.hpp)."""
+"""SDR demodulation blocks and the wideband-FM receive chain (≈ reference
+blocks/filter IQDemodulator, FrequencyEstimator.hpp).
+
+The WBFM receiver is a nested Graph (subgraph — GraphWrapper-style composition,
+reference Graph.hpp:169) built from FreqXlatingFir → QuadratureDemod → audio
+decimator → de-emphasis.
+"""
 
 from __future__ import annotations
 
@@ -7,9 +12,12 @@ import numpy as np
 import torch
 
 from ..core.block import Block, Port
+from ..core.graph import Graph
 from ..core.registry import register_block
 from ..core.settings import Setting
-from ..ops.demod import quadrature_demod
+from ..ops import filter_design as fd
+from ..ops.demod import fm_deemphasis_coeffs, quadrature_demod
+from ..ops.iir import one_pole_ba_apply
 
 
 @register_block("QuadratureDemod")
@@ -42,3 +50,86 @@ class QuadratureDemod(Block):
             rot = complex(np.exp(2j * np.pi * frac))
         y, last = quadrature_demod(ins["in"], state, gain=gain, rot=rot)
         return last, {"out": y}
+
+
+@register_block("FmDeemphasis")
+class FmDeemphasis(Block):
+    """Single-pole FM de-emphasis (τ = 75 µs US / 50 µs EU)."""
+
+    IN = (Port("in", dtype="float32"),)
+    OUT = (Port("out", dtype="float32"),)
+    tau = Setting(default=75e-6, kind="static", unit="s")
+    sample_rate_in = Setting(default=0.0, kind="static",
+                             description="0 → inherit resolved edge rate")
+
+    def _ba(self, fs: float):
+        fs_eff = float(self.settings.get("sample_rate_in")) or fs
+        return fm_deemphasis_coeffs(fs_eff, float(self.settings.get("tau")))
+
+    def init_state(self, ctx):
+        self._fs_cached = ctx.sample_rate
+        ch = ctx.channels.get("in", 0)
+        return torch.zeros(() if ch == 0 else (ch,), dtype=torch.float32,
+                           device=ctx.device)
+
+    def apply(self, state, ins, ctx):
+        # single real pole → exact O(log T) parallel recurrence
+        b, a = self._ba(getattr(self, "_fs_cached", ctx.sample_rate))
+        y, last = one_pole_ba_apply(ins["in"], b, a, state)
+        return last, {"out": y}
+
+
+def make_wbfm_receiver(*, quad_rate: float, audio_decim: int,
+                       center_freq: float = 0.0, channel_width: float = 200e3,
+                       max_dev: float = 75e3, rf_decim: int = 1,
+                       ntaps: int = 127, deemph_tau: float = 75e-6,
+                       name: str = "wbfm") -> Graph:
+    """Wideband FM receiver subgraph (suite config 3).
+
+    input: complex baseband at ``quad_rate·rf_decim`` centered ``center_freq`` away
+    from the station; output: float32 audio at ``quad_rate/audio_decim``.
+    Structure: FreqXlatingFir(channel LP, decim rf_decim) → QuadratureDemod →
+    audio low-pass FIR (decim audio_decim) → de-emphasis.
+    """
+    from .filter import FirFilter, FreqXlatingFir
+    g = Graph(name=name)
+    fs_in = quad_rate * rf_decim
+    chan_taps = fd.design_fir("lowpass", ntaps, sample_rate=fs_in,
+                              f_low=channel_width / 2.0)
+    xlate = g.add(FreqXlatingFir(taps=chan_taps.astype(np.float32),
+                                 center_freq=center_freq, decim=rf_decim,
+                                 sample_rate_in=fs_in, name=f"{name}.channel"))
+    demod = g.add(QuadratureDemod(gain=quad_rate / (2.0 * np.pi * max_dev),
+                                  name=f"{name}.demod"))
+    audio_rate = quad_rate / audio_decim
+    audio_taps = fd.design_fir("lowpass", ntaps, sample_rate=quad_rate,
+                               f_low=min(15e3, 0.4 * audio_rate))
+    audio = g.add(FirFilter(taps=audio_taps.astype(np.float32), decim=audio_decim,
+                            name=f"{name}.audio"))
+    deemph = g.add(FmDeemphasis(tau=deemph_tau, sample_rate_in=audio_rate,
+                                name=f"{name}.deemph"))
+    g.connect_chain(xlate, demod, audio, deemph)
+    g.export_in("in", xlate, "in")
+    g.export_out("out", deemph, "out")
+    return g
+
+
+@register_block("WbfmReceiver")
+class WbfmReceiver(Graph):
+    """Registry-constructible WBFM receiver (nested graph block)."""
+
+    def __init__(self, name=None, quad_rate: float = 250e3, audio_decim: int = 5,
+                 center_freq: float = 0.0, rf_decim: int = 1, max_dev: float = 75e3,
+                 deemph_tau: float = 75e-6):
+        inner = make_wbfm_receiver(quad_rate=quad_rate, audio_decim=audio_decim,
+                                   center_freq=center_freq, rf_decim=rf_decim,
+                                   max_dev=max_dev, deemph_tau=deemph_tau,
+                                   name=name or "wbfm")
+        # adopt the prepared graph's contents
+        super().__init__(name=name or "wbfm")
+        self.blocks = inner.blocks
+        self.edges = inner.edges
+        self._exports_in = inner._exports_in
+        self._exports_out = inner._exports_out
+        self.in_ports = inner.in_ports
+        self.out_ports = inner.out_ports

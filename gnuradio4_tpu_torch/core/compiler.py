@@ -38,7 +38,7 @@ def default_device() -> torch.device:
 class CompiledGraph:
     """A rate-resolved flowgraph bound to a device, ready for the scheduler."""
 
-    graph: Graph
+    graph: Graph                      # flattened
     order: list[Block]
     in_len: dict[str, int]            # block unique_name → input samples/step
     out_len: dict[str, int]
@@ -116,9 +116,11 @@ class CompiledGraph:
 def compile_graph(graph: Graph, *, block_len: int = 1 << 16,
                   sample_rate: float = 1.0, batch_steps: int = 1,
                   device: torch.device | str | None = None) -> CompiledGraph:
-    """Validate, solve rates/dtypes/channels, run the rotation-absorption pass,
-    and bind the graph to ``device`` (default: :func:`default_device`)."""
+    """Flatten nested graphs, validate, solve rates/dtypes/channels, run the
+    rotation-absorption pass, and bind the graph to ``device`` (default:
+    :func:`default_device`). ``CompiledGraph.graph`` is the flattened graph."""
     device = default_device() if device is None else torch.device(device)
+    graph = graph.flatten()
     graph.validate()
     order = graph.topological_order()
     in_len, out_len = graph.resolve_rates(block_len, sample_rate)

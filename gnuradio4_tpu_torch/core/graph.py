@@ -1,7 +1,9 @@
-"""Graph model: blocks + edges, validation, topological order, rate algebra.
+"""Graph model: blocks + edges, validation, flatten, topological order, rate
+algebra.
 
-Reference (core/include/gnuradio-4.0/Graph.hpp): ``Graph`` owns blocks + ``Edge``
-records. Here the graph is a *description* the compiler turns into one step
+Reference (core/include/gnuradio-4.0/Graph.hpp): ``Graph : Block<Graph>`` owns
+blocks + ``Edge`` records; ``graph::flatten`` (Graph.hpp:916) inlines nested
+graphs. Here the graph is a *description* the compiler turns into one step
 function; edges carry no buffers — they are the tensors one block's ``apply``
 hands the next. The reference's per-work() chunk negotiation (Block.hpp:1611
 computeResampling) becomes a one-shot **rate algebra**: per-edge
@@ -44,14 +46,20 @@ class Edge:
                 + (f", n={self.samples_per_step}" if self.samples_per_step else "") + ")")
 
 
-class Graph:
-    """Flowgraph container."""
+class Graph(Block):
+    """Flowgraph container. Nests as a block (≈ Graph : Block<Graph>, Graph.hpp:347):
+    use :meth:`export_in`/:meth:`export_out` to expose inner ports, then connect the
+    Graph instance inside a parent graph; the compiler flattens before it solves
+    rates."""
 
     def __init__(self, name: str | None = None, registry: BlockRegistry | None = None):
-        self.name = name or "graph"
+        super().__init__(name=name)
         self.blocks: list[Block] = []
         self.edges: list[Edge] = []
         self.registry = registry or global_registry
+        # exported ports for subgraph use: public name -> (inner block, inner port)
+        self._exports_in: dict[str, tuple[Block, str]] = {}
+        self._exports_out: dict[str, tuple[Block, str]] = {}
 
     # -- construction ----------------------------------------------------------
     def add(self, block: Block) -> Block:
@@ -114,7 +122,45 @@ class Graph:
                 f"dtype mismatch {sref.block.name}.{sref.port}:{sp.dtype} → "
                 f"{dref.block.name}.{dref.port}:{dp.dtype}")
 
+    # -- subgraph port export (≈ kSubgraphExportPort, Graph.hpp:178-225) -------
+    def export_in(self, public_name: str, block: Block, port: str) -> None:
+        block.port(port, output=False)
+        self._exports_in[public_name] = (block, port)
+        self.in_ports = (*self.in_ports, Port(public_name))
+
+    def export_out(self, public_name: str, block: Block, port: str) -> None:
+        block.port(port, output=True)
+        self._exports_out[public_name] = (block, port)
+        self.out_ports = (*self.out_ports, Port(public_name))
+
     # -- analysis --------------------------------------------------------------
+    def flatten(self) -> "Graph":
+        """Inline nested Graph blocks (≈ graph::flatten, Graph.hpp:916): inner
+        blocks and edges first, in the parent's block order, then the parent's
+        edges with exported ports mapped onto the inner ones."""
+        if not any(isinstance(b, Graph) for b in self.blocks):
+            return self
+        flat = Graph(name=self.name, registry=self.registry)
+        remap: dict[tuple[str, str, bool], tuple[Block, str]] = {}
+        for b in self.blocks:
+            if isinstance(b, Graph):
+                inner = b.flatten()
+                for ib in inner.blocks:
+                    flat.add(ib)
+                flat.edges.extend(inner.edges)
+                for pub, (blk, prt) in inner._exports_in.items():
+                    remap[(b.unique_name, pub, False)] = (blk, prt)
+                for pub, (blk, prt) in inner._exports_out.items():
+                    remap[(b.unique_name, pub, True)] = (blk, prt)
+            else:
+                flat.add(b)
+        for e in self.edges:
+            s = remap.get((e.src.unique_name, e.src_port, True), (e.src, e.src_port))
+            d = remap.get((e.dst.unique_name, e.dst_port, False), (e.dst, e.dst_port))
+            flat.edges.append(dataclasses.replace(e, src=s[0], src_port=s[1],
+                                                  dst=d[0], dst_port=d[1]))
+        return flat
+
     def topological_order(self) -> list[Block]:
         indeg = {b: 0 for b in self.blocks}
         for e in self.edges:

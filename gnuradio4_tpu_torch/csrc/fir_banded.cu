@@ -16,9 +16,8 @@
 // 128x128 matrix unit at about twice the multiply-adds. Here the FIR runs in
 // direct form on the CUDA cores: each block stages its input span (its outputs'
 // samples plus the K-1 halo) and the reversed taps in shared memory once, and
-// each thread keeps kOutPerThread outputs in registers, one f32 FMA chain each.
-// Neighbouring threads own neighbouring outputs, so for decim 1 their shared
-// loads hit neighbouring banks; the taps are a broadcast read.
+// each thread keeps kFirOutPerThread outputs in registers, one f32 FMA chain
+// each (the tile loop of fir_common.cuh, shared with fir_demod.cu).
 //
 // What bounds it. At the chain's shapes (K = 127, complex stream x complex
 // taps, decim 1) each output costs K complex MACs = 4K = 508 FMAs (~1 kflop)
@@ -30,46 +29,16 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "fir_common.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kOutPerThread = 4;
-constexpr size_t kSmemBudget = 48 * 1024;         // keep several blocks per SM
-constexpr size_t kSmemMax = 227 * 1024;           // Hopper per-block limit
-
-template <typename T> __device__ __forceinline__ T zero();
-template <> __device__ __forceinline__ float zero<float>() { return 0.f; }
-template <> __device__ __forceinline__ float2 zero<float2>() {
-  return make_float2(0.f, 0.f);
-}
-
-// acc += h * x for every (tap, sample) type pair the FIR takes.
-__device__ __forceinline__ void mac(float& acc, float h, float x) {
-  acc = fmaf(h, x, acc);
-}
-__device__ __forceinline__ void mac(float2& acc, float h, float2 x) {
-  acc.x = fmaf(h, x.x, acc.x);
-  acc.y = fmaf(h, x.y, acc.y);
-}
-__device__ __forceinline__ void mac(float2& acc, float2 h, float x) {
-  acc.x = fmaf(h.x, x, acc.x);
-  acc.y = fmaf(h.y, x, acc.y);
-}
-__device__ __forceinline__ void mac(float2& acc, float2 h, float2 x) {
-  acc.x = fmaf(h.x, x.x, acc.x);
-  acc.x = fmaf(-h.y, x.y, acc.x);
-  acc.y = fmaf(h.x, x.y, acc.y);
-  acc.y = fmaf(h.y, x.x, acc.y);
-}
-
-__host__ __device__ __forceinline__ size_t align16(size_t n) {
-  return (n + 15) & ~size_t(15);
-}
+using namespace gr4fir;
 
 // X: stream sample (float | float2), H: tap (float | float2),
 // Y: output (float2 when either is complex, else float).
 template <typename X, typename H, typename Y>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kFirThreads)
 fir_banded_kernel(const X* __restrict__ x, const X* __restrict__ hist,
                   const H* __restrict__ taps, Y* __restrict__ y,
                   int64_t T, int K, int decim, int64_t M, int out_per_block) {
@@ -86,43 +55,15 @@ fir_banded_kernel(const X* __restrict__ x, const X* __restrict__ hist,
   const int n_out = M - m0 < out_per_block ? int(M - m0) : out_per_block;
   const int span = (n_out - 1) * decim + K;
 
-  // reversed taps: y[m] = sum_j s_h[j] * xc[m*decim + j]
-  for (int j = threadIdx.x; j < K; j += blockDim.x) s_h[j] = taps[K - 1 - j];
-  const int64_t g0 = m0 * decim;
-  for (int j = threadIdx.x; j < span; j += blockDim.x) {
-    const int64_t g = g0 + j;
-    X v;
-    if (g < K - 1) {
-      v = hrow[g];
-    } else {
-      const int64_t t = g - (K - 1);
-      v = t < T ? xrow[t] : zero<X>();
-    }
-    s_x[j] = v;
-  }
+  stage_reversed_taps(s_h, taps, K);
+  stage_span(s_x, span, m0 * decim, [&](int64_t g) {
+    if (g < K - 1) return hrow[g];
+    const int64_t t = g - (K - 1);
+    return t < T ? xrow[t] : zero<X>();
+  });
   __syncthreads();
-
-  for (int base = 0; base < n_out; base += kThreads * kOutPerThread) {
-    Y acc[kOutPerThread];
-    const X* px[kOutPerThread];
-#pragma unroll
-    for (int r = 0; r < kOutPerThread; ++r) {
-      acc[r] = zero<Y>();
-      // outputs past n_out compute on a valid row and are not stored
-      const int o = min(base + int(threadIdx.x) + r * kThreads, n_out - 1);
-      px[r] = s_x + o * decim;
-    }
-    for (int j = 0; j < K; ++j) {
-      const H hj = s_h[j];
-#pragma unroll
-      for (int r = 0; r < kOutPerThread; ++r) mac(acc[r], hj, px[r][j]);
-    }
-#pragma unroll
-    for (int r = 0; r < kOutPerThread; ++r) {
-      const int o = base + int(threadIdx.x) + r * kThreads;
-      if (o < n_out) yrow[m0 + o] = acc[r];
-    }
-  }
+  fir_direct<X, H, Y>(s_x, s_h, K, decim, n_out,
+                      [&](int o, Y v) { yrow[m0 + o] = v; });
 }
 
 template <typename X, typename H, typename Y>
@@ -135,8 +76,7 @@ int launch(const void* x, const void* hist, const void* taps, void* y,
   auto smem_bytes = [&](int opb) {
     return align16(size_t(K) * sizeof(H)) + (size_t(opb - 1) * decim + K) * sizeof(X);
   };
-  int opb = kThreads * kOutPerThread;
-  while (opb > 32 && smem_bytes(opb) > kSmemBudget) opb /= 2;
+  const int opb = outputs_per_block(smem_bytes);
   const size_t smem = smem_bytes(opb);
   if (smem > kSmemMax) return int(cudaErrorInvalidValue);
   auto kernel = fir_banded_kernel<X, H, Y>;
@@ -146,7 +86,7 @@ int launch(const void* x, const void* hist, const void* taps, void* y,
     if (e != cudaSuccess) return int(e);
   }
   const dim3 grid(unsigned((M + opb - 1) / opb), unsigned(channels));
-  kernel<<<grid, kThreads, smem, stream>>>(
+  kernel<<<grid, kFirThreads, smem, stream>>>(
       static_cast<const X*>(x), static_cast<const X*>(hist),
       static_cast<const H*>(taps), static_cast<Y*>(y), T, K, decim, M, opb);
   return int(cudaGetLastError());

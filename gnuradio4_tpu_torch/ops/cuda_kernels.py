@@ -11,12 +11,14 @@ a CPU tensor takes the plain version beside it; a CUDA tensor launches the
 kernel (counting the launch in ``<wrapper>.launches``) or raises. No path falls
 back from a failed build or launch to the plain version.
 
-=================  =========================================  ==================
+=================  ==============================================  ================
 wrapper            replaces (gnuradio4_tpu/ops/pallas_kernels.py)  plain version
-=================  =========================================  ==================
-fir_banded         fir_planar_pallas, fir_ilv_pallas          fir_banded_ref
-nco_mix            nco_mix_pallas                             nco_mix_ref
-=================  =========================================  ==================
+=================  ==============================================  ================
+fir_banded         fir_planar_pallas, fir_ilv_pallas               fir_banded_ref
+nco_mix            nco_mix_pallas                                  nco_mix_ref
+iir_sos            iir_sos_pallas                                  iir_sos_ref
+fir_demod          fir_demod_planar_pallas                         fir_demod_ref
+=================  ==============================================  ================
 """
 
 from __future__ import annotations
@@ -42,7 +44,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+              "-Xcompiler", "-fPIC", "-Xptxas=-v")
 _ANGLE = float(np.float32(2.0 * np.pi)) / 4294967296.0   # f32(2π)·2^-32
 
 
@@ -78,6 +80,40 @@ def _nvcc() -> str:
     return str(Path(CUDA_HOME) / "bin" / "nvcc")
 
 
+def _compile(so: Path) -> str:
+    """One ``nvcc -c`` per source, all started together, then one link into
+    ``so``. Returns the compilers' output."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{os.getpid()}.tmp"
+    nvcc = _nvcc()
+    jobs = []
+    for src in sorted(CSRC.glob("*.cu")):
+        obj = so.with_name(f"{so.stem}_{src.stem}.{tag}.o")
+        jobs.append((src, obj, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    log, failed = "", []
+    for src, _, proc in jobs:
+        out, _ = proc.communicate()
+        log += out
+        if proc.returncode != 0:
+            failed.append(f"{src.name} (exit code {proc.returncode})")
+    if failed:
+        raise GrError(f"nvcc failed for {', '.join(failed)}:\n{log}")
+    tmp = so.with_name(f"{so.name}.{tag}")
+    proc = subprocess.run([nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp),
+                           *(str(obj) for _, obj, _ in jobs)],
+                          capture_output=True, text=True)
+    log += proc.stdout + proc.stderr
+    for _, obj, _ in jobs:
+        obj.unlink(missing_ok=True)
+    if proc.returncode != 0:
+        raise GrError(f"linking the kernels failed with exit code "
+                      f"{proc.returncode}:\n{log}")
+    os.replace(tmp, so)
+    return log
+
+
 def build() -> KernelLibrary:
     """Compile ``csrc/*.cu`` (once per source hash) and load the library."""
     global _library
@@ -86,17 +122,7 @@ def build() -> KernelLibrary:
             return _library
         so = BUILD_DIR / f"libgr4kernels_{_source_hash()}.so"
         t0 = time.perf_counter()
-        log = ""
-        if not so.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                   *map(str, sorted(CSRC.glob("*.cu")))]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            log = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                raise GrError(f"nvcc failed with exit code {proc.returncode}:\n{log}")
-            os.replace(tmp, so)
+        log = "" if so.exists() else _compile(so)
         lib = ctypes.CDLL(str(so))
         lib.gr4_fir_banded.argtypes = [ctypes.c_void_p] * 4 + [
             ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
@@ -107,6 +133,14 @@ def build() -> KernelLibrary:
                                     ctypes.c_uint32, ctypes.c_uint32,
                                     ctypes.c_void_p]
         lib.gr4_nco_mix.restype = ctypes.c_int
+        lib.gr4_iir_sos.argtypes = [ctypes.c_void_p] * 5 + [
+            ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_void_p]
+        lib.gr4_iir_sos.restype = ctypes.c_int
+        lib.gr4_iir_sos_max_sections.restype = ctypes.c_int
+        lib.gr4_fir_demod.argtypes = [ctypes.c_void_p] * 4 + [
+            ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
+        lib.gr4_fir_demod.restype = ctypes.c_int
         lib.gr4_error_string.argtypes = [ctypes.c_int]
         lib.gr4_error_string.restype = ctypes.c_char_p
         _library = KernelLibrary(lib, so, time.perf_counter() - t0, log)
@@ -201,9 +235,10 @@ def fir_banded(x: torch.Tensor, hist: torch.Tensor, taps, decim: int = 1
 fir_banded.launches = 0
 
 
-def _check_f32_matmul(site: str) -> None:
-    """The plain FIR runs its banded products as float32 matmuls; TF32 would
-    keep ~3 decimal digits. Refuse to run under any setting that allows it."""
+def check_f32_matmul(site: str) -> None:
+    """The plain FIR's banded products and the blocked one-pole's Toeplitz
+    product (ops/iir.py) are float32 or complex64 matmuls; TF32 would keep ~3
+    decimal digits. Refuse to run under any setting that allows it."""
     if torch.get_float32_matmul_precision() != "highest" \
             or torch.backends.cuda.matmul.allow_tf32:
         raise GrError(f"{site}: float32 matmuls must run in full float32 "
@@ -267,7 +302,7 @@ def fir_banded_ref(x: torch.Tensor, hist: torch.Tensor, taps, decim: int = 1
     (gnuradio4_tpu/ops/fir.py) — zero-copy two-view banded matmul. The stream
     ``xc = [hist, x]`` is zero-padded to ``(n+1)`` tiles and viewed as rows
     A [n+1, tile]; ``y[m] = A[m] @ W_lo + A[m+1] @ W_hi`` in full float32."""
-    _check_f32_matmul("fir_banded_ref")
+    check_f32_matmul("fir_banded_ref")
     taps_np = _host_taps(taps)
     squeeze = x.ndim == 1
     x2 = x[None] if squeeze else x
@@ -350,10 +385,117 @@ def nco_mix_ref(x: torch.Tensor, phase0: int, dphi: int
     return y, (int(phase0) + t * int(dphi)) & MASK32
 
 
+# -- cascaded biquads ------------------------------------------------------------
+
+def iir_sos(x: torch.Tensor, sos, state: torch.Tensor
+            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Cascaded-biquad IIR (transposed DF-II) over the last axis of a float32
+    ``[T]`` or ``[C, T]`` stream. ``sos``: [S, 6] host coefficients; ``state``:
+    [S, 2] or [C, S, 2] float32. Returns ``(y, new_state)``. CPU tensors take
+    :func:`iir_sos_ref`; CUDA tensors launch the kernel in ``csrc/iir_sos.cu``."""
+    if x.device.type == "cpu":
+        return iir_sos_ref(x, sos, state)
+    from .iir import sos_coefficients
+    name = "iir_sos"
+    if x.dtype != torch.float32 or state.dtype != torch.float32:
+        raise GrError(f"{name}: stream and state must be float32; got "
+                      f"{x.dtype}, {state.dtype}")
+    dev = _require_cuda(name, x, state)
+    co = sos_coefficients(sos)
+    n_sec = co.shape[0]
+    lib = build().lib
+    if n_sec > lib.gr4_iir_sos_max_sections():
+        raise GrError(f"{name}: {n_sec} sections; the kernel takes at most "
+                      f"{lib.gr4_iir_sos_max_sections()}")
+    if x.ndim not in (1, 2) or state.shape != (*x.shape[:-1], n_sec, 2):
+        raise GrError(f"{name}: bad shapes x{tuple(x.shape)} state"
+                      f"{tuple(state.shape)} for {n_sec} sections")
+    channels = 1 if x.ndim == 1 else x.shape[0]
+    t = x.shape[-1]
+    y = torch.empty_like(x)
+    new_state = torch.empty_like(state)
+    if channels == 0 or t == 0:
+        new_state.copy_(state)
+        return y, new_state
+    err = lib.gr4_iir_sos(x.data_ptr(), y.data_ptr(), state.data_ptr(),
+                          new_state.data_ptr(), co.ctypes.data, channels, t,
+                          n_sec, _stream(dev))
+    _check(err, name)
+    iir_sos.launches += 1
+    return y, new_state
+
+
+iir_sos.launches = 0
+
+
+def iir_sos_ref(x: torch.Tensor, sos, state: torch.Tensor
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of :func:`iir_sos`: ops/iir.py ``sos_apply``, a loop over
+    time in the kernel's update order."""
+    from .iir import sos_apply
+    return sos_apply(x, sos, state)
+
+
+# -- fused FIR + quadrature demod ----------------------------------------------
+
+def fir_demod(xc: torch.Tensor, taps, decim: int, prev: torch.Tensor,
+              gain: float) -> torch.Tensor:
+    """Decimating FIR fused with the quadrature demod: ``v = FIR(xc)`` as
+    :func:`fir_banded` frames it, then ``gain·arg(v[m]·conj v[m−1])`` with
+    ``v[−1] = prev``. ``xc``: history-prefixed complex64 ``[T+K−1]`` or
+    ``[C, T+K−1]``; ``taps``: [K] float32 or complex64; ``prev``: complex64
+    ``[]`` or ``[C]``. Returns float32 ``[..., T // decim]``. CPU tensors take
+    :func:`fir_demod_ref`; CUDA tensors launch the kernel in
+    ``csrc/fir_demod.cu``."""
+    if xc.device.type == "cpu":
+        return fir_demod_ref(xc, taps, decim, prev, gain)
+    name = "fir_demod"
+    if xc.dtype != torch.complex64 or prev.dtype != torch.complex64:
+        raise GrError(f"{name}: stream and prev must be complex64; got "
+                      f"{xc.dtype}, {prev.dtype}")
+    dev = _require_cuda(name, xc, prev)
+    h = _device_taps(taps, dev)
+    if h.dtype not in (torch.complex64, torch.float32) or h.ndim != 1:
+        raise GrError(f"{name}: taps must be 1-D float32 or complex64")
+    k = h.shape[0]
+    t = xc.shape[-1] - (k - 1)
+    if decim < 1 or xc.ndim not in (1, 2) or t < 0 \
+            or prev.shape != xc.shape[:-1]:
+        raise GrError(f"{name}: bad shapes xc{tuple(xc.shape)} prev"
+                      f"{tuple(prev.shape)} taps[{k}] decim={decim}")
+    channels = 1 if xc.ndim == 1 else xc.shape[0]
+    y = torch.empty((*xc.shape[:-1], t // decim), dtype=torch.float32, device=dev)
+    if y.numel() == 0:
+        return y
+    err = build().lib.gr4_fir_demod(
+        xc.data_ptr(), h.data_ptr(), prev.data_ptr(), y.data_ptr(), channels, t,
+        k, int(decim), int(h.is_complex()), float(gain), _stream(dev))
+    _check(err, name)
+    fir_demod.launches += 1
+    return y
+
+
+fir_demod.launches = 0
+
+
+def fir_demod_ref(xc: torch.Tensor, taps, decim: int, prev: torch.Tensor,
+                  gain: float) -> torch.Tensor:
+    """Plain version of :func:`fir_demod`: :func:`fir_banded_ref` then
+    ops/demod.py ``quadrature_demod``."""
+    from .demod import quadrature_demod
+    k = len(_host_taps(taps))
+    v = fir_banded_ref(xc[..., k - 1:], xc[..., : k - 1], taps, decim)
+    y, _ = quadrature_demod(v, prev, gain=float(np.float32(gain)))
+    return y
+
+
+KERNELS = (fir_banded, nco_mix, iir_sos, fir_demod)
+
+
 def reset_launch_counts() -> None:
-    fir_banded.launches = 0
-    nco_mix.launches = 0
+    for fn in KERNELS:
+        fn.launches = 0
 
 
 def launch_counts() -> dict[str, int]:
-    return {"fir_banded": fir_banded.launches, "nco_mix": nco_mix.launches}
+    return {fn.__name__: fn.launches for fn in KERNELS}

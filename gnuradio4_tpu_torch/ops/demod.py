@@ -2,6 +2,7 @@
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -23,3 +24,22 @@ def quadrature_demod(x: torch.Tensor, last: torch.Tensor, *, gain: float,
     if gain != 1.0:
         y = y * gain
     return y, x[..., -1].clone()
+
+
+def am_demod(x: torch.Tensor, *, gain: float = 1.0) -> torch.Tensor:
+    """Envelope detector |x|·gain."""
+    return (x.abs() * gain).to(torch.float32)
+
+
+def fm_deemphasis_coeffs(sample_rate: float, tau: float = 75e-6
+                         ) -> tuple[np.ndarray, np.ndarray]:
+    """Single-pole de-emphasis (75 µs US / 50 µs EU) via bilinear transform."""
+    w_c = 1.0 / tau
+    w_ca = 2.0 * sample_rate * np.tan(w_c / (2.0 * sample_rate))
+    k = -w_ca / (2.0 * sample_rate)
+    z1 = -1.0
+    p1 = (1.0 + k) / (1.0 - k)
+    b0 = -k / (1.0 - k)
+    b = np.array([b0, -z1 * b0])
+    a = np.array([1.0, -p1])
+    return b, a

@@ -9,6 +9,8 @@ samples (the exact analog of the HistoryBuffer tail); each step filters
 ``[state, x]`` "valid", producing ``len(x) // decim`` outputs. The filtering
 itself is :func:`~.cuda_kernels.fir_banded`: the hand-written CUDA kernel for a
 CUDA tensor, its plain banded-matmul version for a CPU tensor.
+:func:`fir_quad_demod_fused` is the FIR fused with the quadrature demod
+(:func:`~.cuda_kernels.fir_demod`).
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ import torch
 
 from ..core.errors import GrError
 from ..core.stream import torch_dtype
-from .cuda_kernels import fir_banded
+from .cuda_kernels import fir_banded, fir_demod
 
 # the precision rungs a block may name; only full float32 is ported so far
 PRECISIONS = ("auto", "default", "high", "highest", "bf16", "int8")
@@ -69,3 +71,21 @@ def freq_xlating_taps(taps: np.ndarray, center_freq: float, sample_rate: float
     n = np.arange(len(taps), dtype=np.float64)
     rot = np.exp(1j * 2.0 * np.pi * center_freq / sample_rate * n)
     return (np.asarray(taps, dtype=np.float64) * rot).astype(np.complex64)
+
+
+def fir_quad_demod_fused(xc: torch.Tensor, taps_np: np.ndarray, decim: int,
+                         prev: torch.Tensor, gain: float) -> torch.Tensor:
+    """Decimating FIR fused with the quadrature demod: only the float32 demod
+    output is written, the complex FIR output never reaches device memory.
+    ``xc``: [1, T + K - 1] (or [C, T + K - 1]) history-prefixed complex64
+    stream; ``prev``: the last FIR output of the previous chunk, v[-1]
+    (complex scalar, or [C]). Returns [1, T // decim] float32. No carry is
+    returned: the caller keeps the FIR history and v[-1] itself.
+
+    A CUDA tensor launches the ``fir_demod`` kernel, which takes every shape;
+    a CPU tensor takes its plain version (FIR then demod)."""
+    xc = xc.to(torch.complex64).contiguous()
+    prev = torch.as_tensor(prev, dtype=torch.complex64, device=xc.device)
+    if prev.shape != xc.shape[:-1]:
+        prev = prev.reshape(()).expand(xc.shape[:-1])
+    return fir_demod(xc, taps_np, int(decim), prev.contiguous(), gain)

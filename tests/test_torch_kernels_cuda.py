@@ -14,7 +14,9 @@ import torch
 from gnuradio4_tpu_torch.core.errors import GrError
 from gnuradio4_tpu_torch.ops import cuda_kernels as ck
 from gnuradio4_tpu_torch.ops import filter_design as fd
-from gnuradio4_tpu_torch.ops.fir import fir_apply, freq_xlating_taps
+from gnuradio4_tpu_torch.ops.fir import (fir_apply, fir_quad_demod_fused,
+                                         freq_xlating_taps)
+from gnuradio4_tpu_torch.ops.iir import sos_init_state
 from gnuradio4_tpu_torch.ops.signal import phase_increment
 
 pytestmark = pytest.mark.cuda
@@ -23,6 +25,10 @@ pytestmark = pytest.mark.cuda
 FIR_ATOL = 2e-4
 # sincosf against torch's sin/cos, |x| ≲ 5
 NCO_ATOL = 1e-5
+# f32 biquad recursions, FMA-contracted on the card, relative to the RMS
+IIR_RTOL = 1e-5
+# atan2 of f32 FIR outputs, wrapped into (−π, π], in rad·gain
+DEMOD_ATOL = 2e-3
 
 
 @pytest.fixture
@@ -126,3 +132,119 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     with pytest.raises(GrError, match="float32"):
         ck.fir_banded(torch.zeros(8, dtype=torch.float64, device=cuda),
                       torch.zeros(2, dtype=torch.float64, device=cuda), np.ones(3))
+
+
+def _sos(order: int) -> np.ndarray:
+    return fd.design_iir("butterworth", "lowpass", order, sample_rate=48e3,
+                         f_low=15e3).sos
+
+
+def _rms_err(y, y_ref) -> float:
+    return float((y - y_ref).abs().max()) / max(float(y_ref.pow(2).mean().sqrt()), 1e-3)
+
+
+@pytest.mark.parametrize("order,shape", [(5, (16, 4096)), (5, (4096,)),
+                                         (4, (3, 1000)), (12, (2, 777))])
+def test_iir_sos_matches_plain(cuda, order, shape):
+    g = torch.Generator(device=cuda).manual_seed(10)
+    sos = _sos(order)
+    ch = shape[0] if len(shape) == 2 else 0
+    x = torch.randn(shape, device=cuda, generator=g)
+    s0 = 0.1 * torch.randn(sos_init_state(ch, sos.shape[0]).shape, device=cuda,
+                           generator=g)
+    before = ck.iir_sos.launches
+    y, st = ck.iir_sos(x, sos, s0)
+    y_ref, st_ref = ck.iir_sos_ref(x, sos, s0)
+    torch.cuda.synchronize()
+    assert ck.iir_sos.launches == before + 1
+    assert y.shape == y_ref.shape and st.shape == st_ref.shape
+    assert _rms_err(y, y_ref) <= IIR_RTOL
+    assert _rms_err(st, st_ref) <= IIR_RTOL
+
+
+def test_iir_sos_state_carry_on_card(cuda):
+    """Two chunks with the carried state equal one pass."""
+    g = torch.Generator(device=cuda).manual_seed(11)
+    sos = _sos(5)
+    x = torch.randn(16, 1 << 14, device=cuda, generator=g)
+    s0 = torch.zeros(16, 3, 2, device=cuda)
+    y_one, st_one = ck.iir_sos(x, sos, s0)
+    y1, st = ck.iir_sos(x[:, : 5000].contiguous(), sos, s0)
+    y2, st = ck.iir_sos(x[:, 5000:].contiguous(), sos, st)
+    torch.cuda.synchronize()
+    assert torch.equal(torch.cat([y1, y2], -1), y_one)
+    assert torch.equal(st, st_one)
+
+
+def _fm_stream(g, cuda, shape):
+    """An FM-modulated carrier with a little noise: what a receiver sees, and
+    away from |v| ≈ 0 where atan2 amplifies rounding without bound."""
+    n = shape[-1]
+    dev = torch.randn(shape, device=cuda, generator=g).cumsum(-1) * 0.05
+    ph = torch.sin(dev) * 1.5 + torch.arange(n, device=cuda) * 0.3
+    x = torch.polar(torch.ones_like(ph), ph)
+    return (x + 0.05 * torch.randn(shape, dtype=torch.complex64, device=cuda,
+                                   generator=g)).contiguous()
+
+
+def _wrapped_err(a, b, gain):
+    d = (a - b) / gain
+    return float(torch.remainder(d + torch.pi, 2 * torch.pi).sub(torch.pi).abs().max()) * gain
+
+
+@pytest.mark.parametrize("taps,decim,shape", [
+    ("real127", 1, (1 << 20,)), ("xlating127", 1, (1 << 20,)),
+    ("real63", 2, (100003,)), ("xlating127", 1, (4, 65536 + 13)),
+    ("one", 1, (1000,)), ("real63", 3, (40,))])
+def test_fir_demod_matches_plain(cuda, taps, decim, shape):
+    g = torch.Generator(device=cuda).manual_seed(12)
+    h = _taps(taps)
+    k = len(h)
+    xc = _fm_stream(g, cuda, (*shape[:-1], shape[-1] + k - 1))
+    prev = torch.polar(torch.ones(shape[:-1], device=cuda),
+                       torch.full(shape[:-1], 0.7, device=cuda))
+    gain = 250e3 / (2 * np.pi * 75e3)
+    before = ck.fir_demod.launches
+    y = ck.fir_demod(xc, h, decim, prev, gain)
+    y_ref = ck.fir_demod_ref(xc, h, decim, prev, gain)
+    torch.cuda.synchronize()
+    assert ck.fir_demod.launches == before + (1 if y.numel() else 0)
+    assert y.shape == y_ref.shape == (*shape[:-1], shape[-1] // decim)
+    if y.numel():
+        assert _wrapped_err(y, y_ref, gain) <= DEMOD_ATOL * gain
+
+
+def test_fir_quad_demod_fused_carry_on_card(cuda):
+    """fir_quad_demod_fused over two chunks, the second with the first's
+    last FIR output as prev, equals one pass."""
+    g = torch.Generator(device=cuda).manual_seed(13)
+    h = _taps("xlating127")
+    k, n = len(h), 1 << 16
+    xc = _fm_stream(g, cuda, (2 * n + k - 1,))
+    one = torch.ones((), dtype=torch.complex64, device=cuda)
+    y_one = fir_quad_demod_fused(xc[None], h, 1, one, 1.0)
+    c1 = fir_quad_demod_fused(xc[None, : n + k - 1], h, 1, one, 1.0)
+    v_last = ck.fir_banded(xc[k - 1: n + k - 1].contiguous(),
+                           xc[: k - 1].contiguous(), h)[-1]
+    c2 = fir_quad_demod_fused(xc[None, n:], h, 1, v_last, 1.0)
+    torch.cuda.synchronize()
+    assert y_one.shape == (1, 2 * n)
+    assert _wrapped_err(torch.cat([c1, c2], -1), y_one, 1.0) <= DEMOD_ATOL
+
+
+def test_new_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    x = torch.zeros(64, device=cuda)
+    with pytest.raises(GrError, match="float32"):
+        ck.iir_sos(x.double(), _sos(4), torch.zeros(2, 2, device=cuda))
+    with pytest.raises(GrError, match="shapes"):
+        ck.iir_sos(x, _sos(4), torch.zeros(3, 2, device=cuda))
+    many = np.tile(_sos(4)[:1], (17, 1))
+    with pytest.raises(GrError, match="at most"):
+        ck.iir_sos(x, many, torch.zeros(17, 2, device=cuda))
+    xc = torch.zeros(64, dtype=torch.complex64, device=cuda)
+    prev = torch.zeros((), dtype=torch.complex64, device=cuda)
+    with pytest.raises(GrError, match="complex64"):
+        ck.fir_demod(x, np.ones(3, np.float32), 1, prev, 1.0)
+    with pytest.raises(GrError, match="shapes"):
+        ck.fir_demod(xc, np.ones(3, np.float32), 1,
+                     torch.zeros(2, dtype=torch.complex64, device=cuda), 1.0)

@@ -188,7 +188,13 @@ def test_kernel_wrappers_raise_off_cpu_and_cuda():
         ck.fir_banded(x, h, np.ones(5, np.float32))
     with pytest.raises(GrError, match="CUDA"):
         ck.nco_mix(x, 0, 1)
-    assert ck.launch_counts() == {"fir_banded": 0, "nco_mix": 0}
+    with pytest.raises(GrError, match="CUDA"):
+        ck.iir_sos(x.real, np.array([[1.0, 0, 0, 1.0, 0.5, 0]]),
+                   torch.empty(1, 2, device="meta"))
+    with pytest.raises(GrError, match="CUDA"):
+        ck.fir_demod(x, np.ones(5, np.float32), 1, h[0], 1.0)
+    assert ck.launch_counts() == dict.fromkeys(
+        ("fir_banded", "nco_mix", "iir_sos", "fir_demod"), 0)
 
 
 # -- integer NCO ---------------------------------------------------------------
@@ -271,3 +277,68 @@ def test_quadrature_demod_matches_jax(rng, rot, shape):
     assert y_t.dtype == torch.float32
     np.testing.assert_allclose(y_t.numpy(), np.asarray(y_j), atol=1e-5)
     np.testing.assert_array_equal(l_t.numpy(), np.asarray(l_j))
+
+
+# -- fused FIR + quadrature demod ------------------------------------------------
+
+# tests/test_pallas_kernels.py:128: the fused kernel's atan2 polynomial and f32
+# FIR sums against the composition, in rad·gain
+DEMOD_ATOL = 2e-3
+
+
+@pytest.mark.parametrize("k,decim,t", [(127, 1, 1 << 15), (64, 2, 1 << 15),
+                                       (127, 1, 12345 + 126)])
+def test_fir_quad_demod_fused_matches_jax(k, decim, t):
+    """tests/test_pallas_kernels.py:110-128 (seed, taps, gain 1.5, carried
+    prev) through both packages' fir_quad_demod_fused; the port's CPU path is
+    fir_demod_ref."""
+    from gnuradio4_tpu_torch.ops.fir import fir_quad_demod_fused
+    rng = np.random.default_rng(0)
+    taps = (rng.standard_normal(k) / 8).astype(np.float32)
+    x = (rng.standard_normal(t + k - 1)
+         + 1j * rng.standard_normal(t + k - 1)).astype(np.complex64)
+    prev = np.complex64(0.3 + 0.1j)
+    want = jax.jit(lambda v, pv: jfir.fir_quad_demod_fused(
+        v[None, :], taps, decim, pv, 1.5))(jnp.asarray(x), jnp.asarray(prev))
+    got = fir_quad_demod_fused(torch.from_numpy(x)[None, :], taps, decim,
+                               torch.tensor(prev), 1.5)
+    assert got.shape == want.shape == (1, (t - k + 1 + k - 1) // decim)
+    assert got.dtype == torch.float32
+    assert float(np.max(np.abs(got.numpy() - np.asarray(want)))) < DEMOD_ATOL
+
+
+def test_fir_demod_ref_complex_taps_streamed_matches_jax():
+    """tests/test_pallas_kernels.py:130-161: heterodyned taps (the WBFM
+    xlating form) streamed in two chunks; the second chunk's v[-1] is the
+    first chunk's last FIR output."""
+    rng = np.random.default_rng(1)
+    k, n = 127, 1 << 14
+    taps = jfir.freq_xlating_taps(
+        (rng.standard_normal(k) / 8).astype(np.float32), 0.15, 1.0)
+    x = (rng.standard_normal(2 * n + k - 1)
+         + 1j * rng.standard_normal(2 * n + k - 1)).astype(np.complex64)
+    one = jnp.ones((), jnp.complex64)
+    y, _ = jfir.fir_apply(jnp.asarray(x[k - 1:]), taps, jnp.asarray(x[: k - 1]))
+    want, _ = j_quad_demod(y, one, gain=1.0)
+    xt = torch.from_numpy(x)
+    c1 = ck.fir_demod_ref(xt[: n + k - 1], taps, 1,
+                          torch.ones((), dtype=torch.complex64), 1.0)
+    v_last = ck.fir_banded_ref(xt[k - 1: n + k - 1], xt[: k - 1], taps)[-1]
+    c2 = ck.fir_demod(xt[n: 2 * n + k - 1], taps, 1, v_last, 1.0)
+    got = torch.cat([c1, c2]).numpy()
+    assert float(np.max(np.abs(got - np.asarray(want)))) < DEMOD_ATOL
+
+
+def test_fir_demod_ref_channels_are_independent(rng):
+    """C = 3 in one call equals three single-channel calls, each with its
+    own prev (the kernel takes C as a grid dimension)."""
+    k = 31
+    taps = _taps(rng, k, True)
+    xc = _cx(rng, 3, 5000 + k - 1)
+    prev = _cx(rng, 3)
+    got = ck.fir_demod_ref(torch.from_numpy(xc), taps, 3, torch.from_numpy(prev), 0.7)
+    assert got.shape == (3, 5000 // 3)
+    for c in range(3):
+        one = ck.fir_demod_ref(torch.from_numpy(xc[c]), taps, 3,
+                               torch.from_numpy(prev)[c], 0.7)
+        np.testing.assert_allclose(got[c].numpy(), one.numpy(), atol=DEMOD_ATOL)
