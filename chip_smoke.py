@@ -33,10 +33,28 @@ result line:
    card at block_len 2^12;
 9. the fused FIR→demod entry point ``fir_quad_demod_fused`` streamed over 4
    chunks of 2^22 samples of Path A's input with Path A's channel taps: one
-   launch per chunk, the demod constant checked.
+   launch per chunk, the demod constant checked;
+10. the full scheduler on the chain (absorbed and derotated, block_len 2^23)
+    and Path A (2^22): ``pipeline_depth=2, async_delivery=True``, then
+    ``batch_steps=4``, each bitwise equal to the synchronous unbatched run
+    (``pipeline_depth=1``) with the same kernel launches per logical step;
+    Msps over 5 windows by CUDA events per setting, host ms per step from the
+    scheduler's profiler spans;
+11. Path C, suite config 5 (``bench_suite.py:205-253``): a tagged complex
+    noise source (threefry, a ``trigger_time`` tag every 2^20 samples) →
+    PFBChannelizer(256 channels, 8 taps per phase) → QuadratureDemod → sink,
+    block_len 2^21, ``pipeline_depth=2, async_delivery=True, batch_steps=8``:
+    the threefry bits equal on the card and the CPU, 64 tags at output
+    indices i·4096 over 4 super-steps, the card against the CPU at block_len
+    2^16, Msps, host share, per-op device times and peak memory;
+12. Path D, suite config 6 (``bench_suite.py:256-279``): CountingSource → 20 ×
+    (MultiplyConst(2) → DivideConst(2)) → CountingSink at block_len 2^16: the
+    count and the data checked, host ms per step over 200 steps, sync and
+    async.
 
 Each path's kernel launches are counted from zero just before it runs and read
-just after. The last two lines are a JSON object of per-kernel results and
+just after. The last lines are the card's name and power limit, a JSON object
+of per-path timings, a JSON object of per-kernel results and
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -89,6 +107,22 @@ SCIPY_RTOL = 2e-5
 # fused FIR→demod against FIR then demod: rad·gain, differences wrapped into
 # (−π, π] (tests/test_pallas_kernels.py:128 uses the same 2e-3)
 DEMOD_ATOL = 2e-3
+# Path C (suite config 5)
+C5_FS = 1e9
+C5_BLOCK_LEN = 1 << 21
+C5_BATCH = 8
+C5_TAG_PERIOD = 1 << 20
+C5_CHANNELS = 256
+C5_CPU_BLOCK_LEN = 1 << 16
+# normal draws: torch's erfinv against XLA's float32 polynomial, |Δ| ≤ 6e-6 of
+# max(1, |x|) measured on the CPU; the card's erfinv is a third implementation
+NOISE_RTOL = 2e-5
+# config 5 on the card against the CPU: the demod's angle, rad, after f32 PFB
+# sums and two FFT implementations (5.5e-5 measured against the JAX package)
+C5_ATOL = 1e-3
+# Path D (suite config 6)
+C6_BLOCK_LEN = 1 << 16
+C6_STEPS = 200
 KERNELS = {
     "fir_banded": {
         "source": "gnuradio4_tpu_torch/csrc/fir_banded.cu",
@@ -195,7 +229,8 @@ def build_chain(sinks: str):
     return g, fir, s1, s2
 
 
-def run_chain(device: str, block_len: int, steps: int, absorb: bool):
+def run_chain(device: str, block_len: int, steps: int, absorb: bool,
+              **sched_kw):
     import gnuradio4_tpu_torch as gt
     if absorb:
         os.environ.pop("GR4TPU_NO_ROTATION_ABSORB", None)
@@ -203,7 +238,8 @@ def run_chain(device: str, block_len: int, steps: int, absorb: bool):
         os.environ["GR4TPU_NO_ROTATION_ABSORB"] = "1"
     try:
         g, fir, s1, s2 = build_chain("vector")
-        sched = gt.Scheduler(g, block_len=block_len, sample_rate=FS, device=device)
+        sched = gt.Scheduler(g, block_len=block_len, sample_rate=FS, device=device,
+                             **sched_kw)
         sched.run_and_wait(steps)
         import torch
         if device == "cuda":
@@ -263,11 +299,11 @@ def build_wbfm(sink: str):
     return g, snk
 
 
-def run_wbfm(device: str, block_len: int, steps: int):
+def run_wbfm(device: str, block_len: int, steps: int, **sched_kw):
     import gnuradio4_tpu_torch as gt
     g, snk = build_wbfm("vector")
     sched = gt.Scheduler(g, block_len=block_len, sample_rate=QUAD_RATE,
-                         device=device)
+                         device=device, **sched_kw)
     sched.run_and_wait(steps)
     if device == "cuda":
         import torch
@@ -377,6 +413,133 @@ def fused_front_end(device, n: int, chunks: int):
         prev = (xc[-k:] * h_rev).sum()
         hist = x[-(k - 1):]
     return outs, inputs
+
+
+def drive_windows(sched, steps_per_window: int, windows: int = 5):
+    """Drive a warmed-up scheduler through ``windows`` windows of
+    ``steps_per_window`` logical steps by its pump (as bench_suite.py's
+    ``_run_sched`` does), each window under a fresh recording profiler.
+    Returns the median ms per logical step by CUDA events, every window's
+    (events ms, wall ms) per step, and the median host ms per logical step
+    in the pump (its ``scheduler.step`` spans) with that window's split."""
+    import torch
+    from gnuradio4_tpu_torch.core.profiler import Profiler
+    pumps = steps_per_window // sched.batch_steps
+    out, host = [], []
+    for _ in range(windows):
+        sched.profiler = prof = Profiler()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        for _ in range(pumps):
+            check(sched._pump_once(), "the stream ended inside a timing window")
+        end.record()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n = pumps * sched.batch_steps
+        out.append((start.elapsed_time(end) / n, wall / n * 1e3))
+        spans: dict[str, float] = {}
+        for ev in prof.events():
+            spans[ev["name"]] = spans.get(ev["name"], 0.0) + ev["dur"] / 1e3 / n
+        host.append(spans)
+    sched.profiler = Profiler()
+    ms = statistics.median(w[0] for w in out)
+    host_ms = statistics.median(h.get("scheduler.step", 0.0) for h in host)
+    split = min(host, key=lambda h: abs(h.get("scheduler.step", 0.0) - host_ms))
+    return ms, out, host_ms, split
+
+
+def finish(sched) -> None:
+    """Deliver what is in flight and stop the scheduler's worker thread."""
+    sched._drain()
+    sched._stop_delivery_worker()
+
+
+def fmt_windows(windows) -> str:
+    return str([(round(a, 4), round(b, 4)) for a, b in windows])
+
+
+def fmt_split(split: dict) -> str:
+    return ", ".join(f"{k.split('.')[-1]} {v:.4f}" for k, v in sorted(split.items()))
+
+
+def build_config5(sink: str, tag_period: int = C5_TAG_PERIOD):
+    """Path C as bench_suite.py:226-251 builds suite config 5: a complex noise
+    source tagging ``trigger_time`` every ``tag_period`` input samples →
+    PFBChannelizer(256, 8) → QuadratureDemod(1) → ``sink``."""
+    import gnuradio4_tpu_torch as gt
+    from gnuradio4_tpu_torch.blocks.basic import NoiseSource
+    from gnuradio4_tpu_torch.blocks.channelizer import PFBChannelizer
+    from gnuradio4_tpu_torch.blocks.sdr import QuadratureDemod
+
+    class TaggedNoise(NoiseSource):
+        def emit_tags(self, ctx):
+            n = next(iter(ctx.out_len.values()), 0)
+            lo, hi = ctx.abs_index, ctx.abs_index + n
+            first = -(-lo // tag_period) * tag_period
+            return [gt.Tag(i - lo, {"trigger_time": float(i / C5_FS)})
+                    for i in range(first, hi, tag_period)]
+
+    g = gt.Graph()
+    src = TaggedNoise(noise="complex_gaussian")
+    chan = PFBChannelizer(n_channels=C5_CHANNELS, taps_per_phase=8)
+    dem = QuadratureDemod(gain=1.0)
+    snk = gt.global_registry.create(sink)
+    g.connect_chain(g.add(src), g.add(chan), g.add(dem), g.add(snk))
+    return g, snk
+
+
+def config5_scheduler(g, device, block_len=C5_BLOCK_LEN, batch=C5_BATCH):
+    import gnuradio4_tpu_torch as gt
+    return gt.Scheduler(g, block_len=block_len, sample_rate=C5_FS, device=device,
+                        pipeline_depth=2, async_delivery=True, batch_steps=batch)
+
+
+def build_config6(sink: str, n_samples: int = 0):
+    """Path D as bench_suite.py:263-277 builds suite config 6."""
+    import gnuradio4_tpu_torch as gt
+    g = gt.Graph()
+    src = g.emplace("CountingSource", n_samples=n_samples, dtype="float32")
+    prev = src
+    for _ in range(20):
+        m = g.emplace("MultiplyConst", value=2.0)
+        d = g.emplace("DivideConst", value=2.0)
+        g.connect(prev, m)
+        g.connect(m, d)
+        prev = d
+    snk = g.emplace(sink)
+    g.connect(prev, snk)
+    return g, snk
+
+
+def wrapped_err(a, b) -> float:
+    """max |a − b| with the difference wrapped into (−π, π] (demod angles)."""
+    import numpy as np
+    d = np.asarray(a, np.float64) - np.asarray(b, np.float64)
+    return float(np.max(np.abs((d + np.pi) % (2 * np.pi) - np.pi)))
+
+
+def profile_device(fn):
+    """Device time of ``fn`` by torch.profiler: (device ms, top kernels), or
+    (None, []) when the profiler saw no device activity."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = []
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0.0)
+        if us and str(getattr(e, "device_type", "")).endswith("CUDA"):
+            rows.append((us / 1e3, e.key.replace("void ", "")
+                         .replace("at::native::", "")[:110]))
+    if not rows:
+        return None, []
+    rows.sort(reverse=True)
+    return sum(r[0] for r in rows), rows[:6]
 
 
 def main() -> int:
@@ -783,12 +946,225 @@ def main() -> int:
     check(err <= tol_d, f"fused front end against the composition: {err}")
     del outs, inputs, y
 
+    # 10. the full scheduler on the existing paths: pipelined async delivery
+    # and batched super-steps against the synchronous unbatched run
+    from gnuradio4_tpu_torch.core.profiler import Profiler
+    settings = {"sync": dict(pipeline_depth=1),
+                "async": dict(pipeline_depth=2, async_delivery=True),
+                "async+batch4": dict(pipeline_depth=2, async_delivery=True,
+                                     batch_steps=4)}
+    paths = []
+    print("[10 scheduler] chain at 2^23 and Path A at 2^22 under "
+          f"{list(settings)}")
+    for absorb in (True, False):
+        label = "absorbed" if absorb else "derotated"
+        ref = None
+        for name, kw in settings.items():
+            ck.reset_launch_counts()
+            out = run_chain("cuda", BLOCK_LEN, STEPS, absorb, **kw)
+            counts = ck.launch_counts()
+            want_nco = 0 if absorb else STEPS
+            check(counts["fir_banded"] == 2 * STEPS and counts["nco_mix"] == want_nco,
+                  f"chain {label} {name}: launches {counts}, expected fir_banded "
+                  f"{2 * STEPS}, nco_mix {want_nco}")
+            for k in KERNELS:
+                results[k]["launches"] += counts[k]
+            if ref is None:
+                check_chain_outputs(*out, BLOCK_LEN, STEPS, f"chain {label} {name}")
+                ref = out
+            else:
+                same = all(np.array_equal(a, b) for a, b in zip(out, ref))
+                print(f"  chain {label} {name}: launches {counts}; sinks bitwise "
+                      f"equal to sync: {same}")
+                check(same, f"chain {label} {name}: sinks differ from the sync run")
+        del ref, out
+    ref = None
+    for name, kw in settings.items():
+        ck.reset_launch_counts()
+        _, audio = run_wbfm("cuda", WBFM_BLOCK_LEN, WBFM_STEPS, **kw)
+        counts = ck.launch_counts()
+        check(counts["fir_banded"] == 2 * WBFM_STEPS and counts["nco_mix"] == 0,
+              f"Path A {name}: launches {counts}")
+        for k in KERNELS:
+            results[k]["launches"] += counts[k]
+        if ref is None:
+            check_wbfm_audio(audio, WBFM_IN_LEN // 5, WBFM_STEPS, f"Path A {name}")
+            ref = audio
+        else:
+            same = np.array_equal(audio, ref)
+            print(f"  Path A {name}: launches {counts}; audio bitwise equal to "
+                  f"sync: {same}")
+            check(same, f"Path A {name}: audio differs from the sync run")
+    del ref, audio
+    for label, build, bl, fs, n_in in (
+            ("chain absorbed", lambda: build_chain("null")[0], BLOCK_LEN, FS, BLOCK_LEN),
+            ("chain derotated", lambda: build_chain("null")[0], BLOCK_LEN, FS, BLOCK_LEN),
+            ("Path A", lambda: build_wbfm("null")[0], WBFM_BLOCK_LEN, QUAD_RATE,
+             WBFM_IN_LEN)):
+        for name, kw in settings.items():
+            if label == "chain derotated":
+                os.environ["GR4TPU_NO_ROTATION_ABSORB"] = "1"
+            try:
+                sched = gt.Scheduler(build(), block_len=bl, sample_rate=fs,
+                                     device="cuda", profiler=Profiler(), **kw)
+                sched.init()
+            finally:
+                os.environ.pop("GR4TPU_NO_ROTATION_ABSORB", None)
+            sched.fsm.transition_to(gt.State.RUNNING)
+            for _ in range(2):
+                sched._pump_once()
+            torch.cuda.synchronize()
+            ms, windows, host_ms, split = drive_windows(sched, 20)
+            finish(sched)
+            msps = n_in / (ms * 1e-3) / 1e6
+            print(f"  {label} {name}: {msps:.2f} Msps, {ms:.4f} ms/step (median of "
+                  f"5 windows of 20 steps, CUDA events; (events ms, wall ms) "
+                  f"{fmt_windows(windows)}); host {host_ms:.4f} ms/step in the "
+                  f"pump ({fmt_split(split)})")
+            paths.append({"name": f"{label} {name}", "msps": msps, "ms_per_step": ms,
+                          "host_ms_per_step": host_ms})
+            del sched
+
+    # 11. Path C: suite config 5 at full size
+    from gnuradio4_tpu_torch.ops import noise
+    from gnuradio4_tpu_torch.ops.channelizer import branch_fir_macs
+    from gnuradio4_tpu_torch.ops.demod import quadrature_demod
+    print(f"[11 config 5] block_len 2^21, batch_steps {C5_BATCH}, 256 channels")
+    k_gpu, k_cpu = noise.key(SEED, dev), noise.key(SEED)
+    for _ in range(2):
+        k_gpu, k_cpu = noise.split(k_gpu)[0], noise.split(k_cpu)[0]
+    check(torch.equal(k_gpu.cpu(), k_cpu), "threefry: split keys differ")
+    bits_same = torch.equal(noise.random_bits(k_gpu, (2, C5_BLOCK_LEN)).cpu(),
+                            noise.random_bits(k_cpu, (2, C5_BLOCK_LEN)))
+    z_gpu, k2_gpu = noise.complex_gaussian(k_gpu, (C5_BLOCK_LEN,))
+    z_cpu, k2_cpu = noise.complex_gaussian(k_cpu, (C5_BLOCK_LEN,))
+    zg = torch.view_as_real(z_gpu).cpu().numpy()
+    zc = torch.view_as_real(z_cpu).numpy()
+    noise_err = float(np.max(np.abs(zg - zc) / np.maximum(1.0, np.abs(zc))))
+    print(f"  threefry after two chained splits: keys equal, random bits "
+          f"[2, 2^21] equal on card and CPU: {bits_same}; complex_gaussian "
+          f"[2^21] max|Δ|/max(1,|x|) {noise_err:.3e} (tol {NOISE_RTOL}); next "
+          f"keys equal: {torch.equal(k2_gpu.cpu(), k2_cpu)}")
+    check(bits_same and torch.equal(k2_gpu.cpu(), k2_cpu), "threefry bits differ")
+    check(noise_err <= NOISE_RTOL, f"complex_gaussian card vs CPU {noise_err}")
+    del z_cpu, zc, zg
+
+    g, snk = build_config5("TagSink")
+    config5_scheduler(g, "cuda").run_and_wait(4 * C5_BATCH)
+    torch.cuda.synchronize()
+    n_out = 4 * C5_BATCH * C5_BLOCK_LEN // C5_CHANNELS
+    y = snk.data()
+    check(y.shape == (C5_CHANNELS, n_out), f"config 5 sink shape {y.shape}")
+    check(bool(np.all(np.isfinite(y)) and np.all(np.abs(y) <= np.pi + 1e-6)),
+          "config 5: demod output not finite or outside [-π, π]")
+    got = [(int(t.index), dict(t.map)) for t in snk.tags]
+    want = [(i * (C5_TAG_PERIOD // C5_CHANNELS),
+             {"trigger_time": float(i * C5_TAG_PERIOD / C5_FS)}) for i in range(64)]
+    print(f"  tags: {len(got)} at the TagSink over 4 super-steps (expected 64 at "
+          f"i·4096); first {got[:2]}, last {got[-1:]}")
+    check(got == want, f"config 5 tags differ from the expected 64: {got[:4]}...")
+    del y, snk, g
+    runs = []
+    for device in ("cpu", "cuda"):
+        g, snk = build_config5("TagSink")
+        config5_scheduler(g, device, C5_CPU_BLOCK_LEN, 2).run_and_wait(6)
+        runs.append((snk.data(), [(int(t.index), t.map) for t in snk.tags]))
+    c5_err = wrapped_err(runs[1][0], runs[0][0])
+    print(f"  cpu vs card at block_len 2^16, batch_steps 2, 3 super-steps: demod "
+          f"max|Δ| {c5_err:.3e} rad, wrapped (tol {C5_ATOL}); tags equal: "
+          f"{runs[0][1] == runs[1][1]} ({len(runs[0][1])})")
+    check(runs[0][0].shape == runs[1][0].shape and c5_err <= C5_ATOL
+          and runs[0][1] == runs[1][1], "config 5 card vs CPU")
+    del runs
+    g, _ = build_config5("NullSink")
+    sched = config5_scheduler(g, "cuda")
+    sched.profiler = Profiler()
+    sched.init()
+    sched.fsm.transition_to(gt.State.RUNNING)
+    sched._pump_once()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms, windows, host_ms, split = drive_windows(sched, 4 * C5_BATCH)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    dev_ms, top = profile_device(sched._pump_once)
+    finish(sched)
+    del sched
+    msps = C5_BLOCK_LEN / (ms * 1e-3) / 1e6
+    print(f"  Path C: {msps:.2f} Msps, {ms:.4f} ms per logical step (median of 5 "
+          f"windows of 4 super-steps, CUDA events; (events ms, wall ms) "
+          f"{fmt_windows(windows)}); pump wall {host_ms:.4f} ms/step "
+          f"({fmt_split(split)}; includes waits in a full CUDA launch queue); "
+          f"peak device memory {peak_gib:.3f} GiB")
+    if dev_ms is None:
+        print("  torch.profiler: no device activity recorded (not measured)")
+    else:
+        dev_step = dev_ms / C5_BATCH
+        print(f"  torch.profiler, one super-step: device busy {dev_step:.4f} ms per "
+              f"logical step, {dev_step / ms:.1%} of the step; top kernels (ms per "
+              f"super-step) {[(round(t, 4), k) for t, k in top]}")
+    paths.append({"name": "Path C config 5", "msps": msps, "ms_per_step": ms,
+                  "host_ms_per_step": host_ms})
+    rows = C5_BLOCK_LEN // C5_CHANNELS
+    xc = torch.randn(rows + 7, C5_CHANNELS, dtype=torch.complex64, device=dev,
+                     generator=gen)
+    hp = torch.randn(8, C5_CHANNELS, device=dev, generator=gen)
+    v = branch_fir_macs(xc, hp, rows)
+    yc = torch.randn(C5_CHANNELS, rows, dtype=torch.complex64, device=dev,
+                     generator=gen)
+    last = torch.ones(C5_CHANNELS, dtype=torch.complex64, device=dev)
+    op_ms = {"threefry complex_gaussian [2^21]":
+             cuda_ms(lambda: noise.complex_gaussian(k_gpu, (C5_BLOCK_LEN,))),
+             "branch FIR [8199, 256] x 8 taps": cuda_ms(lambda: branch_fir_macs(xc, hp, rows)),
+             "FFT [8192, 256] along 256": cuda_ms(lambda: torch.fft.fft(v, dim=-1)),
+             "corner turn [8192, 256] -> [256, 8192]": cuda_ms(lambda: v.t().contiguous()),
+             "demod [256, 8192]": cuda_ms(lambda: quadrature_demod(yc, last, gain=1.0))}
+    print("  per-op device ms at Path C's shapes (CUDA events, median of 10): "
+          + "; ".join(f"{k} {t:.4f}" for k, t in op_ms.items()))
+    del xc, hp, v, yc
+
+    # 12. Path D: suite config 6, the scheduler-overhead cascade
+    print(f"[12 config 6] 40-block cascade, block_len 2^16, {C6_STEPS} steps")
+    g, snk = build_config6("CountingSink", C6_STEPS * C6_BLOCK_LEN)
+    gt.Scheduler(g, block_len=C6_BLOCK_LEN, sample_rate=C5_FS, device="cuda",
+                 pipeline_depth=2, async_delivery=True).run_and_wait()
+    print(f"  CountingSink count {snk.count} (expected {C6_STEPS * C6_BLOCK_LEN})")
+    check(snk.count == C6_STEPS * C6_BLOCK_LEN, "config 6 count")
+    g, snk = build_config6("VectorSink", 8 * C6_BLOCK_LEN)
+    gt.Scheduler(g, block_len=C6_BLOCK_LEN, sample_rate=C5_FS, device="cuda",
+                 pipeline_depth=2, async_delivery=True).run_and_wait()
+    d = snk.data()
+    same = d.shape == (8 * C6_BLOCK_LEN,) and np.array_equal(
+        d, np.arange(8 * C6_BLOCK_LEN, dtype=np.float32))
+    print(f"  data through ×2/÷2 ×20 equal to the source ramp: {same}")
+    check(same, "config 6 data changed through the cascade")
+    for name, kw in (("sync", dict(pipeline_depth=1)),
+                     ("async", dict(pipeline_depth=2, async_delivery=True))):
+        g, _ = build_config6("CountingSink")
+        sched = gt.Scheduler(g, block_len=C6_BLOCK_LEN, sample_rate=C5_FS,
+                             device="cuda", profiler=Profiler(), **kw)
+        sched.init()
+        sched.fsm.transition_to(gt.State.RUNNING)
+        for _ in range(5):
+            sched._pump_once()
+        torch.cuda.synchronize()
+        ms, windows, host_ms, split = drive_windows(sched, C6_STEPS, windows=3)
+        finish(sched)
+        del sched
+        msps = C6_BLOCK_LEN / (ms * 1e-3) / 1e6
+        print(f"  Path D {name}: {msps:.2f} Msps, {ms:.4f} ms/step (median of 3 "
+              f"windows of {C6_STEPS} steps, CUDA events; (events ms, wall ms) "
+              f"{fmt_windows(windows)}); host {host_ms:.4f} ms/step in the pump "
+              f"({fmt_split(split)})")
+        paths.append({"name": f"Path D config 6 {name}", "msps": msps,
+                      "ms_per_step": ms, "host_ms_per_step": host_ms})
+
     kernels = [{"name": name, "route": "cuda", **meta,
                 "launches": results[name]["launches"],
                 "max_abs_err": results[name]["max_abs_err"],
                 "ms": results[name]["ms"], "plain_ms": results[name]["plain_ms"]}
                for name, meta in KERNELS.items()]
     print(card)
+    print(json.dumps({"paths": paths}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

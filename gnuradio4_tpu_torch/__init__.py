@@ -10,16 +10,21 @@ has a plain PyTorch version that runs on the CPU.
 This package imports torch and NumPy and never JAX.
 """
 
-from .core.block import (Block, BlockCtx, Port, PortRef, SinkBlock,
+from .core.block import (Block, BlockCtx, HostCtx, Port, PortRef, SinkBlock,
                          SourceBlock)
 from .core.compiler import CompiledGraph, compile_graph, default_device
 from .core.errors import Error, GrError
 from .core.graph import Edge, Graph
 from .core.lifecycle import State
-from .core.registry import BlockRegistry, global_registry, register_block
-from .core.scheduler import Scheduler
-from .core.settings import Setting, Settings
-from .core.tags import Tag, TagPropagation
+from .core.messages import Command, Message, MessageBus, Property
+from .core.profiler import NullProfiler, Profiler
+from .core.registry import (BlockRegistry, global_registry,
+                            global_scheduler_registry, register_block,
+                            register_scheduler)
+from .core.scheduler import (BreadthFirstScheduler, DepthFirstScheduler,
+                             Scheduler, SimpleScheduler)
+from .core.settings import Setting, Settings, SettingsCtx
+from .core.tags import Keys, Tag, TagPropagation
 
 # importing the block library populates the global registry
 from . import blocks  # noqa: E402,F401
@@ -28,9 +33,12 @@ from . import ops  # noqa: E402,F401
 __version__ = "0.1.0"
 
 __all__ = [
-    "Block", "BlockCtx", "Port", "PortRef", "SinkBlock", "SourceBlock",
-    "CompiledGraph", "compile_graph", "default_device", "Error", "GrError",
-    "Edge", "Graph", "State", "BlockRegistry", "global_registry",
-    "register_block", "Scheduler", "Setting", "Settings", "Tag",
+    "Block", "BlockCtx", "HostCtx", "Port", "PortRef", "SinkBlock",
+    "SourceBlock", "CompiledGraph", "compile_graph", "default_device", "Error",
+    "GrError", "Edge", "Graph", "State", "Command", "Message", "MessageBus",
+    "Property", "NullProfiler", "Profiler", "BlockRegistry", "global_registry",
+    "global_scheduler_registry", "register_block", "register_scheduler",
+    "BreadthFirstScheduler", "DepthFirstScheduler", "Scheduler",
+    "SimpleScheduler", "Setting", "Settings", "SettingsCtx", "Keys", "Tag",
     "TagPropagation",
 ]

@@ -1,3 +1,4 @@
 """Block library of the port; importing it populates the global registry."""
 
-from . import basic, filter, fourier, sdr, testing  # noqa: F401
+from . import (basic, channelizer, filter, fourier, math, sdr,  # noqa: F401
+               testing)

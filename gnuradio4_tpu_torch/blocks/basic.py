@@ -1,4 +1,5 @@
-"""Basic sources (≈ reference blocks/basic/SignalGenerator.hpp:25).
+"""Basic sources (≈ reference blocks/basic/SignalGenerator.hpp:25) and the
+device noise source.
 
 The NCO phase state is a 0-d int64 *host* tensor holding a uint32 value: the
 phase is a host integer wherever it is used (the start phase of a device ramp),
@@ -15,6 +16,7 @@ from ..core.errors import GrError
 from ..core.registry import register_block
 from ..core.settings import Setting
 from ..core.stream import canonical_dtype, torch_dtype
+from ..ops import noise as noise_ops
 from ..ops.signal import (MASK32, NOISE_WAVEFORMS, WAVEFORMS, complex_exp,
                           complex_exp_ramp, nco_phases, phase_increment,
                           phase_to_frac, waveform)
@@ -158,3 +160,56 @@ class ComplexToneSource(SignalGenerator):
         if ch:
             y = y.expand(ch, n).contiguous()
         return self._advance(state, dphi, n), {"out": y}
+
+
+@register_block("NoiseSource")
+class NoiseSource(SourceBlock):
+    """Gaussian/uniform noise generated on the device (≈ NoiseGenerator; here
+    the JAX package's counter-based threefry stream, bit for bit in the bits:
+    ops/noise.py). The state is the PRNG key, a [2] int64 device tensor, split
+    once per step."""
+
+    OUT = (Port("out"),)
+    noise = Setting(default="gaussian", kind="static",
+                    choices=("gaussian", "uniform", "triangular",
+                             "complex_gaussian"))
+    std = Setting(default=1.0, description="std-dev / half-range")
+    mean = Setting(default=0.0)
+    seed = Setting(default=0, kind="static")
+    channels = Setting(default=0, kind="static")
+    n_samples = Setting(default=0, kind="static")
+
+    def out_channels(self, port, in_channels):
+        return int(self.settings.get("channels"))
+
+    def out_dtype(self, port, in_dtypes):
+        return np.dtype(np.complex64 if self.settings.get("noise") ==
+                        "complex_gaussian" else np.float32)
+
+    def init_state(self, ctx):
+        return noise_ops.noise_init_state(int(self.settings.get("seed")),
+                                          ctx.device)
+
+    def host_done(self, abs_out, n):
+        total = int(self.settings.get("n_samples"))
+        if total and abs_out + n >= total:
+            return max(0, total - abs_out)
+        return None
+
+    def apply(self, state, ins, ctx):
+        n = ctx.out_len["out"]
+        ch = ctx.channels["out"]
+        shape = (n,) if ch == 0 else (ch, n)
+        kind = self.settings.get("noise")
+        std = np.float32(ctx.p("std", 1.0))
+        mean = np.float32(ctx.p("mean", 0.0))
+        if kind == "gaussian":
+            y, key = noise_ops.gaussian(state, shape, std=std, mean=mean)
+        elif kind == "uniform":
+            y, key = noise_ops.uniform_noise(state, shape, low=mean - std,
+                                             high=mean + std)
+        elif kind == "triangular":
+            y, key = noise_ops.triangular(state, shape, half_range=std, mean=mean)
+        else:
+            y, key = noise_ops.complex_gaussian(state, shape, std=std)
+        return key, {"out": y}

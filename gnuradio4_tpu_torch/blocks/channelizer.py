@@ -1,0 +1,87 @@
+"""PFB channelizer / synthesizer blocks (suite configs 4 and 5).
+
+The analysis block turns a 1-D wideband complex stream ``[T]`` into an M-channel
+stream ``[M, T/M]`` (rate fs/M per channel); the synthesis block inverts.
+"""
+
+from __future__ import annotations
+
+from fractions import Fraction
+
+import numpy as np
+import torch
+
+from ..core.block import Block, Port
+from ..core.registry import register_block
+from ..core.settings import Setting
+from ..ops.channelizer import (design_pfb_taps, pfb_analyze, pfb_init_state,
+                               pfb_synthesize)
+
+
+class _PfbBank(Block):
+    IN = (Port("in", dtype="complex64"),)
+    OUT = (Port("out", dtype="complex64"),)
+    n_channels = Setting(default=4, kind="static", limits=(2, 1 << 16))
+    taps_per_phase = Setting(default=8, kind="static", limits=(1, 64))
+    taps = Setting(default=(), kind="static",
+                   description="prototype LP taps (empty → auto Kaiser design)")
+
+    def _taps(self) -> np.ndarray:
+        t = self.settings.get("taps")
+        m = int(self.settings.get("n_channels"))
+        p = int(self.settings.get("taps_per_phase"))
+        if t is None or len(t) == 0:
+            return design_pfb_taps(m, p).astype(np.float32)
+        t = np.asarray(t, dtype=np.float32)
+        return np.pad(t, (0, m * p - len(t)))[: m * p]
+
+    def _device_taps(self, device: torch.device) -> torch.Tensor:
+        """The prototype on ``device``, uploaded once per compile."""
+        t = getattr(self, "_taps_dev", None)
+        if t is None or t.device != device:
+            t = self._taps_dev = torch.from_numpy(self._taps()).to(device)
+        return t
+
+    def init_state(self, ctx):
+        self._taps_dev = None        # a recompile may bring new taps
+        return pfb_init_state(int(self.settings.get("n_channels")),
+                              int(self.settings.get("taps_per_phase")),
+                              ctx.device)
+
+
+@register_block("PFBChannelizer")
+class PFBChannelizer(_PfbBank):
+    """M-channel polyphase analysis bank: [T] → [M, T/M] (critically sampled)."""
+
+    @property
+    def ratio(self):
+        return Fraction(1, int(self.settings.get("n_channels")))
+
+    @property
+    def alignment(self):
+        return int(self.settings.get("n_channels"))
+
+    def out_channels(self, port, in_channels):
+        return int(self.settings.get("n_channels"))
+
+    def apply(self, state, ins, ctx):
+        x = ins["in"].to(torch.complex64)
+        y, new_state = pfb_analyze(x, self._device_taps(x.device), state)
+        return new_state, {"out": y}
+
+
+@register_block("PFBSynthesizer")
+class PFBSynthesizer(_PfbBank):
+    """M-channel synthesis bank: [M, T] → [M·T] wideband (inverse of analysis)."""
+
+    @property
+    def ratio(self):
+        return Fraction(int(self.settings.get("n_channels")), 1)
+
+    def out_channels(self, port, in_channels):
+        return 0
+
+    def apply(self, state, ins, ctx):
+        x = ins["in"].to(torch.complex64)
+        y, new_state = pfb_synthesize(x, self._device_taps(x.device), state)
+        return new_state, {"out": y}

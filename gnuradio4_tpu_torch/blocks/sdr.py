@@ -26,6 +26,7 @@ class QuadratureDemod(Block):
 
     IN = (Port("in", dtype="complex64"),)
     OUT = (Port("out", dtype="float32"),)
+    SAMPLE_ACCURATE = frozenset({"gain"})
     gain = Setting(default=1.0, description="rad→output scaling (fs/(2π·Δf))")
 
     def init_state(self, ctx):
@@ -40,7 +41,11 @@ class QuadratureDemod(Block):
         return port == "in"
 
     def apply(self, state, ins, ctx):
-        gain = float(np.float32(ctx.p("gain", 1.0)))
+        gain = ctx.p("gain", 1.0)
+        if np.ndim(gain):      # per-sample ramp (tag-accurate gain switch)
+            gain = torch.from_numpy(np.asarray(gain, np.float32)).to(ins["in"].device)
+        else:
+            gain = float(np.float32(gain))
         desc = getattr(self, "_absorbed_rotation", None) or {}
         rot = None
         if "in" in desc:

@@ -9,7 +9,12 @@ A block is a Python object carrying
   time blocks held in torch tensors on the graph's device (the analog of
   processBulk over spans);
 - static **rate descriptors**: ``ratio`` (out/in chunk ratio ≈ ``Resampling``,
-  annotated.hpp:122) and ``alignment``, resolved by the graph's rate algebra.
+  annotated.hpp:122) and ``alignment``, resolved by the graph's rate algebra;
+- **host hooks** the scheduler calls between steps: tag forwarding
+  (``process_tags``, default policy-based ≈ ``forwardInputTags``,
+  Block.hpp:1130), tag emission, sample-accurate tag-driven settings ramps,
+  host feeds, mid-graph valid clamps, block-to-block messages and the
+  lifecycle callbacks.
 
 States are tensors or dicts of tensors, created by :meth:`Block.init_state` on
 the compiled graph's device.
@@ -26,9 +31,9 @@ import numpy as np
 import torch
 
 from .errors import GrError
-from .settings import Setting, Settings
+from .settings import ApplyResult, Setting, Settings
 from .stream import canonical_dtype
-from .tags import Tag, TagPropagation
+from .tags import Tag, TagPropagation, propagate
 
 _instance_counter = itertools.count()
 
@@ -142,16 +147,107 @@ class Block:
         """One step over one time block, on the tensors' device."""
         raise NotImplementedError(f"{type(self).__name__}.apply")
 
+    # -- host path -------------------------------------------------------------
+    def process_tags(self, in_tags: dict[str, list[Tag]], ctx: "HostCtx"
+                     ) -> dict[str, list[Tag]]:
+        """Host-side tag forwarding; indices are step-relative. Default: policy."""
+        if not any(in_tags.values()):       # steady state: nothing to forward
+            return {p.name: [] for p in self.out_ports}
+        return propagate(
+            in_tags,
+            policy=self.tag_policy,
+            out_ports=[p.name for p in self.out_ports],
+            in_ports=[p.name for p in self.in_ports],
+            ratio=self.ratio,
+        )
+
+    def on_settings_applied(self, result: ApplyResult) -> None:
+        """Hook after staged settings were applied (host, between steps)."""
+
+    # -- block-to-block message ports (≈ MsgPortIn/MsgPortOut, Port.hpp) -------
+    def post_message(self, data: dict[str, Any]) -> None:
+        """Queue a property map on this block's message output; the scheduler
+        routes it over message edges at the next step boundary."""
+        if not hasattr(self, "_msg_outbox"):
+            self._msg_outbox = []
+        self._msg_outbox.append(dict(data))
+
+    def handle_message(self, data: dict[str, Any], *, from_block: "Block") -> None:
+        """Receive a property map from an upstream message edge. Default: stage
+        matching settings (the reference's property-message → settings path)."""
+        self.settings.set({k: v for k, v in data.items()
+                           if k in self.settings.spec})
+
+    def drain_messages(self) -> list[dict[str, Any]]:
+        out = getattr(self, "_msg_outbox", [])
+        self._msg_outbox = []
+        return out
+
     def prepare_params(self, params: dict[str, Any]) -> dict[str, Any]:
         """Host hook: derive extra dynamic params from applied settings (runs on the
         host, cheap). E.g. an NCO derives its integer phase increment in float64
         here so the device never loses precision. Default: passthrough."""
         return params
 
+    # -- sample-accurate tag-driven settings -----------------------------------
+    # The reference chunk-breaks work at the next tag so tag-driven settings
+    # apply at the exact sample (Block.hpp:1986 getNextTagAndEosPosition). The
+    # static-shape equivalent: a tag at step-relative index k turns the changed
+    # dynamic setting into a per-sample parameter ARRAY (old value before k,
+    # new from k on) for this one step; subsequent steps use the new scalar.
+    SAMPLE_ACCURATE: ClassVar[frozenset] = frozenset()
+
+    def tag_param_ramps(self, events: list[tuple[int, dict[str, Any]]],
+                        n: int) -> dict[str, Any]:
+        """Build per-sample param arrays (host NumPy) for this step from tag
+        events ``[(index, {setting: new_value}), ...]`` (sorted). Default:
+        piecewise-constant float32 ramps for keys in :attr:`SAMPLE_ACCURATE`."""
+        keys = set().union(*[set(m) for _, m in events]) & self.SAMPLE_ACCURATE
+        out: dict[str, Any] = {}
+        for key in keys:
+            arr = np.full(n, float(self.settings.get(key)), np.float32)
+            for k, m in events:
+                if key in m:
+                    arr[min(max(k, 0), n):] = float(m[key])
+            out[key] = arr
+        return out
+
+    # -- host-side streaming hooks (used by the scheduler) ---------------------
+    FEED: ClassVar[bool] = False  # True → runtime feeds this source's outputs from host
+    # True → a partial host_feed block is a transient underrun (live sources,
+    # warming-up bridges), not EOS; only returning None ends the stream
+    ALLOW_UNDERRUN: ClassVar[bool] = False
+
+    def host_feed(self, n: int, abs_index: int):
+        """For FEED sources: return {port: np.ndarray} (or (dict, n_valid)) for the
+        next ``n`` samples starting at ``abs_index``; None signals EOS. The
+        arrays reach ``apply`` as ``ins[port]``, tensors on the graph's device."""
+        return None
+
     def host_done(self, abs_out: int, n: int) -> int | None:
         """For device-generating sources: return remaining valid samples (≤ n) when
         this step is the last one, else None (keep going)."""
         return None
+
+    def emit_tags(self, ctx: "HostCtx") -> list[Tag]:
+        """Host hook: tags this block emits on all outputs this step (step-relative
+        indices). Used by tag sources and settings auto-forwarding."""
+        return []
+
+    terminate_graph_when_done: ClassVar[bool] = False
+
+    def clamp_valid(self, n_valid_out: int, abs_out: int) -> int | None:
+        """Host hook: clamp this step's valid output count (HeadBlock-style
+        truncation). Return None to pass through; returning ≤ 0 plus
+        ``terminate_graph_when_done=True`` winds the whole graph down."""
+        return None
+
+    # lifecycle hooks (≈ start/stop/pause/resume/reset user methods)
+    def start(self) -> None: ...
+    def stop(self) -> None: ...
+    def pause(self) -> None: ...
+    def resume(self) -> None: ...
+    def reset(self) -> None: ...
 
     # -- plumbing --------------------------------------------------------------
     def port(self, name: str, *, output: bool | None = None) -> "PortRef":
@@ -179,6 +275,17 @@ class PortRef:
     is_output: bool
 
 
+@dataclasses.dataclass
+class HostCtx:
+    """Host-side per-step context for tag processing."""
+
+    step: int
+    in_len: dict[str, int]
+    out_len: dict[str, int]
+    sample_rate: float
+    abs_index: int  # absolute index of the first input sample of this step
+
+
 class SourceBlock(Block):
     """Convenience base: no stream inputs; apply(state, {}, ctx) generates a block."""
 
@@ -195,6 +302,14 @@ class SinkBlock(Block):
 
     OUT: ClassVar[tuple[Port, ...]] = ()
     WANTS_HOST_DATA: ClassVar[bool] = True
+    # True → consume() never reads the array CONTENTS (pure metrics sinks:
+    # counters). The batched delivery then skips the per-sub-step slicing;
+    # consume() still runs once per logical step with correct tags/n_valid/
+    # abs_index, and its arrays hold the super-step's per-sub-step tensors.
+    CONSUME_IGNORES_DATA: ClassVar[bool] = False
+    # True → consume() receives n_valid as {port: count}, each input's own
+    # (≈ the reference's Async input ports progressing independently)
+    PER_PORT_VALID: ClassVar[bool] = False
 
     def apply(self, state, ins, ctx):
         return state, {}

@@ -32,6 +32,12 @@ class Edge:
     dst: Block
     dst_port: str
     name: str = ""
+    # feedback edges close graph cycles (≈ reference feedback merges,
+    # BlockMerging.hpp:628-645); the compiler does not lower them yet and
+    # raises naming the loop
+    feedback: bool = False
+    delay: int = 1
+    fb_init: float = 0.0
     # resolved by the compiler:
     samples_per_step: int = 0
     channels: int = 0
@@ -56,6 +62,7 @@ class Graph(Block):
         super().__init__(name=name)
         self.blocks: list[Block] = []
         self.edges: list[Edge] = []
+        self.message_edges: list[tuple[Block, Block]] = []
         self.registry = registry or global_registry
         # exported ports for subgraph use: public name -> (inner block, inner port)
         self._exports_in: dict[str, tuple[Block, str]] = {}
@@ -75,17 +82,30 @@ class Graph(Block):
         """Registry-based construction (≈ emplaceBlock(typeName, settings), Graph.hpp:429)."""
         return self.add(self.registry.create(type_name, **settings))
 
+    def remove(self, block: Block) -> None:
+        self.blocks.remove(block)
+        self.edges = [e for e in self.edges if e.src is not block and e.dst is not block]
+        self.message_edges = [(s, d) for s, d in self.message_edges
+                              if s is not block and d is not block]
+
     def connect(self, src: Block | PortRef, dst: Block | PortRef,
                 *, src_port: str | None = None, dst_port: str | None = None,
-                name: str = "") -> Edge:
+                name: str = "", feedback: bool = False, delay: int = 1,
+                fb_init: float = 0.0) -> Edge:
         """Connect an output port to an input port. Accepts ``blk["port"]`` refs,
-        bare blocks (single-port inference), or string port names."""
+        bare blocks (single-port inference), or string port names.
+        ``feedback=True`` declares a loop's back-edge (dst sees src delayed by
+        ``delay`` samples); compiling such a graph raises until loop groups are
+        ported."""
         sref = self._resolve(src, src_port, output=True)
         dref = self._resolve(dst, dst_port, output=False)
         for b in (sref.block, dref.block):
             self.add(b)
         self._check_ports(sref, dref)
-        edge = Edge(sref.block, sref.port, dref.block, dref.port, name=name)
+        if feedback and delay < 1:
+            raise ConnectionError_("feedback delay must be >= 1 sample")
+        edge = Edge(sref.block, sref.port, dref.block, dref.port, name=name,
+                    feedback=feedback, delay=int(delay), fb_init=float(fb_init))
         # single-writer per input port (ring semantics): reject double connection
         for e in self.edges:
             if e.dst is dref.block and e.dst_port == dref.port:
@@ -97,6 +117,14 @@ class Graph(Block):
     def connect_chain(self, *blocks: Block) -> list[Edge]:
         """Convenience: connect b0→b1→…→bn via their sole stream ports."""
         return [self.connect(a, b) for a, b in zip(blocks, blocks[1:])]
+
+    def connect_message(self, src: Block, dst: Block) -> None:
+        """Async message edge (≈ MsgPortIn/Out): property maps posted by ``src``
+        (Block.post_message) are delivered to ``dst.handle_message`` at step
+        boundaries — no stream-rate coupling."""
+        self.add(src)
+        self.add(dst)
+        self.message_edges.append((src, dst))
 
     def _resolve(self, obj: Block | PortRef, port: str | None, *, output: bool) -> PortRef:
         if isinstance(obj, PortRef):
@@ -148,6 +176,7 @@ class Graph(Block):
                 for ib in inner.blocks:
                     flat.add(ib)
                 flat.edges.extend(inner.edges)
+                flat.message_edges.extend(inner.message_edges)
                 for pub, (blk, prt) in inner._exports_in.items():
                     remap[(b.unique_name, pub, False)] = (blk, prt)
                 for pub, (blk, prt) in inner._exports_out.items():
@@ -159,17 +188,21 @@ class Graph(Block):
             d = remap.get((e.dst.unique_name, e.dst_port, False), (e.dst, e.dst_port))
             flat.edges.append(dataclasses.replace(e, src=s[0], src_port=s[1],
                                                   dst=d[0], dst_port=d[1]))
+        flat.message_edges.extend(self.message_edges)
         return flat
 
     def topological_order(self) -> list[Block]:
+        # feedback edges close cycles by construction: the forward dataflow
+        # without them must stay a DAG
+        fwd = [e for e in self.edges if not e.feedback]
         indeg = {b: 0 for b in self.blocks}
-        for e in self.edges:
+        for e in fwd:
             indeg[e.dst] += 1
         ready = [b for b in self.blocks if indeg[b] == 0]
         # stable order: keep insertion order among ready blocks (≈ Simple scheduler)
         order: list[Block] = []
         adj: dict[Block, list[Edge]] = {b: [] for b in self.blocks}
-        for e in self.edges:
+        for e in fwd:
             adj[e.src].append(e)
         while ready:
             b = ready.pop(0)
@@ -209,7 +242,8 @@ class Graph(Block):
         anc: dict[Block, set[Block]] = {}
         in_edges: dict[Block, list[Edge]] = {b: [] for b in self.blocks}
         for e in self.edges:
-            in_edges[e.dst].append(e)
+            if not e.feedback:   # back-edges don't constrain rates
+                in_edges[e.dst].append(e)
         for b in order:
             ins = in_edges[b]
             if not ins:

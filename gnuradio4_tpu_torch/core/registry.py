@@ -42,3 +42,31 @@ class BlockRegistry:
 
 global_registry = BlockRegistry()
 register_block = global_registry.register
+
+
+class SchedulerRegistry:
+    """Parallel registry for scheduler types (≈ BlockRegistry.hpp:152)."""
+
+    def __init__(self):
+        self._factories: dict[str, Callable[..., Any]] = {}
+
+    def register(self, name: str | None = None):
+        def deco(cls):
+            self._factories[name or cls.__name__] = cls
+            return cls
+        return deco
+
+    def known_schedulers(self) -> list[str]:
+        return sorted(self._factories)
+
+    def create(self, name: str, /, *args, **kw):
+        try:
+            factory = self._factories[name]
+        except KeyError as e:
+            raise GrError(f"unknown scheduler type {name!r}; known: "
+                          f"{self.known_schedulers()}") from e
+        return factory(*args, **kw)
+
+
+global_scheduler_registry = SchedulerRegistry()
+register_scheduler = global_scheduler_registry.register

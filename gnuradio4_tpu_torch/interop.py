@@ -27,16 +27,22 @@ def _state_leaf(v: Any, device: torch.device | str):
         return {k: _state_leaf(x, device) for k, x in v.items()}
     a = np.asarray(v)
     if a.dtype == np.uint32:
-        # NCO phases: int64 host scalars holding the uint32 value
-        return torch.from_numpy(a.astype(np.int64))
+        if a.ndim == 0:
+            # NCO phases and step counters: int64 host scalars holding the
+            # uint32 value
+            return torch.from_numpy(a.astype(np.int64))
+        # PRNG keys (``jax.random.key_data``): int64 words on the device
+        return torch.from_numpy(a.astype(np.int64)).to(device)
     return torch.from_numpy(np.array(a, copy=True)).to(device)
 
 
 def states_from_numpy(tree: Mapping[str, Any], device: torch.device | str,
                       names: Mapping[str, str] | None = None) -> dict[str, Any]:
     """JAX block states (``CompiledGraph.init_states()`` or the states after a
-    step, leaves as NumPy) → this package's states on ``device``. uint32 phases
-    become int64 host scalars; complex64 histories stay complex64."""
+    step, leaves as NumPy; a PRNG key leaf as its ``jax.random.key_data``) →
+    this package's states on ``device``. 0-d uint32 leaves (NCO phases,
+    counters) become int64 host scalars; uint32 arrays (the noise key) int64
+    device tensors; complex64 histories (FIR, PFB rows) stay complex64."""
     names = names or {}
     return {names.get(k, k): _state_leaf(v, device) for k, v in tree.items()}
 

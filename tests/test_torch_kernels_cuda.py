@@ -248,3 +248,51 @@ def test_new_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     with pytest.raises(GrError, match="shapes"):
         ck.fir_demod(xc, np.ones(3, np.float32), 1,
                      torch.zeros(2, dtype=torch.complex64, device=cuda), 1.0)
+
+
+def _headline_chain(absorb: bool, monkeypatch):
+    """bench.py's headline chain in the port, with VectorSinks."""
+    import gnuradio4_tpu_torch as gt
+    from gnuradio4_tpu_torch.blocks.basic import ComplexToneSource
+    from gnuradio4_tpu_torch.blocks.filter import FirFilter, FreqXlatingFir
+    from gnuradio4_tpu_torch.blocks.fourier import FFT
+    from gnuradio4_tpu_torch.blocks.sdr import QuadratureDemod
+    from gnuradio4_tpu_torch.blocks.testing import VectorSink
+    if absorb:
+        monkeypatch.delenv("GR4TPU_NO_ROTATION_ABSORB", raising=False)
+    else:
+        monkeypatch.setenv("GR4TPU_NO_ROTATION_ABSORB", "1")
+    g = gt.Graph()
+    fir = FreqXlatingFir(taps=_taps("real127"), center_freq=3e6,
+                         sample_rate_in=20e6, decim=1)
+    s1, s2 = VectorSink(), VectorSink()
+    g.connect_chain(ComplexToneSource(frequency=1e6), fir,
+                    FFT(fft_size=4096, window="Hann", output="magnitude",
+                        calibrate=False), s1)
+    dem = QuadratureDemod(gain=1.0)
+    g.connect(fir, dem)
+    g.connect_chain(dem, FirFilter(taps=_taps("real63"), decim=8), s2)
+    return g, s1, s2
+
+
+@pytest.mark.parametrize("absorb", [True, False])
+def test_chain_async_batched_scheduler_matches_sync(cuda, monkeypatch, absorb):
+    """The headline chain on the card under pipelined async delivery and
+    4-step batches gives the synchronous unbatched run's sinks bit for bit,
+    with the same kernel launches per logical step."""
+    import gnuradio4_tpu_torch as gt
+    outs, launches = [], []
+    for kw in (dict(pipeline_depth=1),
+               dict(pipeline_depth=2, async_delivery=True, batch_steps=4)):
+        g, s1, s2 = _headline_chain(absorb, monkeypatch)
+        ck.reset_launch_counts()
+        gt.Scheduler(g, block_len=1 << 18, sample_rate=20e6, device="cuda",
+                     **kw).run_and_wait(8)
+        launches.append(ck.launch_counts())
+        outs.append((s1.data(), s2.data()))
+    assert outs[0][0].shape == (8 << 18,) and outs[0][1].shape == (1 << 18,)
+    for a, b in zip(*outs):
+        np.testing.assert_array_equal(b, a)
+    assert launches[0] == launches[1]
+    assert launches[0]["fir_banded"] == 16
+    assert launches[0]["nco_mix"] == (0 if absorb else 8)
