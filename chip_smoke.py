@@ -50,7 +50,39 @@ result line:
 12. Path D, suite config 6 (``bench_suite.py:256-279``): CountingSource → 20 ×
     (MultiplyConst(2) → DivideConst(2)) → CountingSink at block_len 2^16: the
     count and the data checked, host ms per step over 200 steps, sync and
-    async.
+    async;
+13. suite config 1 (``bench_suite.py:103-118``): ComplexToneSource(1 MHz) →
+    FirFilter(127) → FFT(4096, Hann, magnitude) → NullSink at 20 MHz,
+    compiled at block_len 2^22: one ``fir_banded`` launch (c64 data, f32
+    taps) per step, the tone's bin checked;
+14. suite config 2 (``:121-131``): NoiseSource → RationalResampler(3, 2) →
+    NullSink at 2^22, and both resampler forms timed at that shape (the
+    choice behind ``auto`` on CUDA in ``ops/resample.py``);
+15. suite config 4 (``:151-162``): complex NoiseSource → PFBChannelizer(64,
+    8) → Abs → NullSink at 2^22;
+16. suite config 7 (``:282-315``): a device-resident VectorSource of encoded
+    BPSK LLRs (seed 0, σ 0.6) → LdpcDecoder(256, 128) → NullSink under
+    ``Scheduler(pipeline_depth=2, async_delivery=True)`` at 2^17: the first
+    64 frames' bits equal ``decode_np``'s;
+17. suite config 7k (``:318-332``): NoiseSource(gaussian) → LdpcDecoder →
+    NullSink compiled at 2^19, both decoder forms timed at 2048 frames (the
+    choice behind ``ops/ldpc.py``'s ``decode`` on CUDA), and both run twice on
+    4 dB codewords: hard bits and flags equal run to run and to the CPU's;
+18. a Rotator from a phase just below 2^32: one ``nco_mix`` launch per step,
+    the card's output and end phase against the CPU's;
+19. ``fir_apply``'s methods on a CUDA tensor: ``pallas`` and ``pallas_ilv``
+    launch ``fir_banded`` for a complex stream, ``pallas`` for a real one;
+    every method against ``matmul``, each timed, ``conv`` under PyTorch's
+    default cuDNN flags;
+20. the IFFT's engines (cuFFT against the float32 matmul FFT) at fft_size
+    1024, 4096 and 16384 over 2^22 samples (the choice behind the IFFT's
+    ``auto`` on CUDA in ``blocks/fourier.py``), and the FFT's
+    ``matmul_exact`` at 4096.
+
+Phases 13–17 each print the card against the CPU on a short run of the same
+graph, Msps (coded Mbit/s for 7 and 7k), ms per step by CUDA events over 5
+windows, host ms per step, the device-busy share of one profiled step, peak
+device memory and the hand kernels' launches.
 
 Each path's kernel launches are counted from zero just before it runs and read
 just after. The last lines are the card's name and power limit, a JSON object
@@ -123,6 +155,24 @@ C5_ATOL = 1e-3
 # Path D (suite config 6)
 C6_BLOCK_LEN = 1 << 16
 C6_STEPS = 200
+# suite configs 1, 2, 4, 7 and 7k (bench_suite.py:103-162, 282-332)
+C1_FS = 20e6
+SUITE_FS = {"1": C1_FS, "2": 1e6, "4": 1e9, "7k": 1e9}
+SUITE_BLOCK_LEN = 1 << 22          # configs 1, 2 and 4 on an accelerator
+C7_BLOCK_LEN = 1 << 17
+C7K_BLOCK_LEN = 1 << 19
+C7_SIGMA = 0.6
+C7_CHECK_FRAMES = 64
+SUITE_CPU_BLOCK_LEN = 1 << 14
+C7_CPU_BLOCK_LEN = 1 << 12
+# Eb/N0 4 dB at rate 1/2: σ² = 1 / (2 · 10^0.4 · 0.5)
+SIGMA_4DB = (1.0 / 10 ** 0.4) ** 0.5
+# the resampled and channelized noise, card against CPU, relative to the
+# output RMS: the draws agree to 3.2e-7 (phase 11's check), then f32 sums
+SUITE_RTOL = 1e-4
+ROTATOR_BLOCK_LEN = 1 << 20
+ROTATOR_STEPS = 4
+IFFT_SIZES = (1024, 4096, 16384)
 KERNELS = {
     "fir_banded": {
         "source": "gnuradio4_tpu_torch/csrc/fir_banded.cu",
@@ -542,6 +592,439 @@ def profile_device(fn):
     return sum(r[0] for r in rows), rows[:6]
 
 
+def build_suite(cfg: str, sink: str, tap_source: bool = False):
+    """Suite config ``cfg`` ('1', '2', '4' or '7k') as bench_suite.py:103-162
+    and 318-332 build it, with ``sink`` in place of its NullSink. With
+    ``tap_source`` the source also feeds a VectorSink (returned third; the
+    card-against-CPU runs read the decoder's input through it)."""
+    import numpy as np
+    import gnuradio4_tpu_torch as gt
+    from gnuradio4_tpu_torch.ops import filter_design as fd
+    g = gt.Graph()
+    if cfg == "1":
+        chain = [g.emplace("ComplexToneSource", frequency=1e6),
+                 g.emplace("FirFilter", taps=fd.design_fir(
+                     "lowpass", 127, sample_rate=C1_FS, f_low=2e6).astype(np.float32)),
+                 g.emplace("FFT", fft_size=4096, window="Hann", output="magnitude",
+                           calibrate=False)]
+    elif cfg == "2":
+        chain = [g.emplace("NoiseSource"),
+                 g.emplace("RationalResampler", interp=3, decim=2)]
+    elif cfg == "4":
+        chain = [g.emplace("NoiseSource", noise="complex_gaussian"),
+                 g.emplace("PFBChannelizer", n_channels=64, taps_per_phase=8),
+                 g.emplace("Abs")]
+    else:
+        chain = [g.emplace("NoiseSource", noise="gaussian"),
+                 g.emplace("LdpcDecoder", n=256, m=128, seed=0)]
+    snk = g.emplace(sink)
+    g.connect_chain(*chain, snk)
+    tap = None
+    if tap_source:
+        tap = g.emplace("VectorSink")
+        g.connect(chain[0], tap)
+    return g, snk, SUITE_FS[cfg], tap
+
+
+def config7_llrs(n_frames: int, sigma: float = C7_SIGMA, seed: int = 0):
+    """bench_suite.py:290-297: BPSK LLRs of random data bits encoded by the
+    code (n 256, m 128, seed 0) over AWGN of ``sigma``. Returns (H, k, data
+    bits [n_frames·k], LLRs [n_frames·256] float32). The codewords are
+    ``encode``'s, as a float32 product mod 2 (exact for 0/1 sums < 2^24)."""
+    import numpy as np
+    from gnuradio4_tpu_torch.ops.ldpc import make_ldpc
+    H, G = make_ldpc(256, 128, wc=3, seed=0)
+    k = G.shape[0]
+    rng = np.random.default_rng(seed)
+    u = rng.integers(0, 2, n_frames * k).astype(np.uint8)
+    c = ((u.reshape(-1, k).astype(np.float32) @ G.astype(np.float32)) % 2).reshape(-1)
+    y = 1.0 - 2.0 * c + sigma * rng.standard_normal(len(c))
+    return H, k, u, (2 * y / sigma ** 2).astype(np.float32)
+
+
+def build_config7(llr, sink: str):
+    """Config 7 as bench_suite.py:299-313 builds it: a device-resident
+    VectorSource of LLRs → LdpcDecoder(256, 128, seed 0) → ``sink``."""
+    import gnuradio4_tpu_torch as gt
+    g = gt.Graph()
+    src = g.emplace("VectorSource", device_resident=True)
+    src.data = llr
+    dec = g.emplace("LdpcDecoder", n=256, m=128, seed=0)
+    snk = g.emplace(sink)
+    g.connect_chain(src, dec, snk)
+    return g, snk
+
+
+def time_compiled(compiled, steps_per_window: int, windows: int = 5) -> dict:
+    """A compiled graph's step loop as bench_suite.py:_run drives it: 2 warm
+    steps, then ``windows`` windows of ``steps_per_window`` steps. Returns the
+    median ms/step by CUDA events, every window's (events ms, host dispatch ms)
+    per step (the loop's wall before the closing synchronize), the median
+    host ms, the peak device memory over the windows, one profiled step's
+    device time and top kernels, the number of steps run and the last step's
+    sink inputs."""
+    import torch
+    box = [compiled.init_states(), None]
+    params = compiled.gather_params()
+
+    def step():
+        box[0], box[1] = compiled.step(box[0], params)
+
+    for _ in range(2):
+        step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = []
+    for _ in range(windows):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        for _ in range(steps_per_window):
+            step()
+        end.record()
+        host = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        out.append((start.elapsed_time(end) / steps_per_window,
+                    host / steps_per_window * 1e3))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    dev_ms, top = profile_device(step)
+    return {"ms": statistics.median(w[0] for w in out), "windows": out,
+            "host_ms": statistics.median(w[1] for w in out), "peak_gib": peak,
+            "dev_ms": dev_ms, "top": top, "steps": 3 + windows * steps_per_window,
+            "last": next(iter(box[1].values()))}
+
+
+def report_path(label: str, n_in: int, t: dict, unit: str = "Msps") -> dict:
+    """Print one path's timing line and return its entry of the paths JSON."""
+    rate = n_in / (t["ms"] * 1e-3) / 1e6
+    busy = ("not measured (the profiler saw no device activity)"
+            if t["dev_ms"] is None else
+            f"{t['dev_ms']:.4f} ms ({t['dev_ms'] / t['ms']:.1%} of the step)")
+    print(f"  {label}: {rate:.2f} {unit}, {t['ms']:.4f} ms/step (median of "
+          f"{len(t['windows'])} windows, CUDA events; (events ms, host ms) "
+          f"{fmt_windows(t['windows'])}); host {t['host_ms']:.4f} ms/step; "
+          f"device busy {busy}; peak device memory {t['peak_gib']:.3f} GiB; "
+          f"top kernels {[(round(a, 4), k[:60]) for a, k in t['top'][:4]]}")
+    return {"name": label, unit.replace(" ", "_").replace("/", "_per_").lower(): rate,
+            "ms_per_step": t["ms"], "host_ms_per_step": t["host_ms"],
+            "device_busy_share": (None if t["dev_ms"] is None
+                                  else t["dev_ms"] / t["ms"]),
+            "peak_gib": t["peak_gib"]}
+
+
+def cpu_vs_card(build, block_len: int, dev, steps: int = CPU_STEPS,
+                **sched_kw):
+    """The same graph through ``Scheduler(**sched_kw)`` on the CPU and on the card:
+    ``build()`` → (graph, sink, sample rate, tap or None). Returns per device
+    the sink's data and the tap's (or None), keyed 'cpu' and 'card'."""
+    import numpy as np
+    import gnuradio4_tpu_torch as gt
+    out = {}
+    for key, device in (("cpu", "cpu"), ("card", dev)):
+        g, snk, fs, tap = build()
+        gt.Scheduler(g, block_len=block_len, sample_rate=fs, device=device,
+                     **sched_kw).run_and_wait(steps)
+        out[key] = (np.asarray(snk.data()),
+                       None if tap is None else np.asarray(tap.data()))
+    return out
+
+
+def suite_phases(dev, gen, results: dict) -> list[dict]:
+    """Phases 13–20: suite configs 1, 2, 4, 7 and 7k at their suite sizes,
+    the Rotator, ``fir_apply``'s methods and the IFFT engines on the card.
+    Adds each path's hand-kernel launches to ``results``; returns the paths'
+    entries of the paths JSON."""
+    import numpy as np
+    import torch
+    import gnuradio4_tpu_torch as gt
+    from gnuradio4_tpu_torch.core.profiler import Profiler
+    from gnuradio4_tpu_torch.ops import cuda_kernels as ck
+    from gnuradio4_tpu_torch.ops import filter_design as fd
+    from gnuradio4_tpu_torch.ops import ldpc, resample
+    from gnuradio4_tpu_torch.ops.fft import matmul_fft
+    from gnuradio4_tpu_torch.ops.fir import fir_apply
+    paths = []
+
+    def count(label: str, want: dict) -> None:
+        counts = ck.launch_counts()
+        print(f"  launches {counts}")
+        check(counts == {**{k: 0 for k in KERNELS}, **want},
+              f"{label}: launches {counts}, expected {want}")
+        for k in KERNELS:
+            results[k]["launches"] += counts[k]
+
+    def compiled_path(cfg: str, block_len: int, steps_per_window: int,
+                      per_step: dict) -> dict:
+        g, _, fs, _ = build_suite(cfg, "NullSink")
+        compiled = gt.compile_graph(g, block_len=block_len, sample_rate=fs,
+                                    device=dev)
+        ck.reset_launch_counts()
+        t = time_compiled(compiled, steps_per_window)
+        count(f"config {cfg}", {k: n * t["steps"] for k, n in per_step.items()})
+        return t
+
+    def in_turns(label_a, fa, label_b, fb, what: str) -> dict:
+        ms_a, ms_b = kernel_vs_plain_ms(fa, fb)
+        print(f"  {what}: {label_a} {ms_a:.4f} ms, {label_b} {ms_b:.4f} ms "
+              f"(median of 10 by CUDA events, in turns)")
+        return {label_a: ms_a, label_b: ms_b}
+
+    # 13. config 1
+    print("[13 config 1] ComplexToneSource(1 MHz) → FirFilter(127) → FFT(4096, "
+          "Hann, magnitude) → NullSink at 20 MHz, block_len 2^22")
+    out = cpu_vs_card(lambda: build_suite("1", "VectorSink"), SUITE_CPU_BLOCK_LEN, dev)
+    a, b = out["cpu"][0], out["card"][0]
+    check(a.shape == b.shape == (CPU_STEPS * SUITE_CPU_BLOCK_LEN,),
+          f"config 1 sink shapes {a.shape} {b.shape}")
+    err = float(np.max(np.abs(a - b))) / float(np.max(a))
+    print(f"  cpu vs card at block_len 2^14, {CPU_STEPS} steps: spectrum max|Δ| "
+          f"{err:.3e} of the peak (tol {SPEC_RTOL})")
+    check(err <= SPEC_RTOL, f"config 1 card vs CPU {err}")
+    t = compiled_path("1", SUITE_BLOCK_LEN, 20, {"fir_banded": 1})
+    spec = t["last"]["in"].cpu().numpy().reshape(-1, 4096)
+    want_bin = 1e6 / C1_FS * 4096
+    worst = float(np.max(np.abs(np.argmax(spec, axis=1) - want_bin)))
+    check(bool(np.isfinite(spec).all()) and worst <= 1.0,
+          f"config 1 at 2^22: peak off by {worst} bins")
+    print(f"  card at 2^22: {spec.shape[0]} spectra finite, peak within "
+          f"{worst:.2f} of bin {want_bin:.1f}")
+    paths.append(report_path("config 1", SUITE_BLOCK_LEN, t))
+
+    # 14. config 2, and the two resampler forms at its shape
+    print("[14 config 2] NoiseSource → RationalResampler(3, 2) → NullSink, "
+          "block_len 2^22")
+    out = cpu_vs_card(lambda: build_suite("2", "VectorSink"), SUITE_CPU_BLOCK_LEN, dev)
+    a, b = out["cpu"][0], out["card"][0]
+    check(a.shape == b.shape == (CPU_STEPS * SUITE_CPU_BLOCK_LEN * 3 // 2,),
+          f"config 2 sink shapes {a.shape} {b.shape}")
+    err = rms_err(b, a)
+    print(f"  cpu vs card at block_len 2^14, {CPU_STEPS} steps: max|Δ| "
+          f"{err:.3e}·RMS (tol {SUITE_RTOL})")
+    check(err <= SUITE_RTOL, f"config 2 card vs CPU {err}")
+    kern = resample.RationalResamplerKernel(3, 2)
+    x = torch.randn(SUITE_BLOCK_LEN, device=dev, generator=gen)
+    st = kern.init_state(0, np.float32, dev)
+    forms = {m: (lambda m=m: kern.apply(x, st, method=m)) for m in
+             ("interleave", "matmul")}
+    y_i, y_m = forms["interleave"]()[0], forms["matmul"]()[0]
+    err = rms_err(y_m.cpu().numpy(), y_i.cpu().numpy())
+    print(f"  forms at 2^22: matmul against interleave max|Δ| {err:.3e}·RMS "
+          f"(tol {SUITE_RTOL})")
+    check(y_m.shape == y_i.shape == (SUITE_BLOCK_LEN * 3 // 2,) and err <= SUITE_RTOL,
+          f"resampler forms disagree: {err}")
+    ms = in_turns("matmul", forms["matmul"], "interleave", forms["interleave"],
+                  "RationalResampler 3/2 real 2^22")
+    print(f"  auto on CUDA: matmul (faster here: {min(ms, key=ms.get)})")
+    del x, y_i, y_m
+    t = compiled_path("2", SUITE_BLOCK_LEN, 10, {})
+    y = t["last"]["in"]
+    check(y.shape == (SUITE_BLOCK_LEN * 3 // 2,) and bool(torch.isfinite(y).all()),
+          f"config 2 at 2^22: output {tuple(y.shape)}")
+    paths.append(report_path("config 2", SUITE_BLOCK_LEN, t))
+
+    # 15. config 4
+    print("[15 config 4] NoiseSource(complex_gaussian) → PFBChannelizer(64, 8) "
+          "→ Abs → NullSink, block_len 2^22")
+    out = cpu_vs_card(lambda: build_suite("4", "VectorSink"), SUITE_CPU_BLOCK_LEN, dev)
+    a, b = out["cpu"][0], out["card"][0]
+    check(a.shape == b.shape == (64, CPU_STEPS * SUITE_CPU_BLOCK_LEN // 64),
+          f"config 4 sink shapes {a.shape} {b.shape}")
+    err = rms_err(b, a)
+    print(f"  cpu vs card at block_len 2^14, {CPU_STEPS} steps: max|Δ| "
+          f"{err:.3e}·RMS (tol {SUITE_RTOL})")
+    check(err <= SUITE_RTOL, f"config 4 card vs CPU {err}")
+    t = compiled_path("4", SUITE_BLOCK_LEN, 5, {})
+    y = t["last"]["in"]
+    check(y.shape == (64, SUITE_BLOCK_LEN // 64) and bool(torch.isfinite(y).all())
+          and bool((y >= 0).all()), f"config 4 at 2^22: output {tuple(y.shape)}")
+    paths.append(report_path("config 4", SUITE_BLOCK_LEN, t))
+
+    # 16. config 7 under the pipelined async scheduler
+    print("[16 config 7] device-resident LLRs (seed 0, σ 0.6) → LdpcDecoder(256, "
+          "128) → NullSink, block_len 2^17, Scheduler(pipeline_depth=2, "
+          "async_delivery=True)")
+    fpb = C7_BLOCK_LEN // 256
+    n_steps = 2 + 5 * 10 + 4
+    H, k, u, llr = config7_llrs(n_steps * fpb)
+    c7_kw = dict(pipeline_depth=2, async_delivery=True)
+    g, snk = build_config7(llr[: 2 * C7_BLOCK_LEN], "VectorSink")
+    gt.Scheduler(g, block_len=C7_BLOCK_LEN, sample_rate=1e9, device=dev,
+                 **c7_kw).run_and_wait()
+    bits = snk.data()
+    check(bits.shape == (2 * fpb * k,), f"config 7 sink shape {bits.shape}")
+    n_chk = min(C7_CHECK_FRAMES, 2 * fpb)
+    want, _ = ldpc.decode_np(H, llr[: n_chk * 256].reshape(-1, 256), 25)
+    same = np.array_equal(bits[: n_chk * k], want[:, :k].reshape(-1))
+    raw = float(np.mean((llr[: 2 * C7_BLOCK_LEN].reshape(-1, 256)[:, :k] < 0)
+                        != u[: 2 * fpb * k].reshape(-1, k)))
+    ber = float(np.mean(bits != u[: 2 * fpb * k]))
+    print(f"  card, 2 steps: the first {n_chk} frames' bits equal "
+          f"decode_np's: {same}; BER {ber:.3e} against raw {raw:.3e} over "
+          f"{2 * fpb} frames")
+    check(same, "config 7: decoded bits differ from decode_np")
+    out = cpu_vs_card(lambda: (*build_config7(llr[: CPU_STEPS * C7_CPU_BLOCK_LEN],
+                                              "VectorSink"), 1e9, None),
+                      C7_CPU_BLOCK_LEN, dev, **c7_kw)
+    same = np.array_equal(out["cpu"][0], out["card"][0])
+    print(f"  cpu vs card at block_len 2^12, {CPU_STEPS} steps: bits equal: {same}")
+    check(same, "config 7 card vs CPU")
+    g, _ = build_config7(llr, "NullSink")
+    sched = gt.Scheduler(g, block_len=C7_BLOCK_LEN, sample_rate=1e9, device=dev,
+                         profiler=Profiler(), **c7_kw)
+    sched.init()
+    sched.fsm.transition_to(gt.State.RUNNING)
+    ck.reset_launch_counts()
+    for _ in range(2):
+        sched._pump_once()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms, windows, host_ms, split = drive_windows(sched, 10)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    dev_ms, top = profile_device(sched._pump_once)
+    finish(sched)
+    del sched
+    count("config 7", {})
+    print(f"  pump split per step: {fmt_split(split)}")
+    paths.append(report_path("config 7", C7_BLOCK_LEN,
+                             {"ms": ms, "windows": windows, "host_ms": host_ms,
+                              "peak_gib": peak, "dev_ms": dev_ms, "top": top},
+                             unit="coded Mbit/s"))
+
+    # 17. config 7k, and the two decoder forms at its shape
+    print("[17 config 7k] NoiseSource(gaussian) → LdpcDecoder(256, 128) → "
+          "NullSink, compiled, block_len 2^19")
+    out = cpu_vs_card(lambda: build_suite("7k", "VectorSink", tap_source=True),
+                      1 << 13, dev)
+    (bits_p, llr_p), (bits_c, llr_c) = out["cpu"], out["card"]
+    noise_err = float(np.max(np.abs(llr_c - llr_p) / np.maximum(1.0, np.abs(llr_p))))
+    tanner = ldpc.LdpcGraph(H)
+    want = ldpc.min_sum_decode(tanner, torch.from_numpy(llr_c.reshape(-1, 256)))[0]
+    same = np.array_equal(bits_c, want[:, :k].numpy().astype(np.float32).reshape(-1))
+    print(f"  cpu vs card at block_len 2^13, {CPU_STEPS} steps: noise "
+          f"max|Δ|/max(1,|x|) {noise_err:.3e} (tol {NOISE_RTOL}); the card's bits "
+          f"equal the CPU decoder's on the card's LLRs: {same}; bits differing "
+          f"between the two whole runs {int(np.sum(bits_c != bits_p))} of "
+          f"{bits_c.size}")
+    check(noise_err <= NOISE_RTOL and same, "config 7k card vs CPU")
+    x = torch.randn(C7K_BLOCK_LEN // 256, 256, device=dev, generator=gen)
+    decode_ms = in_turns("dense", lambda: ldpc.min_sum_decode_dense(tanner, x),
+                         "segment", lambda: ldpc.min_sum_decode(tanner, x),
+                         f"decoder forms at {C7K_BLOCK_LEN // 256} frames × 25 "
+                         f"iterations")
+    print(f"  auto on CUDA: dense (faster here: "
+          f"{min(decode_ms, key=decode_ms.get)})")
+    # Eb/N0 4 dB codewords: both forms twice, against the CPU's segment form
+    _, _, u4, llr4 = config7_llrs(C7K_BLOCK_LEN // 256, sigma=SIGMA_4DB, seed=1)
+    x4 = torch.from_numpy(llr4.reshape(-1, 256))
+    n_cpu = 256
+    want, ok_want = ldpc.min_sum_decode(tanner, x4[:n_cpu])
+    for name, fn in (("segment", ldpc.min_sum_decode),
+                     ("dense", ldpc.min_sum_decode_dense)):
+        runs = [fn(tanner, x4.to(dev)) for _ in range(2)]
+        repro = all(torch.equal(p.cpu(), q.cpu()) for p, q in zip(*runs))
+        hard, ok = (r.cpu() for r in runs[0])
+        eq_cpu = torch.equal(hard[:n_cpu], want) and torch.equal(ok[:n_cpu], ok_want)
+        ber = float((hard[:, :k].numpy().reshape(-1) != u4).mean())
+        print(f"  {name} at 4 dB, {x4.shape[0]} frames: bits and flags equal run to "
+              f"run: {repro}; equal to the CPU's on the first {n_cpu} frames: "
+              f"{eq_cpu}; {int(ok.sum())} frames pass their syndrome; BER {ber:.3e}")
+        check(repro and eq_cpu, f"config 7k {name} form at 4 dB: equal run to "
+              f"run {repro}, equal to the CPU {eq_cpu}")
+    del x, x4
+    t = compiled_path("7k", C7K_BLOCK_LEN, 10, {})
+    y = t["last"]["in"]
+    check(y.shape == (C7K_BLOCK_LEN // 2,) and bool(((y == 0) | (y == 1)).all()),
+          f"config 7k at 2^19: output {tuple(y.shape)}")
+    paths.append(report_path("config 7k", C7K_BLOCK_LEN, t, unit="coded Mbit/s"))
+
+    # 18. the Rotator: one nco_mix launch per step, across the 2^32 wrap
+    print(f"[18 rotator] ComplexToneSource → Rotator(-3.1 MHz) → NullSink at 20 "
+          f"MHz, 2^20 × {ROTATOR_STEPS} steps from phase 2^32 − 12345")
+    rot_out = {}
+    for key, device in (("cpu", "cpu"), ("card", dev)):
+        g = gt.Graph()
+        src = g.emplace("ComplexToneSource", frequency=1e6)
+        rot = g.emplace("Rotator", frequency_shift=-3.1e6)
+        snk = g.emplace("NullSink")
+        g.connect_chain(src, rot, snk)
+        c = gt.compile_graph(g, block_len=ROTATOR_BLOCK_LEN, sample_rate=C1_FS,
+                             device=device)
+        st = c.init_states()
+        st[rot.unique_name] = torch.tensor((1 << 32) - 12345)
+        params = c.gather_params()
+        ck.reset_launch_counts()
+        ys = []
+        for _ in range(ROTATOR_STEPS):
+            st, sink_ins = c.step(st, params)
+            ys.append(sink_ins[snk.unique_name]["in"].cpu())
+        if key == "card":
+            count("Rotator", {"nco_mix": ROTATOR_STEPS})
+        rot_out[key] = (torch.cat(ys), int(st[rot.unique_name]))
+    err = float((rot_out["card"][0] - rot_out["cpu"][0]).abs().max())
+    print(f"  card vs cpu: max|Δ| {err:.3e} (tol {NCO_ATOL}); end phase "
+          f"{rot_out['card'][1]} vs {rot_out['cpu'][1]}")
+    check(err <= NCO_ATOL and rot_out["card"][1] == rot_out["cpu"][1],
+          "Rotator card vs CPU")
+
+    # 19. fir_apply's methods on a CUDA tensor: pallas* launch the kernel
+    print("[19 fir_apply methods] c64 2^22, 127 real taps, on the card; cuDNN "
+          f"allow_tf32 {torch.backends.cudnn.allow_tf32} (PyTorch's default)")
+    lp = fd.design_fir("lowpass", 127, sample_rate=C1_FS, f_low=2e6).astype(np.float32)
+    x = torch.randn(SUITE_BLOCK_LEN, dtype=torch.complex64, device=dev, generator=gen)
+    st0 = torch.randn(126, dtype=torch.complex64, device=dev, generator=gen)
+    ck.reset_launch_counts()
+    y_p = fir_apply(x, lp, st0, method="pallas")[0]
+    y_pi = fir_apply(x, lp, st0, method="pallas_ilv")[0]
+    y_pr = fir_apply(x.real, lp, st0.real, method="pallas")[0]
+    torch.cuda.synchronize()
+    count("fir_apply pallas methods", {"fir_banded": 3})
+    y_ref = fir_apply(x, lp, st0, method="matmul")[0]
+    y_rr = fir_apply(x.real, lp, st0.real, method="matmul")[0]
+    err = float((y_pr - y_rr).abs().max()) / float(y_rr.pow(2).mean().sqrt())
+    print(f"  pallas, f32 stream: max|Δ| to matmul {err:.3e}·RMS (tol 1e-5)")
+    check(y_pr.shape == y_rr.shape and err <= 1e-5, f"fir_apply pallas f32: {err}")
+    scale = float(y_ref.abs().pow(2).mean().sqrt())
+    method_ms = {}
+    for m, y in (("pallas", y_p), ("pallas_ilv", y_pi), ("conv", None), ("fft", None),
+                 ("matmul_ilv", None), ("matmul", y_ref)):
+        if y is None:
+            y = fir_apply(x, lp, st0, method=m)[0]
+        err = float((y - y_ref).abs().max()) / scale
+        tol = 1e-4 if m == "fft" else 1e-5
+        method_ms[m] = cuda_ms(lambda m=m: fir_apply(x, lp, st0, method=m))
+        print(f"  {m}: max|Δ| to matmul {err:.3e}·RMS (tol {tol}); "
+              f"{method_ms[m]:.4f} ms")
+        check(y.shape == y_ref.shape and err <= tol, f"fir_apply {m} on the card: {err}")
+    del x, y_p, y_pi, y_pr, y_ref, y_rr
+
+    # 20. the IFFT's engines, and the FFT's matmul_exact, over 2^22 samples
+    print("[20 fft engines] cuFFT against the float32 matmul FFT over 2^22 samples")
+    x = torch.randn(SUITE_BLOCK_LEN, dtype=torch.complex64, device=dev, generator=gen)
+    ifft_ms = {}
+    for n in IFFT_SIZES:
+        blocks = {e: gt.global_registry.create("IFFT", fft_size=n, engine=e)
+                  for e in ("xla", "matmul_exact")}
+        run = {e: (lambda b=b: b.apply(None, {"in": x}, None)[1]["out"])
+               for e, b in blocks.items()}
+        ya, yb = run["xla"](), run["matmul_exact"]()
+        err = float((ya - yb).abs().max() / ya.abs().max())
+        check(err <= SPEC_RTOL, f"IFFT {n}: engines differ by {err}")
+        ifft_ms[n] = in_turns("cuFFT", run["xla"], "matmul_exact", run["matmul_exact"],
+                              f"IFFT {n} (engines max|Δ| {err:.3e} of the peak)")
+    xr = x.reshape(-1, 4096)
+    err = float((matmul_fft(xr, 4096) - torch.fft.fft(xr)).abs().max()
+                / torch.fft.fft(xr).abs().max())
+    check(err <= SPEC_RTOL, f"FFT matmul_exact 4096: {err}")
+    in_turns("cuFFT", lambda: torch.fft.fft(xr), "matmul_exact",
+             lambda: matmul_fft(xr, 4096),
+             f"FFT 4096 (max|Δ| {err:.3e} of the peak)")
+    print(f"  IFFT auto on CUDA: cuFFT (faster here at {list(IFFT_SIZES)}: "
+          f"{[min(v, key=v.get) for v in ifft_ms.values()]})")
+    del x, xr
+    return paths
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -557,7 +1040,6 @@ def main() -> int:
 
     # full float32 everywhere the plain versions multiply matrices
     torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
 
     # 1. device
@@ -1157,6 +1639,8 @@ def main() -> int:
               f"({fmt_split(split)})")
         paths.append({"name": f"Path D config 6 {name}", "msps": msps,
                       "ms_per_step": ms, "host_ms_per_step": host_ms})
+
+    paths += suite_phases(dev, gen, results)
 
     kernels = [{"name": name, "route": "cuda", **meta,
                 "launches": results[name]["launches"],

@@ -1,4 +1,4 @@
 """Block library of the port; importing it populates the global registry."""
 
-from . import (basic, channelizer, filter, fourier, math, sdr,  # noqa: F401
-               testing)
+from . import (basic, channelizer, filter, fourier, ldpc, math,  # noqa: F401
+               sdr, testing)

@@ -1,4 +1,6 @@
-"""PFB channelizer / synthesizer blocks (suite configs 4 and 5).
+"""PFB channelizer / synthesizer blocks (suite configs 4 and 5) and the
+channel-axis plumbing (``ChannelSelect``, ``StreamToChannels``,
+``ChannelsToStream``).
 
 The analysis block turns a 1-D wideband complex stream ``[T]`` into an M-channel
 stream ``[M, T/M]`` (rate fs/M per channel); the synthesis block inverts.
@@ -12,6 +14,7 @@ import numpy as np
 import torch
 
 from ..core.block import Block, Port
+from ..core.errors import GrError
 from ..core.registry import register_block
 from ..core.settings import Setting
 from ..ops.channelizer import (design_pfb_taps, pfb_analyze, pfb_init_state,
@@ -85,3 +88,66 @@ class PFBSynthesizer(_PfbBank):
         x = ins["in"].to(torch.complex64)
         y, new_state = pfb_synthesize(x, self._device_taps(x.device), state)
         return new_state, {"out": y}
+
+
+@register_block("ChannelSelect")
+class ChannelSelect(Block):
+    """Pick one channel of a multi-channel stream: [C, T] → [T]."""
+
+    IN = (Port("in"),)
+    OUT = (Port("out"),)
+    channel = Setting(default=0, kind="static", limits=(0, 1 << 20))
+
+    def out_channels(self, port, in_channels):
+        return 0
+
+    def apply(self, state, ins, ctx):
+        c = int(self.settings.get("channel"))
+        n_ch = ins["in"].shape[0] if ins["in"].ndim > 1 else 0
+        if c >= n_ch:
+            raise GrError(f"{self.name}: channel {c} out of range "
+                          f"(input has {n_ch} channels)")
+        return state, {"out": ins["in"][c]}
+
+
+@register_block("StreamToChannels")
+class StreamToChannels(Block):
+    """Deinterleave [T] → [C, T/C] (≈ stream-to-streams corner turn)."""
+
+    IN = (Port("in"),)
+    OUT = (Port("out"),)
+    n_channels = Setting(default=2, kind="static", limits=(1, 1 << 16))
+
+    @property
+    def ratio(self):
+        return Fraction(1, int(self.settings.get("n_channels")))
+
+    @property
+    def alignment(self):
+        return int(self.settings.get("n_channels"))
+
+    def out_channels(self, port, in_channels):
+        return int(self.settings.get("n_channels"))
+
+    def apply(self, state, ins, ctx):
+        c = int(self.settings.get("n_channels"))
+        return state, {"out": ins["in"].reshape(-1, c).t().contiguous()}
+
+
+@register_block("ChannelsToStream")
+class ChannelsToStream(Block):
+    """Interleave [C, T] → [T·C] (inverse corner turn)."""
+
+    IN = (Port("in"),)
+    OUT = (Port("out"),)
+    n_channels = Setting(default=2, kind="static", limits=(1, 1 << 16))
+
+    @property
+    def ratio(self):
+        return Fraction(int(self.settings.get("n_channels")), 1)
+
+    def out_channels(self, port, in_channels):
+        return 0
+
+    def apply(self, state, ins, ctx):
+        return state, {"out": ins["in"].t().reshape(-1)}

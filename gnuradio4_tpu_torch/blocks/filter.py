@@ -1,9 +1,13 @@
 """Filter blocks (≈ reference blocks/filter/time_domain_filter.hpp).
 
-``FirFilter`` (:24 fir_filter with decimation) and ``FreqXlatingFir`` (channel
-extraction) filter through ops/fir.py ``fir_apply``, i.e. the hand-written
-banded FIR kernel on a CUDA device. ``IirFilter`` (:64 iir_filter) runs one of
-ops/iir.py's engines, or the hand-written biquad-cascade kernel.
+``FirFilter`` (:24 fir_filter with decimation), ``BasicFilter`` /
+``BasicDecimatingFilter`` (auto-designed, :131-211), ``FreqXlatingFir`` (channel
+extraction) and ``IQDemodulator`` filter through ops/fir.py ``fir_apply``, i.e.
+the hand-written banded FIR kernel on a CUDA device. ``IirFilter`` (:64
+iir_filter) runs one of ops/iir.py's engines, or the hand-written
+biquad-cascade kernel. ``Decimator`` (:216) keeps every N-th sample;
+``RationalResampler`` runs ops/resample.py; ``LockInDemodulator`` is the
+reference's two-input IQDemodulator over ``torch.fft.rfft``.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ from ..ops import filter_design as fd
 from ..ops import iir as iir_ops
 from ..ops.cuda_kernels import iir_sos, nco_mix
 from ..ops.fir import PRECISIONS, fir_apply, fir_init_state, freq_xlating_taps
+from ..ops.resample import RationalResamplerKernel
 from ..ops.signal import complex_exp_ramp, phase_increment
 from .basic import phase_state
 
@@ -275,3 +280,193 @@ class IirFilter(Block):
                 x, np.asarray(self.settings.get("b"), dtype=np.float64),
                 np.asarray(self.settings.get("a"), dtype=np.float64), state)
         return new_state, {"out": y}
+
+
+@register_block("IQDemodulator")
+class IQDemodulator(FreqXlatingFir):
+    """RF → decimated complex baseband in one block (≈ reference IQDemodulator,
+    blocks/filter FrequencyEstimator.hpp, Resampling<1024,1>): heterodyne at
+    ``center_freq``, anti-alias low-pass, decimate by ``decim``. Taps are
+    auto-designed (windowed-sinc, cutoff 0.4·fs/decim, 8·decim+1 taps) unless
+    given explicitly. Accepts real or complex input."""
+
+    IN = (Port("in"),)   # real RF or complex IF both work
+    OUT = (Port("out", dtype="complex64"),)
+    taps = Setting(default=(), kind="static",
+                   description="anti-alias taps; empty → auto-designed")
+
+    def _taps_array(self):
+        user = np.asarray(self.settings.get("taps"))
+        if user.size:   # explicit taps win over the auto design
+            return super()._taps_array()
+        d = int(self.settings.get("decim"))
+        if getattr(self, "_auto_key", None) != d:
+            self._auto_key = d
+            self._auto_taps = fd.design_fir(
+                "lowpass", 8 * d + 1, sample_rate=1.0, f_low=0.4 / max(d, 1),
+                window="Hamming").astype(np.float32)
+        return self._auto_taps
+
+
+@register_block("LockInDemodulator")
+class LockInDemodulator(Block):
+    """Dual-channel lock-in / transfer-function analyzer (≈ the reference's
+    two-input ``IQDemodulator``, blocks/filter FrequencyEstimator.hpp:
+    Resampling<1024,1> with amp/phase/frequency outputs).
+
+    Per ``chunk`` input samples, one sample on each output: the response/
+    reference amplitude ratio, their phase difference (radians or degrees,
+    optionally inverted) and the reference frequency. Both chunks are
+    transformed together; the reference's dominant (non-DC) bin carries both
+    complex coefficients, and the frequency comes from parabolic
+    interpolation around it."""
+
+    IN = (Port("ref", dtype="float32"), Port("resp", dtype="float32"))
+    OUT = (Port("amp", dtype="float32"), Port("phase", dtype="float32"),
+           Port("freq", dtype="float32"))
+    chunk = Setting(default=1024, kind="static", limits=(8, 1 << 24))
+    phase_unit = Setting(default="radians", kind="static",
+                         choices=("radians", "degrees"))
+    invert_phase = Setting(default=False, kind="static")
+
+    @property
+    def ratio(self):
+        return Fraction(1, int(self.settings.get("chunk")))
+
+    @property
+    def alignment(self):
+        return int(self.settings.get("chunk"))
+
+    def apply(self, state, ins, ctx):
+        n = int(self.settings.get("chunk"))
+        fs = ctx.sample_rate
+        ref = ins["ref"].reshape(*ins["ref"].shape[:-1], -1, n)
+        resp = ins["resp"].reshape(*ins["resp"].shape[:-1], -1, n)
+        r = torch.fft.rfft(ref, dim=-1)
+        s = torch.fft.rfft(resp, dim=-1)
+        mag = torch.abs(r)
+        mag[..., 0] = 0.0                       # ignore DC
+        km = torch.clamp(torch.argmax(mag, dim=-1), 1, n // 2 - 1)[..., None]
+        take = lambda a, idx: torch.gather(a, -1, idx)[..., 0]
+        rk, sk = take(r, km), take(s, km)
+        amp = torch.abs(sk) / torch.clamp(torch.abs(rk), min=1e-30)
+        ph = torch.angle(sk * torch.conj(rk))
+        if bool(self.settings.get("invert_phase")):
+            ph = -ph
+        if str(self.settings.get("phase_unit")) == "degrees":
+            ph = ph * float(np.float32(180.0 / np.pi))
+        # parabolic peak interpolation for the reference frequency
+        a, b, c = take(mag, km - 1), take(mag, km), take(mag, km + 1)
+        denom = a - 2 * b + c
+        d = torch.where(denom.abs() > 1e-20, 0.5 * (a - c) / denom,
+                        torch.zeros_like(denom))
+        freq = (km[..., 0].to(torch.float32) + d) * float(np.float32(fs / n))
+        return state, {"amp": amp.float(), "phase": ph.float(),
+                       "freq": freq.float()}
+
+
+@register_block("Decimator")
+class Decimator(Block):
+    """Keep every N-th sample (≈ Decimator, time_domain_filter.hpp:216). The
+    output is a strided view of the input; ``fir_apply`` makes its input
+    contiguous before a kernel sees it."""
+
+    IN = (Port("in"),)
+    OUT = (Port("out"),)
+    decim = Setting(default=1, kind="static", limits=(1, 1 << 20))
+
+    @property
+    def ratio(self):
+        return Fraction(1, int(self.settings.get("decim")))
+
+    @property
+    def alignment(self):
+        return int(self.settings.get("decim"))
+
+    def apply(self, state, ins, ctx):
+        d = int(self.settings.get("decim"))
+        return state, {"out": ins["in"][..., ::d]}
+
+
+@register_block("BasicFilter")
+class BasicFilter(FirFilter):
+    """Auto-designed FIR from high-level parameters (≈ BasicFilter,
+    time_domain_filter.hpp:131): set filter_type/f_low/f_high/ntaps/window and
+    the taps are designed once per compile via ops.filter_design."""
+
+    filter_type = Setting(default="lowpass", kind="static",
+                          choices=("lowpass", "highpass", "bandpass", "bandstop"))
+    f_low = Setting(default=0.1, kind="static", unit="Hz")
+    f_high = Setting(default=0.0, kind="static", unit="Hz")
+    ntaps = Setting(default=127, kind="static", limits=(1, 1 << 16))
+    window = Setting(default="Hamming", kind="static")
+    sample_rate_design = Setting(default=0.0, kind="static",
+                                 description="0 → inherit resolved edge rate")
+
+    _fs_cached: float = 1.0
+
+    def _taps_array(self):
+        fs = float(self.settings.get("sample_rate_design")) or self._fs_cached
+        key = (fs, *(self.settings.get(k) for k in (
+            "filter_type", "f_low", "f_high", "ntaps", "window")))
+        if getattr(self, "_design_key", None) != key:
+            fh = float(self.settings.get("f_high")) or None
+            self._design_key = key
+            self._design = fd.design_fir(
+                self.settings.get("filter_type"), int(self.settings.get("ntaps")),
+                sample_rate=fs, f_low=float(self.settings.get("f_low")),
+                f_high=fh, window=self.settings.get("window")).astype(np.float32)
+        return self._design
+
+    def init_state(self, ctx):
+        self._fs_cached = ctx.sample_rate
+        return super().init_state(ctx)
+
+
+@register_block("BasicDecimatingFilter")
+class BasicDecimatingFilter(BasicFilter):
+    """BasicFilter + decimation (≈ BasicDecimatingFilter) — just set decim>1."""
+
+
+@register_block("RationalResampler")
+class RationalResampler(Block):
+    """L/M polyphase rational resampler (suite config 2), ops/resample.py.
+    Auto-designs Kaiser taps unless given. The kernel (taps and shapes) is
+    built once from the static settings and rebuilt only when they change."""
+
+    IN = (Port("in"),)
+    OUT = (Port("out"),)
+    interp = Setting(default=1, kind="static", limits=(1, 1 << 16))
+    decim = Setting(default=1, kind="static", limits=(1, 1 << 16))
+    taps = Setting(default=(), kind="static")
+    ntaps_per_phase = Setting(default=16, kind="static", limits=(2, 1024))
+
+    def _kernel(self) -> RationalResamplerKernel:
+        t = self.settings.get("taps")
+        key = (int(self.settings.get("interp")), int(self.settings.get("decim")),
+               tuple(t) if t is not None else (),
+               int(self.settings.get("ntaps_per_phase")))
+        if getattr(self, "_kernel_key", None) != key:
+            self._kernel_key = key
+            self._kernel_obj = RationalResamplerKernel(
+                key[0], key[1], taps=np.asarray(key[2]) if key[2] else None,
+                ntaps_per_phase=key[3])
+        return self._kernel_obj
+
+    @property
+    def ratio(self):
+        k = self._kernel()
+        return Fraction(k.interp, k.decim)
+
+    @property
+    def alignment(self):
+        return int(self.settings.get("decim"))
+
+    def init_state(self, ctx):
+        ch = ctx.channels.get("in", 0)
+        return self._kernel().init_state(ch, ctx.dtype("in", np.float32),
+                                         ctx.device)
+
+    def apply(self, state, ins, ctx):
+        y, st = self._kernel().apply(ins["in"], state)
+        return st, {"out": y}

@@ -40,9 +40,11 @@ def states_from_numpy(tree: Mapping[str, Any], device: torch.device | str,
                       names: Mapping[str, str] | None = None) -> dict[str, Any]:
     """JAX block states (``CompiledGraph.init_states()`` or the states after a
     step, leaves as NumPy; a PRNG key leaf as its ``jax.random.key_data``) →
-    this package's states on ``device``. 0-d uint32 leaves (NCO phases,
-    counters) become int64 host scalars; uint32 arrays (the noise key) int64
-    device tensors; complex64 histories (FIR, PFB rows) stay complex64."""
+    this package's states on ``device``. 0-d uint32 leaves (NCO phases and
+    counters: SignalGenerator, FreqXlatingFir and IQDemodulator's ``phase``,
+    Rotator's state) become int64 host scalars; uint32 arrays (the noise key)
+    int64 device tensors; float32 and complex64 histories (FIR, PFB rows,
+    RationalResampler's polyphase history) keep their dtype."""
     names = names or {}
     return {names.get(k, k): _state_leaf(v, device) for k, v in tree.items()}
 

@@ -175,18 +175,49 @@ def _host_taps(taps) -> np.ndarray:
     return t.astype(np.complex64 if np.iscomplexobj(t) else np.float32)
 
 
-@functools.lru_cache(maxsize=64)
-def _device_taps_cached(key: bytes, dtype: str, device: str) -> torch.Tensor:
+@functools.lru_cache(maxsize=256)
+def _device_constant_cached(key: bytes, dtype: str, device: str) -> torch.Tensor:
     arr = np.frombuffer(key, dtype=dtype).copy()
     return torch.from_numpy(arr).to(device)
+
+
+# read-only host arrays already uploaded, by (id, device); each entry holds its
+# array, so the id cannot be reused while the entry lives
+_frozen_uploads: dict[tuple[int, str], tuple[np.ndarray, torch.Tensor]] = {}
+
+
+def frozen(*arrays: np.ndarray):
+    """Mark host constants read-only (what the cached builders return), so
+    :func:`device_constant` finds them again by identity."""
+    for a in arrays:
+        a.flags.writeable = False
+    return arrays[0] if len(arrays) == 1 else arrays
+
+
+def device_constant(arr: np.ndarray, device: torch.device | str) -> torch.Tensor:
+    """A host constant (taps, weights, code matrices) on ``device``, uploaded
+    once: a read-only array (see :func:`frozen`) once per array and device,
+    found again by identity without hashing its bytes; any other array once
+    per content and device."""
+    dev = str(device)
+    if isinstance(arr, np.ndarray) and not arr.flags.writeable:
+        hit = _frozen_uploads.get((id(arr), dev))
+        if hit is None:
+            if len(_frozen_uploads) >= 256:
+                _frozen_uploads.clear()
+            hit = _frozen_uploads[(id(arr), dev)] = (
+                arr, torch.from_numpy(np.array(arr, order="C")).to(dev))
+        return hit[1]
+    a = np.ascontiguousarray(arr)
+    return _device_constant_cached(a.tobytes(), a.dtype.str,
+                                   dev).reshape(a.shape)
 
 
 def _device_taps(taps, device: torch.device) -> torch.Tensor:
     """Taps as a contiguous tensor on ``device`` (host taps upload once)."""
     if torch.is_tensor(taps) and taps.device == device:
         return taps.contiguous()
-    t = _host_taps(taps)
-    return _device_taps_cached(t.tobytes(), t.dtype.str, str(device))
+    return device_constant(_host_taps(taps), device)
 
 
 # -- banded FIR ----------------------------------------------------------------
@@ -283,17 +314,17 @@ def _toeplitz_np(taps_key, ntaps: int, tile: int, decim: int) -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=64)
-def _banded_weights(taps_key, tile: int, decim: int, dtype: torch.dtype,
-                    device: str) -> tuple[torch.Tensor, torch.Tensor]:
-    """(W_lo, W_hi) [tile, tile/decim] on ``device``: the Toeplitz split so that
-    y[m] = A[m] @ W_lo + A[m+1] @ W_hi over rows A of the padded stream."""
+def _banded_weights(taps_key, tile: int, decim: int, np_dt: str
+                    ) -> tuple[np.ndarray, np.ndarray]:
+    """(W_lo, W_hi) [tile, tile/decim], read-only host arrays: the Toeplitz
+    split so that y[m] = A[m] @ W_lo + A[m+1] @ W_hi over rows A of the padded
+    stream."""
     k = len(taps_key)
     w = _toeplitz_np(taps_key, k, tile, decim)
     w_hi = np.zeros_like(w[:tile])
     w_hi[: k - 1] = w[tile:]
-    np_dt = np.complex64 if dtype is torch.complex64 else np.float32
-    to = lambda a: torch.from_numpy(np.ascontiguousarray(a, np_dt)).to(device)
-    return to(w[:tile]), to(w_hi)
+    return frozen(np.ascontiguousarray(w[:tile], np_dt),
+                  np.ascontiguousarray(w_hi, np_dt))
 
 
 def fir_banded_ref(x: torch.Tensor, hist: torch.Tensor, taps, decim: int = 1
@@ -320,24 +351,24 @@ def fir_banded_ref(x: torch.Tensor, hist: torch.Tensor, taps, decim: int = 1
     if total != tc:
         xc = torch.cat([xc, xc.new_zeros(b, total - tc)], dim=-1)
     a = xc.reshape(b, n + 1, tile)
-    dev = str(xc.device)
     cx_t = np.iscomplexobj(taps_np)
 
-    def banded(rows, key, dt):
-        lo, hi = _banded_weights(key, tile, decim, dt, dev)
+    def banded(rows, key, np_dt):
+        lo, hi = (device_constant(w, xc.device)
+                  for w in _banded_weights(key, tile, decim, np_dt))
         return rows[:, :-1] @ lo + rows[:, 1:] @ hi
 
     real_key = tuple((taps_np.real if cx_t else taps_np).tolist())
     if xc.is_complex() and cx_t:
-        y = banded(a, tuple(taps_np.tolist()), torch.complex64)
+        y = banded(a, tuple(taps_np.tolist()), "complex64")
     elif xc.is_complex():
-        y = torch.complex(banded(a.real, real_key, torch.float32),
-                          banded(a.imag, real_key, torch.float32))
+        y = torch.complex(banded(a.real, real_key, "float32"),
+                          banded(a.imag, real_key, "float32"))
     elif cx_t:
-        y = torch.complex(banded(a, real_key, torch.float32),
-                          banded(a, tuple(taps_np.imag.tolist()), torch.float32))
+        y = torch.complex(banded(a, real_key, "float32"),
+                          banded(a, tuple(taps_np.imag.tolist()), "float32"))
     else:
-        y = banded(a, real_key, torch.float32)
+        y = banded(a, real_key, "float32")
     y = y.reshape(b, -1)[:, : t // decim]
     return y[0] if squeeze else y
 

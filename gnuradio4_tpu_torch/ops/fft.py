@@ -1,15 +1,26 @@
 """Spectrum post-processing over ``torch.fft`` (≈ reference blocks/fourier/fft.hpp:33).
 
 The transform itself is ``torch.fft.fft`` (cuFFT on the card); this module holds
-the views the FFT block emits: magnitude, dB, shift, and the calibration scale.
+the views the FFT block emits (magnitude, dB, shift, the calibration scale) and
+the four-step matmul FFT (:func:`matmul_fft`) behind the FFT/IFFT blocks'
+``matmul_exact`` engine.
 """
 
 from __future__ import annotations
 
+from functools import lru_cache
+
 import numpy as np
 import torch
 
+from ..core.errors import GrError
+from .cuda_kernels import check_f32_matmul, device_constant, frozen
 from .windows import enbw
+
+# the matmul FFT's precision rungs by engine name; only 'highest' (float32
+# products, TF32 off) is ported so far
+MATMUL_ENGINES = {"matmul": "high", "matmul_exact": "highest",
+                  "matmul_bf16": "bf16"}
 
 
 def magnitude(spectrum: torch.Tensor) -> torch.Tensor:
@@ -38,3 +49,74 @@ def spectrum_scale(fft_size: int, window: np.ndarray | None, *, power: bool,
     if power and density:
         return 1.0 / (fft_size * cg * np.sqrt(nbw * sample_rate))
     return 1.0 / (fft_size * cg)
+
+
+# ---------------------------------------------------------------------------
+# Matmul FFT — a four-step Cooley-Tukey alternative to cuFFT.
+#
+# N = N1·N2 splits the transform into two dense [N1,N1]/[N2,N2] matmul stages
+# plus an elementwise twiddle:
+#
+#   X[k1 + N1·k2] = Σ_{n2} W_N^{n2·k1} W_{N2}^{n2·k2} (Σ_{n1} x[n1,n2] W_{N1}^{n1·k1})
+#
+# (x reshaped [n1, n2] row-major).
+# ---------------------------------------------------------------------------
+
+
+@lru_cache(maxsize=32)
+def _fft_mats(fft_size: int, n1: int) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """(F1[n1,k1], TW[k1,n2], F2[n2,k2]) as float64 complex host constants."""
+    n2 = fft_size // n1
+    i1 = np.arange(n1)
+    i2 = np.arange(n2)
+    f1 = np.exp(-2j * np.pi * np.outer(i1, i1) / n1)
+    f2 = np.exp(-2j * np.pi * np.outer(i2, i2) / n2)
+    tw = np.exp(-2j * np.pi * np.outer(i1, i2) / fft_size)
+    return f1, tw, f2
+
+
+@lru_cache(maxsize=32)
+def _fft_rails(fft_size: int, n1: int) -> tuple[np.ndarray, ...]:
+    """The float32 rails (re, im) of F1ᵀ, TW and F2, read-only host arrays."""
+    f1, tw, f2 = _fft_mats(fft_size, n1)
+    return frozen(*(np.ascontiguousarray(a, np.float32) for a in
+                    (f1.T.real, f1.T.imag, tw.real, tw.imag, f2.real, f2.imag)))
+
+
+def matmul_fft(x: torch.Tensor, fft_size: int, *, n1: int | None = None,
+               mode: str = "highest") -> torch.Tensor:
+    """FFT over the trailing axis as two matmul stages in float32.
+
+    x: [..., fft_size] (real or complex) → complex64 [..., fft_size]. ``n1``
+    picks the split (default ≈ √N, a power of two); ``mode`` is the precision
+    rung: only 'highest' (full float32 products, checked by
+    ``check_f32_matmul``) is ported; 'high' and 'bf16' raise ``GrError``."""
+    if mode != "highest":
+        raise GrError(f"matmul_fft: precision rung {mode!r} is not ported to "
+                      f"this package yet; only 'highest' (full float32) exists")
+    check_f32_matmul("matmul_fft")
+    if n1 is None:
+        n1 = 1 << ((fft_size.bit_length() - 1) // 2)   # ~sqrt, power of two
+    n2 = fft_size // n1
+    if n1 * n2 != fft_size:
+        raise GrError(f"matmul_fft: n1={n1} does not divide {fft_size}")
+    lead = x.shape[:-1]
+    a = x.reshape(*lead, n1, n2)
+    f1r, f1i, twr, twi, f2r, f2i = (device_constant(a, x.device)
+                                    for a in _fft_rails(fft_size, n1))
+    ar = (a.real if a.is_complex() else a).to(torch.float32)
+    # stage 1: contract n1 → Y[..., k1, n2] = F1ᵀ @ a
+    if a.is_complex():
+        ai = a.imag.to(torch.float32)
+        yr = f1r @ ar - f1i @ ai
+        yi = f1r @ ai + f1i @ ar
+    else:
+        yr, yi = f1r @ ar, f1i @ ar
+    # twiddle (elementwise, float32 constants)
+    zr = yr * twr - yi * twi
+    zi = yr * twi + yi * twr
+    # stage 2: contract n2 → Z[..., k1, k2]
+    zr, zi = zr @ f2r - zi @ f2i, zr @ f2i + zi @ f2r
+    # output index k = k1 + N1·k2 → lay out k2-major then flatten
+    return torch.complex(zr.transpose(-1, -2).reshape(*lead, fft_size),
+                         zi.transpose(-1, -2).reshape(*lead, fft_size))

@@ -296,3 +296,99 @@ def test_chain_async_batched_scheduler_matches_sync(cuda, monkeypatch, absorb):
     assert launches[0] == launches[1]
     assert launches[0]["fir_banded"] == 16
     assert launches[0]["nco_mix"] == (0 if absorb else 8)
+
+
+@pytest.mark.parametrize("x_dt", [torch.complex64, torch.float32])
+@pytest.mark.parametrize("method", ["pallas", "pallas_ilv", "auto"])
+def test_fir_apply_pallas_methods_launch_fir_banded(cuda, method, x_dt):
+    """``fir_apply(method='pallas'/'pallas_ilv'/'auto')`` on a CUDA tensor is
+    the banded kernel for complex and real streams: one launch, the plain
+    version's numbers."""
+    g = torch.Generator(device=cuda).manual_seed(11)
+    h = _taps("real127")
+    x = torch.randn(1 << 18, dtype=x_dt, device=cuda, generator=g)
+    st = torch.randn(126, dtype=x_dt, device=cuda, generator=g)
+    before = ck.fir_banded.launches
+    y, _ = fir_apply(x, h, st, decim=2, method=method)
+    torch.cuda.synchronize()
+    assert ck.fir_banded.launches == before + 1
+    y_ref, _ = fir_apply(x, h, st, decim=2, method="matmul")
+    assert y.dtype == y_ref.dtype == x_dt
+    assert float((y - y_ref).abs().max()) <= FIR_ATOL
+
+
+@pytest.mark.parametrize("x_dt,taps", [(torch.complex64, "real127"),
+                                       (torch.float32, "real127"),
+                                       (torch.complex64, "xlating127")])
+def test_fir_apply_conv_full_f32_under_default_cudnn_flags(cuda, x_dt, taps):
+    """``method='conv'`` under PyTorch's default cuDNN flags (TF32 allowed)
+    runs in full float32 (TF32 would miss by ~1e-3 of the RMS) and leaves the
+    flags as it found them."""
+    g = torch.Generator(device=cuda).manual_seed(15)
+    h = _taps(taps)
+    x = torch.randn(1 << 18, dtype=x_dt, device=cuda, generator=g)
+    st = torch.randn(126, dtype=x_dt, device=cuda, generator=g)
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        y, _ = fir_apply(x, h, st, decim=2, method="conv")
+        assert torch.backends.cudnn.allow_tf32
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+    y_ref, _ = fir_apply(x, h, st, decim=2, method="matmul")
+    scale = float(y_ref.abs().pow(2).mean().sqrt())
+    assert y.shape == y_ref.shape
+    assert float((y - y_ref).abs().max()) <= 1e-5 * scale
+
+
+def test_rotator_launches_nco_mix_per_step_across_wrap(cuda):
+    """A Rotator on the card: one ``nco_mix`` launch per step, the CPU's
+    output and uint32 phase across a 2^32 wrap."""
+    import gnuradio4_tpu_torch as gt
+    blk = gt.global_registry.create("Rotator", frequency_shift=-3.1e6)
+    ctx = gt.BlockCtx(in_len={"in": 1 << 16}, out_len={"out": 1 << 16},
+                      sample_rate=20e6, params={},
+                      channels={"in": 0, "out": 0},
+                      dtypes={"in": np.dtype(np.complex64)})
+    blk.init_state(ctx)
+    ctx.params = blk.prepare_params(blk.settings.dynamic_params())
+    x = torch.randn(4, 1 << 16, dtype=torch.complex64,
+                    generator=torch.Generator().manual_seed(12))
+    outs = {}
+    for device in ("cpu", "cuda"):
+        st = torch.tensor((1 << 32) - 54321)
+        ys = []
+        before = ck.nco_mix.launches
+        for i in range(4):
+            st, o = blk.apply(st, {"in": x[i].to(device)}, ctx)
+            ys.append(o["out"].cpu())
+        outs[device] = (torch.cat(ys), int(st), ck.nco_mix.launches - before)
+    assert outs["cuda"][2] == 4 and outs["cpu"][2] == 0
+    assert outs["cuda"][1] == outs["cpu"][1] < (1 << 32) - 54321
+    assert float((outs["cuda"][0] - outs["cpu"][0]).abs().max()) <= NCO_ATOL
+
+
+def test_resampler_forms_and_ldpc_forms_agree_on_card(cuda):
+    """Both RationalResampler forms and both LDPC decoder forms on the card
+    against the CPU; the decoders' hard bits exact at 4 dB."""
+    from gnuradio4_tpu_torch.ops import ldpc
+    from gnuradio4_tpu_torch.ops.resample import RationalResamplerKernel
+    k = RationalResamplerKernel(3, 2)
+    x = torch.randn(1 << 16, generator=torch.Generator().manual_seed(13))
+    st = k.init_state(0, np.float32)
+    y_cpu, _ = k.apply(x, st, method="interleave")
+    for form in ("interleave", "matmul"):
+        y, _ = k.apply(x.to(cuda), st.to(cuda), method=form)
+        assert float((y.cpu() - y_cpu).abs().max()) <= FIR_ATOL
+    H, G = ldpc.make_ldpc(256, 128, seed=0)
+    rng = np.random.default_rng(14)
+    c = ldpc.encode(G, rng.integers(0, 2, (64, G.shape[0])))
+    sigma = np.sqrt(1.0 / (2 * 10 ** 0.4 * 0.5))
+    llr = torch.from_numpy((2 * (1.0 - 2.0 * c + sigma * rng.standard_normal(
+        c.shape)) / sigma ** 2).astype(np.float32))
+    graph = ldpc.LdpcGraph(H)
+    want, ok_want = ldpc.decode_np(H, llr.numpy(), 25)
+    for fn in (ldpc.min_sum_decode, ldpc.min_sum_decode_dense):
+        bits, ok = fn(graph, llr.to(cuda), 25)
+        np.testing.assert_array_equal(bits.cpu().numpy(), want)
+        np.testing.assert_array_equal(ok.cpu().numpy(), ok_want)

@@ -163,8 +163,9 @@ def test_fir_apply_rejects_unported_rungs_and_methods(rng):
     for rung in ("bf16", "int8", "high", "default"):
         with pytest.raises(GrError, match=rung):
             fir_apply(x, np.ones(5, np.float32), st, precision=rung)
-    with pytest.raises(GrError, match="conv"):
-        fir_apply(x, np.ones(5, np.float32), st, method="conv")
+    for method in ("matmul_int8", "winograd"):
+        with pytest.raises(GrError, match=method):
+            fir_apply(x, np.ones(5, np.float32), st, method=method)
 
 
 def test_fir_banded_ref_refuses_tf32(rng):
@@ -176,6 +177,20 @@ def test_fir_banded_ref_refuses_tf32(rng):
             ck.fir_banded_ref(x, st, np.ones(5, np.float32))
     finally:
         torch.set_float32_matmul_precision("highest")
+
+
+def test_device_constant_uploads_once():
+    """A read-only host constant is uploaded once and found again by identity;
+    a writable one is keyed by its content, so an edit in place is seen."""
+    w = ck.frozen(np.arange(12, dtype=np.float32).reshape(3, 4))
+    t = ck.device_constant(w, "cpu")
+    assert ck.device_constant(w, torch.device("cpu")) is t
+    np.testing.assert_array_equal(t.numpy(), w)
+    taps = np.ones(5, np.float32)
+    first = ck.device_constant(taps, "cpu").clone()
+    taps[2] = 7.0
+    again = ck.device_constant(taps, "cpu")
+    assert float(first[2]) == 1.0 and float(again[2]) == 7.0
 
 
 def test_kernel_wrappers_raise_off_cpu_and_cuda():
