@@ -30,8 +30,12 @@ from .stream import canonical_dtype, torch_dtype
 
 
 def default_device() -> torch.device:
-    """``cuda`` when a GPU is present, else the CPU."""
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    """The card (``cuda``). Raises :class:`GrError` when there is none: running
+    on the CPU is asked for with ``device="cpu"``, never chosen silently."""
+    if not torch.cuda.is_available():
+        raise GrError("no CUDA device is present (torch.cuda.is_available() is "
+                      "False); pass device=\"cpu\" to run on the CPU")
+    return torch.device("cuda")
 
 
 def _feed_tensor(a: np.ndarray, device: torch.device) -> torch.Tensor:

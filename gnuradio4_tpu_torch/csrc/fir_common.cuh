@@ -1,9 +1,11 @@
-// Direct-form FIR tile loop shared by fir_banded.cu and fir_demod.cu.
+// The FIR kernels' shared pieces: the multiply-add for every (tap, sample)
+// type pair (fir_banded.cu, fir_demod.cu), and fir_demod.cu's direct-form
+// tile loop.
 //
-// A block stages the reversed taps and its span of the history-prefixed
-// stream in shared memory once; each thread then keeps kFirOutPerThread
-// outputs in registers, one f32 FMA chain each. Neighbouring threads own
-// neighbouring outputs, so for decim 1 their shared loads hit neighbouring
+// The loop: a block stages the reversed taps and the samples of its outputs
+// in shared memory; each thread then keeps kFirOutPerThread outputs in
+// registers, one f32 FMA chain each. Neighbouring threads own neighbouring
+// outputs, so for a window stride of 1 their shared loads hit neighbouring
 // banks; the taps are a broadcast read.
 
 #pragma once
@@ -16,7 +18,6 @@ namespace gr4fir {
 constexpr int kFirThreads = 256;
 constexpr int kFirOutPerThread = 4;
 constexpr size_t kSmemBudget = 48 * 1024;         // keep several blocks per SM
-constexpr size_t kSmemMax = 227 * 1024;           // Hopper per-block limit
 
 template <typename T> __device__ __forceinline__ T zero();
 template <> __device__ __forceinline__ float zero<float>() { return 0.f; }
@@ -47,24 +48,13 @@ __host__ __device__ __forceinline__ size_t align16(size_t n) {
   return (n + 15) & ~size_t(15);
 }
 
-// s_h[j] = taps[K-1-j], so that y[m] = sum_j s_h[j] * xc[m*decim + j].
-template <typename H>
-__device__ __forceinline__ void stage_reversed_taps(H* s_h, const H* taps, int K) {
-  for (int j = threadIdx.x; j < K; j += blockDim.x) s_h[j] = taps[K - 1 - j];
-}
-
-// s_x[j] = at(g0 + j) for j < span; `at` maps an index of the
-// history-prefixed stream to its sample.
-template <typename X, typename At>
-__device__ __forceinline__ void stage_span(X* s_x, int span, int64_t g0, At at) {
-  for (int j = threadIdx.x; j < span; j += blockDim.x) s_x[j] = at(g0 + j);
-}
-
-// Outputs j < n of the staged span: sum_i s_h[i] * s_x[j*decim + i], handed
-// to store(j, value). Expects blockDim.x == kFirThreads.
+// Outputs j < n of the staged windows: sum_i s_h[i] * s_x[j*stride + i],
+// handed to store(j, value). Output j's K-sample window starts at j*stride
+// (the decimation, or the window length when windows are staged apart).
+// Expects blockDim.x == kFirThreads.
 template <typename X, typename H, typename Y, typename Store>
 __device__ __forceinline__ void fir_direct(const X* s_x, const H* s_h, int K,
-                                           int decim, int n, Store store) {
+                                           int stride, int n, Store store) {
   for (int base = 0; base < n; base += kFirThreads * kFirOutPerThread) {
     Y acc[kFirOutPerThread];
     const X* px[kFirOutPerThread];
@@ -73,7 +63,7 @@ __device__ __forceinline__ void fir_direct(const X* s_x, const H* s_h, int K,
       acc[r] = zero<Y>();
       // outputs past n compute on a valid row and are not stored
       const int o = min(base + int(threadIdx.x) + r * kFirThreads, n - 1);
-      px[r] = s_x + o * decim;
+      px[r] = s_x + o * stride;
     }
     for (int j = 0; j < K; ++j) {
       const H hj = s_h[j];
@@ -89,11 +79,11 @@ __device__ __forceinline__ void fir_direct(const X* s_x, const H* s_h, int K,
 }
 
 // Largest outputs-per-block (a power-of-two fraction of one pass of the
-// block, at least 32) whose shared memory fits the budget.
+// block, at least 1) whose shared memory fits the budget.
 template <typename SmemBytes>
 inline int outputs_per_block(SmemBytes smem_bytes) {
   int opb = kFirThreads * kFirOutPerThread;
-  while (opb > 32 && smem_bytes(opb) > kSmemBudget) opb /= 2;
+  while (opb > 1 && smem_bytes(opb) > kSmemBudget) opb /= 2;
   return opb;
 }
 

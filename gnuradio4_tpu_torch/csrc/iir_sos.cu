@@ -38,6 +38,14 @@
 // separate sectors. Eight warps instead of four moved C = 16 by 5% and made
 // C = 1 17% slower. A chunked state-space scan across time (time-parallel
 // blocks joined by their carried state) is the redesign for a later PR.
+//
+// Any number of sections. One launch unrolls a group of at most kMaxSections
+// sections; gr4_iir_sos launches the groups in order, the first reading x and
+// each later one filtering the previous group's y in place. That is the
+// cascade's arithmetic in the cascade's order. In place is safe: the movers
+// load tile t+1 and store tile t-1 in one iteration, each tile is loaded an
+// iteration before its slot is stored, and each block owns its channels' rows.
+// Each group reads and writes its own sections of the [C, S, 2] state.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -71,9 +79,9 @@ __device__ __forceinline__ float cascade(float v, const SosCoefs& co,
 
 template <int S>
 __global__ void __launch_bounds__(kIirThreads)
-iir_sos_kernel(const float* __restrict__ x, float* __restrict__ y,
+iir_sos_kernel(const float* x, float* y,   // may alias: groups after the first
                const float* __restrict__ s_in, float* __restrict__ s_out,
-               int64_t C, int64_t T, const SosCoefs co) {
+               int64_t C, int64_t T, int s_total, int k0, const SosCoefs co) {
   __shared__ float buf[2][kLanes * kStride];
   const int64_t c0 = int64_t(blockIdx.x) * kLanes;
   const int nch = int(C - c0 < kLanes ? C - c0 : kLanes);
@@ -119,8 +127,8 @@ iir_sos_kernel(const float* __restrict__ x, float* __restrict__ y,
   if (filters && lane < nch) {
 #pragma unroll
     for (int k = 0; k < S; ++k) {
-      s0[k] = s_in[((c0 + lane) * S + k) * 2];
-      s1[k] = s_in[((c0 + lane) * S + k) * 2 + 1];
+      s0[k] = s_in[((c0 + lane) * s_total + k0 + k) * 2];
+      s1[k] = s_in[((c0 + lane) * s_total + k0 + k) * 2 + 1];
     }
   }
   if (!filters && n_tiles > 0) load(0, buf[0]);
@@ -150,44 +158,32 @@ iir_sos_kernel(const float* __restrict__ x, float* __restrict__ y,
   if (filters && lane < nch) {
 #pragma unroll
     for (int k = 0; k < S; ++k) {
-      s_out[((c0 + lane) * S + k) * 2] = s0[k];
-      s_out[((c0 + lane) * S + k) * 2 + 1] = s1[k];
+      s_out[((c0 + lane) * s_total + k0 + k) * 2] = s0[k];
+      s_out[((c0 + lane) * s_total + k0 + k) * 2 + 1] = s1[k];
     }
   }
 }
 
 template <int S>
 int launch(const float* x, float* y, const float* s_in, float* s_out,
-           int64_t C, int64_t T, const SosCoefs& co, cudaStream_t stream) {
+           int64_t C, int64_t T, int s_total, int k0, const SosCoefs& co,
+           cudaStream_t stream) {
   const unsigned blocks = unsigned((C + kLanes - 1) / kLanes);
-  iir_sos_kernel<S><<<blocks, kIirThreads, 0, stream>>>(x, y, s_in, s_out, C, T, co);
+  iir_sos_kernel<S><<<blocks, kIirThreads, 0, stream>>>(x, y, s_in, s_out, C, T,
+                                                        s_total, k0, co);
   return int(cudaGetLastError());
 }
 
-}  // namespace
-
-extern "C" {
-
-int gr4_iir_sos_max_sections() { return kMaxSections; }
-
-// x, y: [C, T] float32; s_in, s_out: [C, S, 2] float32, all contiguous on the
-// device; coefs: HOST pointer to [S, 5] float32 (b0, b1, b2, a1, a2), copied
-// into the launch's parameters. Returns a cudaError_t (0 on success).
-int gr4_iir_sos(const void* x, void* y, const void* s_in, void* s_out,
-                const float* coefs, int64_t C, int64_t T, int S, void* stream) {
-  if (C < 0 || T < 0 || S < 1 || S > kMaxSections) return int(cudaErrorInvalidValue);
-  if (C == 0) return int(cudaSuccess);
+// One group: sections k0 .. k0+n-1 of coefs, from x into y.
+int launch_group(const float* x, float* y, const float* s_in, float* s_out,
+                 const float* coefs, int64_t C, int64_t T, int s_total, int k0,
+                 int n, cudaStream_t s) {
   SosCoefs co = {};
-  for (int k = 0; k < S; ++k)
-    for (int i = 0; i < 5; ++i) co.c[k][i] = coefs[k * 5 + i];
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  auto xp = static_cast<const float*>(x);
-  auto yp = static_cast<float*>(y);
-  auto ip = static_cast<const float*>(s_in);
-  auto op = static_cast<float*>(s_out);
-  switch (S) {
-#define GR4_IIR_CASE(n) \
-    case n: return launch<n>(xp, yp, ip, op, C, T, co, s);
+  for (int k = 0; k < n; ++k)
+    for (int i = 0; i < 5; ++i) co.c[k][i] = coefs[(k0 + k) * 5 + i];
+  switch (n) {
+#define GR4_IIR_CASE(m) \
+    case m: return launch<m>(x, y, s_in, s_out, C, T, s_total, k0, co, s);
     GR4_IIR_CASE(1) GR4_IIR_CASE(2) GR4_IIR_CASE(3) GR4_IIR_CASE(4)
     GR4_IIR_CASE(5) GR4_IIR_CASE(6) GR4_IIR_CASE(7) GR4_IIR_CASE(8)
     GR4_IIR_CASE(9) GR4_IIR_CASE(10) GR4_IIR_CASE(11) GR4_IIR_CASE(12)
@@ -195,6 +191,35 @@ int gr4_iir_sos(const void* x, void* y, const void* s_in, void* s_out,
 #undef GR4_IIR_CASE
   }
   return int(cudaErrorInvalidValue);
+}
+
+}  // namespace
+
+extern "C" {
+
+// Sections per launch: gr4_iir_sos launches ceil(S / this) kernels.
+int gr4_iir_sos_group_size() { return kMaxSections; }
+
+// x, y: [C, T] float32; s_in, s_out: [C, S, 2] float32, all contiguous on the
+// device; coefs: HOST pointer to [S, 5] float32 (b0, b1, b2, a1, a2), copied
+// into the launches' parameters. Any S >= 1. Returns a cudaError_t (0 on
+// success).
+int gr4_iir_sos(const void* x, void* y, const void* s_in, void* s_out,
+                const float* coefs, int64_t C, int64_t T, int S, void* stream) {
+  if (C < 0 || T < 0 || S < 1) return int(cudaErrorInvalidValue);
+  if (C == 0) return int(cudaSuccess);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  auto yp = static_cast<float*>(y);
+  const float* src = static_cast<const float*>(x);
+  for (int k0 = 0; k0 < S; k0 += kMaxSections) {
+    const int n = S - k0 < kMaxSections ? S - k0 : kMaxSections;
+    const int err = launch_group(src, yp, static_cast<const float*>(s_in),
+                                 static_cast<float*>(s_out), coefs, C, T, S, k0,
+                                 n, s);
+    if (err) return err;
+    src = yp;
+  }
+  return int(cudaSuccess);
 }
 
 }  // extern "C"

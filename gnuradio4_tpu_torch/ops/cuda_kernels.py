@@ -136,7 +136,7 @@ def build() -> KernelLibrary:
         lib.gr4_iir_sos.argtypes = [ctypes.c_void_p] * 5 + [
             ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_void_p]
         lib.gr4_iir_sos.restype = ctypes.c_int
-        lib.gr4_iir_sos_max_sections.restype = ctypes.c_int
+        lib.gr4_iir_sos_group_size.restype = ctypes.c_int
         lib.gr4_fir_demod.argtypes = [ctypes.c_void_p] * 4 + [
             ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
             ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
@@ -423,7 +423,10 @@ def iir_sos(x: torch.Tensor, sos, state: torch.Tensor
     """Cascaded-biquad IIR (transposed DF-II) over the last axis of a float32
     ``[T]`` or ``[C, T]`` stream. ``sos``: [S, 6] host coefficients; ``state``:
     [S, 2] or [C, S, 2] float32. Returns ``(y, new_state)``. CPU tensors take
-    :func:`iir_sos_ref`; CUDA tensors launch the kernel in ``csrc/iir_sos.cu``."""
+    :func:`iir_sos_ref`; CUDA tensors launch the kernel in ``csrc/iir_sos.cu``
+    once per group of up to ``gr4_iir_sos_group_size()`` (16) sections, in
+    order, each group after the first filtering ``y`` in place; each launch
+    counts."""
     if x.device.type == "cpu":
         return iir_sos_ref(x, sos, state)
     from .iir import sos_coefficients
@@ -434,10 +437,6 @@ def iir_sos(x: torch.Tensor, sos, state: torch.Tensor
     dev = _require_cuda(name, x, state)
     co = sos_coefficients(sos)
     n_sec = co.shape[0]
-    lib = build().lib
-    if n_sec > lib.gr4_iir_sos_max_sections():
-        raise GrError(f"{name}: {n_sec} sections; the kernel takes at most "
-                      f"{lib.gr4_iir_sos_max_sections()}")
     if x.ndim not in (1, 2) or state.shape != (*x.shape[:-1], n_sec, 2):
         raise GrError(f"{name}: bad shapes x{tuple(x.shape)} state"
                       f"{tuple(state.shape)} for {n_sec} sections")
@@ -448,11 +447,12 @@ def iir_sos(x: torch.Tensor, sos, state: torch.Tensor
     if channels == 0 or t == 0:
         new_state.copy_(state)
         return y, new_state
+    lib = build().lib
     err = lib.gr4_iir_sos(x.data_ptr(), y.data_ptr(), state.data_ptr(),
                           new_state.data_ptr(), co.ctypes.data, channels, t,
                           n_sec, _stream(dev))
     _check(err, name)
-    iir_sos.launches += 1
+    iir_sos.launches += -(-n_sec // lib.gr4_iir_sos_group_size())
     return y, new_state
 
 

@@ -1,0 +1,213 @@
+#!/usr/bin/env python3
+"""Time the port's CUDA kernels of this tree against those of another checkout,
+on one card, in one process.
+
+    python3 kernel_ab.py OTHER_ROOT            # kernels, this tree vs OTHER_ROOT
+    python3 kernel_ab.py --steps [ROOT]        # device ms per step of the paths
+
+The first form builds this tree's kernels (``cuda_kernels.build``) and
+``OTHER_ROOT/gnuradio4_tpu_torch/csrc/*.cu`` with the same ``nvcc`` flags (into
+``OTHER_ROOT/gnuradio4_tpu_torch/_build/``), loads both through their plain C
+interfaces and, on the same inputs, times ``fir_banded`` at ``chip_smoke.py``'s
+timed shapes, ``fir_demod`` at its two and ``iir_sos`` at Path B's, in turns
+(other, this, this, other) with ``chip_smoke.cuda_ms``. It checks both against
+the plain version, prints one JSON line per shape, and exits non-zero if either
+disagrees.
+
+The second form imports ``chip_smoke`` and the package from ROOT (default: this
+tree) and prints the device milliseconds of one step of the headline chain (2^23,
+rotation absorbed) and of Path A (2^22) from ``torch.profiler``, with the
+kernels that took the most. Run it in both trees in turns (other, this, this,
+other) to compare.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import json
+import statistics
+import subprocess
+import sys
+from pathlib import Path
+
+
+def steps(root: Path) -> None:
+    sys.path.insert(0, str(root))
+    import torch
+    import chip_smoke as cs
+    import gnuradio4_tpu_torch as gt
+    from gnuradio4_tpu_torch.ops import cuda_kernels as ck
+    ck.build()
+    for label, build, bl, fs in (
+            ("chain absorbed 2^23", lambda: cs.build_chain("null")[0], cs.BLOCK_LEN, cs.FS),
+            ("Path A 2^22", lambda: cs.build_wbfm("null")[0], cs.WBFM_BLOCK_LEN,
+             cs.QUAD_RATE)):
+        sched = gt.Scheduler(build(), block_len=bl, sample_rate=fs, device="cuda")
+        for _ in range(3):
+            sched.step_once()
+        torch.cuda.synchronize()
+        dev_ms = []
+        for _ in range(3):
+            ms, top = cs.profile_device(sched.step_once)
+            dev_ms.append(ms)
+        print(json.dumps({"root": str(root), "path": label,
+                          "device_ms_per_step": statistics.median(dev_ms),
+                          "runs": dev_ms,
+                          "top": [[round(t, 4), k[:60]] for t, k in top[:4]]}))
+
+
+def build_other(other: Path, ck) -> ctypes.CDLL:
+    """OTHER's csrc/*.cu compiled with this tree's flags, one nvcc per source."""
+    out = other / "gnuradio4_tpu_torch" / "_build"
+    out.mkdir(parents=True, exist_ok=True)
+    nvcc = ck._nvcc()
+    srcs = sorted((other / "gnuradio4_tpu_torch" / "csrc").glob("*.cu"))
+    objs = [out / f"ab_{s.stem}.o" for s in srcs]
+    procs = [subprocess.Popen([nvcc, *ck.NVCC_FLAGS, "-c", "-o", str(o), str(s)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for s, o in zip(srcs, objs)]
+    for p in procs:
+        log, _ = p.communicate()
+        if p.returncode:
+            raise SystemExit(f"nvcc failed for {other}:\n{log}")
+    so = out / "libab_other.so"
+    r = subprocess.run([nvcc, *ck.NVCC_FLAGS[:2], "-shared", "-o", str(so),
+                        *map(str, objs)], capture_output=True, text=True)
+    if r.returncode:
+        raise SystemExit(f"linking failed for {other}:\n{r.stderr}")
+    lib = ctypes.CDLL(str(so))
+    lib.gr4_fir_banded.argtypes = [ctypes.c_void_p] * 4 + [
+        ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_void_p]
+    lib.gr4_fir_demod.argtypes = [ctypes.c_void_p] * 4 + [
+        ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_float, ctypes.c_void_p]
+    lib.gr4_iir_sos.argtypes = [ctypes.c_void_p] * 5 + [
+        ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_void_p]
+    return lib
+
+
+def kernels(other: Path) -> int:
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    import numpy as np
+    import torch
+    import chip_smoke as cs
+    from gnuradio4_tpu_torch.ops import cuda_kernels as ck
+    from gnuradio4_tpu_torch.ops import filter_design as fd
+    from gnuradio4_tpu_torch.ops.fir import freq_xlating_taps
+    from gnuradio4_tpu_torch.ops.iir import sos_coefficients
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    dev = torch.device("cuda")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True)
+    card = smi.stdout.strip().splitlines()[0]
+    this, that = ck.build().lib, build_other(other, ck)
+    stream = lambda: torch.cuda.current_stream().cuda_stream
+    gen = torch.Generator(device=dev).manual_seed(cs.SEED)
+    bad = 0
+
+    def in_turns(run_that, run_this) -> tuple[float, float]:
+        t = [cs.cuda_ms(run_that), cs.cuda_ms(run_this), cs.cuda_ms(run_this),
+             cs.cuda_ms(run_that)]
+        return statistics.median(t[1:3]), statistics.median((t[0], t[3]))
+
+    fs = cs.FS
+    xl = freq_xlating_taps(fd.design_fir("lowpass", 127, sample_rate=fs, f_low=2e6), 3e6, fs)
+    lp127 = fd.design_fir("lowpass", 127, sample_rate=fs, f_low=2e6).astype(np.float32)
+    lp63 = fd.design_fir("lowpass", 63, sample_rate=fs, f_low=1e6).astype(np.float32)
+    audio = fd.design_fir("lowpass", 127, sample_rate=cs.QUAD_RATE, f_low=15e3
+                          ).astype(np.float32)
+    for label, n, dt, taps, decim in (
+            ("c64 x c64 taps K=127 decim 1 T=2^23", cs.BLOCK_LEN, torch.complex64, xl, 1),
+            ("c64 x f32 taps K=127 decim 1 T=2^23", cs.BLOCK_LEN, torch.complex64, lp127, 1),
+            ("c64 x f32 taps K=127 decim 1 T=2^22", cs.SUITE_BLOCK_LEN, torch.complex64, lp127, 1),
+            ("f32 x f32 taps K=63 decim 8 T=2^23", cs.BLOCK_LEN, torch.float32, lp63, 8),
+            ("f32 x f32 taps K=127 decim 5 T=4194305", cs.WBFM_IN_LEN, torch.float32, audio, 5)):
+        k = len(taps)
+        x = torch.randn(n, dtype=dt, device=dev, generator=gen)
+        hist = torch.randn(k - 1, dtype=dt, device=dev, generator=gen)
+        h = torch.from_numpy(np.ascontiguousarray(taps)).to(dev)
+        ref = ck.fir_banded_ref(x, hist, h, decim)
+        ys = {name: torch.empty_like(ref) for name in ("this", "that")}
+
+        def call(lib, name):
+            assert lib.gr4_fir_banded(x.data_ptr(), hist.data_ptr(), h.data_ptr(),
+                                      ys[name].data_ptr(), 1, n, k, decim,
+                                      int(x.is_complex()), int(h.is_complex()),
+                                      stream()) == 0
+        call(this, "this")
+        call(that, "that")
+        torch.cuda.synchronize()
+        err = {name: float((y - ref).abs().max()) for name, y in ys.items()}
+        ms, other_ms = in_turns(lambda: call(that, "that"), lambda: call(this, "this"))
+        b_ms, b_by = cs.bound_ms(*cs.fir_work((n,), x.is_complex(), h.is_complex(), k, decim))
+        bad += max(err.values()) > cs.FIR_ATOL
+        print(json.dumps({"kernel": "fir_banded", "case": label, "ms": ms,
+                          "other_ms": other_ms, "bound_ms": b_ms, "bound_by": b_by,
+                          "share_of_bound": b_ms / ms, "other_share": b_ms / other_ms,
+                          "max_abs_err": err["this"], "other_max_abs_err": err["that"],
+                          "card": card}))
+        del x, hist, ref, ys
+
+    chan = fd.design_fir("lowpass", 127, sample_rate=cs.QUAD_RATE, f_low=80e3
+                         ).astype(np.float32)
+    gain = cs.WBFM_GAIN
+    for label, taps, n in (("c64 x f32 taps K=127 T=2^22", chan, cs.WBFM_BLOCK_LEN),
+                           ("c64 x c64 taps K=127 T=2^23",
+                            freq_xlating_taps(chan, 60e3, cs.QUAD_RATE), 1 << 23)):
+        k = len(taps)
+        xc = torch.polar(torch.ones(n + k - 1, device=dev),
+                         torch.randn(n + k - 1, device=dev, generator=gen).cumsum(0) * 0.1)
+        prev = torch.ones((), dtype=torch.complex64, device=dev)
+        h = torch.from_numpy(np.ascontiguousarray(taps)).to(dev)
+        ys = {name: torch.empty(n, device=dev) for name in ("this", "that")}
+
+        def call(lib, name):
+            assert lib.gr4_fir_demod(xc.data_ptr(), h.data_ptr(), prev.data_ptr(),
+                                     ys[name].data_ptr(), 1, n, k, 1,
+                                     int(h.is_complex()), float(gain), stream()) == 0
+        call(this, "this")
+        call(that, "that")
+        torch.cuda.synchronize()
+        same = torch.equal(ys["this"], ys["that"])
+        ms, other_ms = in_turns(lambda: call(that, "that"), lambda: call(this, "this"))
+        bad += not same
+        print(json.dumps({"kernel": "fir_demod", "case": label, "ms": ms,
+                          "other_ms": other_ms, "bitwise_equal": same, "card": card}))
+
+    co = sos_coefficients(cs.iir_design(5).sos)
+    x = torch.randn(cs.IIR_CHANNELS, cs.IIR_BLOCK_LEN, device=dev, generator=gen)
+    s0 = torch.zeros(cs.IIR_CHANNELS, 3, 2, device=dev)
+    ys = {name: (torch.empty_like(x), torch.empty_like(s0)) for name in ("this", "that")}
+
+    def call(lib, name):
+        y, st = ys[name]
+        assert lib.gr4_iir_sos(x.data_ptr(), y.data_ptr(), s0.data_ptr(), st.data_ptr(),
+                               co.ctypes.data, cs.IIR_CHANNELS, cs.IIR_BLOCK_LEN, 3,
+                               stream()) == 0
+    call(this, "this")
+    call(that, "that")
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(ys["this"], ys["that"]))
+    t = [cs.cuda_ms(lambda: call(that, "that"), reps=3),
+         cs.cuda_ms(lambda: call(this, "this"), reps=3),
+         cs.cuda_ms(lambda: call(this, "this"), reps=3),
+         cs.cuda_ms(lambda: call(that, "that"), reps=3)]
+    bad += not same
+    print(json.dumps({"kernel": "iir_sos", "case": "C=16 T=2^20 S=3 (Path B)",
+                      "ms": statistics.median(t[1:3]),
+                      "other_ms": statistics.median((t[0], t[3])),
+                      "bitwise_equal": same, "card": card}))
+    return 1 if bad else 0
+
+
+if __name__ == "__main__":
+    args = sys.argv[1:]
+    if args[:1] == ["--steps"]:
+        steps(Path(args[1] if len(args) > 1 else Path(__file__).resolve().parent).resolve())
+        sys.exit(0)
+    if len(args) != 1:
+        sys.exit(__doc__)
+    sys.exit(kernels(Path(args[0]).resolve()))

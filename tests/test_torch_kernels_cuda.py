@@ -29,6 +29,10 @@ NCO_ATOL = 1e-5
 IIR_RTOL = 1e-5
 # atan2 of f32 FIR outputs, wrapped into (−π, π], in rad·gain
 DEMOD_ATOL = 2e-3
+# f32 sums of 16384 taps against a float64 reference, relative to the output
+# RMS: the rounding error grows like √K·2^-24 (~1e-5); 2.1e-5 measured on an
+# H100
+LONG_RTOL = 1e-4
 
 
 @pytest.fixture
@@ -51,6 +55,12 @@ def _taps(kind: str) -> np.ndarray:
     if kind == "real63":
         return fd.design_fir("lowpass", 63, sample_rate=fs, f_low=1e6
                              ).astype(np.float32)
+    if kind == "xlating7":
+        return np.ascontiguousarray(_taps("xlating127")[60:67])
+    if kind == "random16384":
+        g = np.random.default_rng(16384)
+        return ((g.standard_normal(16384) + 1j * g.standard_normal(16384))
+                / 128).astype(np.complex64)
     return np.ones(1, np.float32)
 
 
@@ -64,6 +74,9 @@ def _taps(kind: str) -> np.ndarray:
     (torch.complex64, "real63", 3, (5000,)),
     (torch.complex64, "one", 1, (1000,)),
     (torch.float32, "real63", 8, (7,)),          # fewer samples than one output
+    (torch.float32, "real63", 2048, (1 << 20,)),  # decim above the old limit
+    (torch.complex64, "real63", 1024, (1 << 20,)),
+    (torch.complex64, "xlating7", 1, (65539, 64)),  # channels beyond grid y
 ])
 def test_fir_banded_matches_plain(cuda, x_dt, taps, decim, shape):
     g = torch.Generator(device=cuda).manual_seed(7)
@@ -162,6 +175,28 @@ def test_iir_sos_matches_plain(cuda, order, shape):
     assert _rms_err(st, st_ref) <= IIR_RTOL
 
 
+@pytest.mark.parametrize("n_sec", [17, 33])
+def test_iir_sos_any_number_of_sections(cuda, n_sec):
+    """17 and 33 repeated biquads: one launch per group of 16 sections, each
+    group after the first filtering in place; against the plain loop, and
+    two chunks with the carried state equal one pass bit for bit."""
+    g = torch.Generator(device=cuda).manual_seed(16)
+    sos = np.tile(_sos(4)[:1], (n_sec, 1))
+    x = torch.randn(3, 4096, device=cuda, generator=g)
+    s0 = 0.1 * torch.randn(3, n_sec, 2, device=cuda, generator=g)
+    before = ck.iir_sos.launches
+    y, st = ck.iir_sos(x, sos, s0)
+    y_ref, st_ref = ck.iir_sos_ref(x, sos, s0)
+    torch.cuda.synchronize()
+    assert ck.iir_sos.launches == before + -(-n_sec // 16)
+    assert _rms_err(y, y_ref) <= IIR_RTOL
+    assert _rms_err(st, st_ref) <= IIR_RTOL
+    y1, st1 = ck.iir_sos(x[:, :1500].contiguous(), sos, s0)
+    y2, st2 = ck.iir_sos(x[:, 1500:].contiguous(), sos, st1)
+    torch.cuda.synchronize()
+    assert torch.equal(torch.cat([y1, y2], -1), y) and torch.equal(st2, st)
+
+
 def test_iir_sos_state_carry_on_card(cuda):
     """Two chunks with the carried state equal one pass."""
     g = torch.Generator(device=cuda).manual_seed(11)
@@ -195,7 +230,9 @@ def _wrapped_err(a, b, gain):
 @pytest.mark.parametrize("taps,decim,shape", [
     ("real127", 1, (1 << 20,)), ("xlating127", 1, (1 << 20,)),
     ("real63", 2, (100003,)), ("xlating127", 1, (4, 65536 + 13)),
-    ("one", 1, (1000,)), ("real63", 3, (40,))])
+    ("one", 1, (1000,)), ("real63", 3, (40,)),
+    ("real63", 1024, (1 << 20,)), ("xlating127", 2048, (1 << 20,)),
+    ("xlating7", 1, (65539, 64))])
 def test_fir_demod_matches_plain(cuda, taps, decim, shape):
     g = torch.Generator(device=cuda).manual_seed(12)
     h = _taps(taps)
@@ -212,6 +249,72 @@ def test_fir_demod_matches_plain(cuda, taps, decim, shape):
     assert y.shape == y_ref.shape == (*shape[:-1], shape[-1] // decim)
     if y.numel():
         assert _wrapped_err(y, y_ref, gain) <= DEMOD_ATOL * gain
+
+
+def _fir_float64(xc, taps, decim):
+    """y[..., m] = Σ_k h[k]·xc[..., m·decim + K−1−k] in float64 (FFT)."""
+    xc = xc.cpu().numpy().astype(np.complex128)
+    k = len(taps)
+    n = xc.shape[-1] + k - 1
+    full = np.fft.ifft(np.fft.fft(xc, n) * np.fft.fft(taps.astype(np.complex128), n))
+    m = (xc.shape[-1] - (k - 1)) // decim
+    return full[..., k - 1: k - 1 + m * decim: decim]
+
+
+def test_fir_kernels_take_16384_complex_taps(cuda):
+    """K 16384 complex taps at T 2^15: the taps and one window exceed the
+    shared-memory budget, so both kernels stage the taps in chunks. Against a
+    float64 FIR (and, for fir_demod, the demod of its rounding to c64)."""
+    from gnuradio4_tpu_torch.ops.demod import quadrature_demod
+    g = torch.Generator(device=cuda).manual_seed(14)
+    h = _taps("random16384")
+    k, t = len(h), 1 << 15
+    x = torch.randn(t, dtype=torch.complex64, device=cuda, generator=g)
+    hist = torch.randn(k - 1, dtype=torch.complex64, device=cuda, generator=g)
+    y = ck.fir_banded(x, hist, h)
+    want = _fir_float64(torch.cat([hist, x]), h, 1)
+    torch.cuda.synchronize()
+    rms = float(np.sqrt(np.mean(np.abs(want) ** 2)))
+    assert y.shape == (t,)
+    assert float(np.max(np.abs(y.cpu().numpy() - want))) <= LONG_RTOL * rms
+    xc = _fm_stream(g, cuda, (t + k - 1,))
+    prev = torch.ones((), dtype=torch.complex64, device=cuda)
+    gain = 250e3 / (2 * np.pi * 75e3)
+    y = ck.fir_demod(xc, h, 1, prev, gain)
+    v = torch.from_numpy(_fir_float64(xc, h, 1).astype(np.complex64)).to(cuda)
+    y_ref, _ = quadrature_demod(v, prev, gain=gain)
+    torch.cuda.synchronize()
+    assert y.shape == (t,)
+    assert _wrapped_err(y, y_ref, gain) <= DEMOD_ATOL * gain
+
+
+def test_fir_filter_decim_1024_card_matches_cpu(cuda):
+    """FirFilter(63 taps, decim 1024) on a complex stream over three steps
+    with its history carried: the card (one fir_banded launch per step)
+    against the CPU."""
+    from gnuradio4_tpu_torch.blocks.filter import FirFilter
+    from gnuradio4_tpu_torch.core.block import BlockCtx
+    taps = fd.design_fir("lowpass", 63, sample_rate=48e3, f_low=10).astype(np.float32)
+    n, decim = 64 * 1024, 1024
+    rng = np.random.default_rng(15)
+    chunks = [(rng.standard_normal(n) + 1j * rng.standard_normal(n)).astype(np.complex64)
+              for _ in range(3)]
+    outs = {}
+    for dev in (torch.device("cpu"), cuda):
+        blk = FirFilter(taps=taps, decim=decim)
+        ctx = BlockCtx(in_len={"in": n}, out_len={"out": n // decim},
+                       sample_rate=48e3, params={}, channels={"in": 0, "out": 0},
+                       dtypes={"in": np.dtype(np.complex64)}, device=dev)
+        st = blk.init_state(ctx)
+        before = ck.fir_banded.launches
+        ys = []
+        for x in chunks:
+            st, out = blk.apply(st, {"in": torch.from_numpy(x).to(dev)}, ctx)
+            ys.append(out["out"].cpu())
+        outs[dev.type] = (torch.cat(ys), ck.fir_banded.launches - before)
+    assert outs["cpu"][1] == 0 and outs["cuda"][1] == 3
+    assert outs["cuda"][0].shape == (3 * n // decim,)
+    assert float((outs["cuda"][0] - outs["cpu"][0]).abs().max()) <= FIR_ATOL
 
 
 def test_fir_quad_demod_fused_carry_on_card(cuda):
@@ -238,9 +341,12 @@ def test_new_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         ck.iir_sos(x.double(), _sos(4), torch.zeros(2, 2, device=cuda))
     with pytest.raises(GrError, match="shapes"):
         ck.iir_sos(x, _sos(4), torch.zeros(3, 2, device=cuda))
+    # 17 sections, once refused: now two launches, equal to the plain loop
     many = np.tile(_sos(4)[:1], (17, 1))
-    with pytest.raises(GrError, match="at most"):
-        ck.iir_sos(x, many, torch.zeros(17, 2, device=cuda))
+    xr = torch.randn(64, device=cuda)
+    y, st = ck.iir_sos(xr, many, torch.zeros(17, 2, device=cuda))
+    y_ref, st_ref = ck.iir_sos_ref(xr, many, torch.zeros(17, 2, device=cuda))
+    assert _rms_err(y, y_ref) <= IIR_RTOL and _rms_err(st, st_ref) <= IIR_RTOL
     xc = torch.zeros(64, dtype=torch.complex64, device=cuda)
     prev = torch.zeros((), dtype=torch.complex64, device=cuda)
     with pytest.raises(GrError, match="complex64"):

@@ -351,4 +351,4 @@ def test_feedback_edges_and_meshes_raise():
     with pytest.raises(GrError, match="mesh"):
         gt.Scheduler(h, mesh=object())
     with pytest.raises(GrError, match="batch_steps"):
-        gt.Scheduler(h, batch_steps=0)
+        gt.Scheduler(h, batch_steps=0, device="cpu")
