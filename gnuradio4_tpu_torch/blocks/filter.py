@@ -12,6 +12,7 @@ reference's two-input IQDemodulator over ``torch.fft.rfft``.
 
 from __future__ import annotations
 
+import functools
 from fractions import Fraction
 from typing import Any
 
@@ -24,7 +25,7 @@ from ..core.registry import register_block
 from ..core.settings import Setting
 from ..ops import filter_design as fd
 from ..ops import iir as iir_ops
-from ..ops.cuda_kernels import iir_sos, nco_mix
+from ..ops.cuda_kernels import frozen, iir_sos, nco_mix
 from ..ops.fir import PRECISIONS, fir_apply, fir_init_state, freq_xlating_taps
 from ..ops.resample import RationalResamplerKernel
 from ..ops.signal import complex_exp_ramp, phase_increment
@@ -210,6 +211,14 @@ class FreqXlatingFir(FirFilter):
                 {"out": y})
 
 
+@functools.lru_cache(maxsize=64)
+def _ba_to_sos(b: tuple, a: tuple) -> np.ndarray:
+    """The sections of (b, a), designed once per coefficient set (read-only):
+    ``ba_to_sos`` finds polynomial roots, and IirFilter asks for the
+    sections twice at every step."""
+    return frozen(fd.ba_to_sos(b, a))
+
+
 @register_block("IirFilter")
 class IirFilter(Block):
     """Direct-form IIR y[n] = Σb·x − Σa·y (≈ iir_filter, time_domain_filter.hpp:64).
@@ -217,8 +226,10 @@ class IirFilter(Block):
     Engines: ``scan`` — transposed DF-II loop over time (ops/iir.py
     ``iir_apply``, state [C, order]); ``parallel`` — partial fractions into
     one-pole recurrences of O(log T) depth (needs separable poles, state
-    [C, S] complex64); ``pallas`` — the biquad cascade, the ``iir_sos`` CUDA
-    kernel on the card and its plain loop on the CPU (state [C, S, 2]).
+    [C, S] complex64); ``pallas`` — the biquad cascade, on the card the
+    ``iir_sos`` CUDA kernel (a chunked state-space scan across time: chunks
+    filtered in parallel and joined by their carried states) and on the CPU
+    its plain loop (state [C, S, 2]).
     ``auto`` decides from the block's device: ``scan`` on the CPU; on CUDA
     ``parallel`` when the sections allow it, else ``pallas``."""
 
@@ -230,8 +241,8 @@ class IirFilter(Block):
                      choices=("auto", "scan", "parallel", "pallas"),
                      description="'parallel': O(log T) associative-scan partial "
                                  "fractions (needs separable poles); 'pallas': "
-                                 "the biquad-cascade kernel (one time loop per "
-                                 "channel)")
+                                 "the biquad-cascade kernel (a chunked scan "
+                                 "across time)")
     uncertain = Setting(default=False, kind="static",
                         description="input is a 2-plane (value, sigma) stream "
                                     "(not ported to this package yet; raises)")
@@ -244,7 +255,7 @@ class IirFilter(Block):
         super().__init__(name=name, **settings)
 
     def _sos(self) -> np.ndarray:
-        return fd.ba_to_sos(self.settings.get("b"), self.settings.get("a"))
+        return _ba_to_sos(tuple(self.settings.get("b")), tuple(self.settings.get("a")))
 
     def _engine(self, device: torch.device) -> str:
         eng = str(self.settings.get("engine"))

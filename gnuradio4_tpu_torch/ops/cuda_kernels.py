@@ -133,10 +133,7 @@ def build() -> KernelLibrary:
                                     ctypes.c_uint32, ctypes.c_uint32,
                                     ctypes.c_void_p]
         lib.gr4_nco_mix.restype = ctypes.c_int
-        lib.gr4_iir_sos.argtypes = [ctypes.c_void_p] * 5 + [
-            ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_void_p]
-        lib.gr4_iir_sos.restype = ctypes.c_int
-        lib.gr4_iir_sos_group_size.restype = ctypes.c_int
+        set_iir_sos_argtypes(lib)
         lib.gr4_fir_demod.argtypes = [ctypes.c_void_p] * 4 + [
             ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
             ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
@@ -145,6 +142,17 @@ def build() -> KernelLibrary:
         lib.gr4_error_string.restype = ctypes.c_char_p
         _library = KernelLibrary(lib, so, time.perf_counter() - t0, log)
         return _library
+
+
+def set_iir_sos_argtypes(lib: ctypes.CDLL) -> None:
+    """``gr4_iir_sos``'s C signature and its size queries on ``lib``."""
+    lib.gr4_iir_sos.argtypes = [ctypes.c_void_p] * 7 + [
+        ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_void_p]
+    lib.gr4_iir_sos.restype = ctypes.c_int
+    for fn in ("group_size", "chunk", "levels", "launches_per_group"):
+        getattr(lib, f"gr4_iir_sos_{fn}").restype = ctypes.c_int
+    lib.gr4_iir_sos_work_size.argtypes = [ctypes.c_int64, ctypes.c_int64, ctypes.c_int]
+    lib.gr4_iir_sos_work_size.restype = ctypes.c_int64
 
 
 def _check(err: int, name: str) -> None:
@@ -423,10 +431,14 @@ def iir_sos(x: torch.Tensor, sos, state: torch.Tensor
     """Cascaded-biquad IIR (transposed DF-II) over the last axis of a float32
     ``[T]`` or ``[C, T]`` stream. ``sos``: [S, 6] host coefficients; ``state``:
     [S, 2] or [C, S, 2] float32. Returns ``(y, new_state)``. CPU tensors take
-    :func:`iir_sos_ref`; CUDA tensors launch the kernel in ``csrc/iir_sos.cu``
-    once per group of up to ``gr4_iir_sos_group_size()`` (16) sections, in
-    order, each group after the first filtering ``y`` in place; each launch
-    counts."""
+    :func:`iir_sos_ref`; CUDA tensors run the chunked scan in
+    ``csrc/iir_sos.cu``: per group of up to 16 sections, in order, three
+    launches (reduce, carry, rerun), each group after the first filtering
+    ``y`` in place; each launch counts. The chunk transitions' powers
+    (ops/iir.py ``sos_chunk_powers``) are uploaded once per coefficient set.
+    A stream cut into two calls with the state carried agrees with one call
+    within f32 rounding, not bit for bit: the chunk grid starts at each
+    call's first sample."""
     if x.device.type == "cpu":
         return iir_sos_ref(x, sos, state)
     from .iir import sos_coefficients
@@ -447,16 +459,48 @@ def iir_sos(x: torch.Tensor, sos, state: torch.Tensor
     if channels == 0 or t == 0:
         new_state.copy_(state)
         return y, new_state
-    lib = build().lib
+    lib = _iir_sos_lib()
+    phi = device_constant(sos_carry_table(co), dev)
+    work = torch.empty(lib.gr4_iir_sos_work_size(channels, t, n_sec), device=dev)
     err = lib.gr4_iir_sos(x.data_ptr(), y.data_ptr(), state.data_ptr(),
-                          new_state.data_ptr(), co.ctypes.data, channels, t,
-                          n_sec, _stream(dev))
+                          new_state.data_ptr(), co.ctypes.data, phi.data_ptr(),
+                          work.data_ptr(), channels, t, n_sec, _stream(dev))
     _check(err, name)
-    iir_sos.launches += -(-n_sec // lib.gr4_iir_sos_group_size())
+    iir_sos.launches += -(-n_sec // lib.gr4_iir_sos_group_size()) \
+        * lib.gr4_iir_sos_launches_per_group()
     return y, new_state
 
 
 iir_sos.launches = 0
+
+
+def _iir_sos_lib() -> ctypes.CDLL:
+    """The library, after checking that its chunked scan uses the chunk,
+    group and table sizes of ops/iir.py (the host builds the tables)."""
+    from .iir import SOS_CARRY_LEVELS, SOS_CHUNK, SOS_GROUP
+    lib = build().lib
+    got = (lib.gr4_iir_sos_chunk(), lib.gr4_iir_sos_group_size(),
+           lib.gr4_iir_sos_levels())
+    if got != (SOS_CHUNK, SOS_GROUP, SOS_CARRY_LEVELS):
+        raise GrError(f"iir_sos: csrc/iir_sos.cu has (chunk, group, levels) "
+                      f"{got}, ops/iir.py {(SOS_CHUNK, SOS_GROUP, SOS_CARRY_LEVELS)}")
+    return lib
+
+
+@functools.lru_cache(maxsize=64)
+def _carry_table(co_key: bytes, n_sec: int) -> np.ndarray:
+    from .iir import SOS_GROUP, sos_chunk_powers
+    co = np.frombuffer(co_key, np.float32).reshape(n_sec, 5)
+    return frozen(np.concatenate([sos_chunk_powers(co[k0:k0 + SOS_GROUP]).ravel()
+                                  for k0 in range(0, n_sec, SOS_GROUP)]))
+
+
+def sos_carry_table(co: np.ndarray) -> np.ndarray:
+    """The kernel's ``phi`` argument, read-only and cached per coefficient
+    set: for each group of up to 16 sections in order, its chunk transition's
+    powers (ops/iir.py ``sos_chunk_powers``), flattened."""
+    co = np.ascontiguousarray(co, np.float32)
+    return _carry_table(co.tobytes(), co.shape[0])
 
 
 def iir_sos_ref(x: torch.Tensor, sos, state: torch.Tensor

@@ -6,7 +6,9 @@ Strategies, as in the JAX package:
    (:func:`iir_apply`, :func:`sos_apply`). In PyTorch this is a Python loop of
    small tensor ops per sample: correct everywhere, usable only at small T.
    The biquad cascade's fast form on the card is the ``iir_sos`` CUDA kernel
-   (ops/cuda_kernels.py), of which :func:`sos_apply` is the plain version.
+   (ops/cuda_kernels.py), of which :func:`sos_apply` is the plain version: a
+   chunked state-space scan across time whose host matrices
+   (:func:`sos_chunk_powers`) and algebra (:func:`sos_chunked_ref`) live here.
 2. **Parallel linear recurrence** (first-order sections): y[n] = c·y[n-1] + v[n]
    is an associative operation on pairs (c, v), evaluated in O(log T) depth
    (:func:`one_pole_apply`), or for a host-constant pole on long streams in
@@ -19,12 +21,13 @@ State layout (transposed direct-form II): ``s[..., i]``, i ∈ [0, order).
 
 from __future__ import annotations
 
+import functools
 import os
 
 import numpy as np
 import torch
 
-from .cuda_kernels import check_f32_matmul
+from .cuda_kernels import check_f32_matmul, frozen
 
 
 def _normalize_ba(b: np.ndarray, a: np.ndarray) -> tuple[np.ndarray, np.ndarray, int]:
@@ -178,7 +181,119 @@ def sos_apply(x: torch.Tensor, sos: np.ndarray, state: torch.Tensor
               ) -> tuple[torch.Tensor, torch.Tensor]:
     """Cascaded-biquad IIR, a loop over time. sos: [S, 6]; state: [..., S, 2]
     transposed-DF2. The plain version of the ``iir_sos`` kernel."""
-    co = [[float(v) for v in row] for row in sos_coefficients(sos)]
+    return _cascade_loop(x, sos_coefficients(sos), state)
+
+
+# The iir_sos kernel's chunked scan (csrc/iir_sos.cu; its wrapper checks that
+# the library reports the same values): samples per chunk, sections per group,
+# and powers Φ^(2^j), j < SOS_CARRY_LEVELS, of each group's chunk transition.
+SOS_CHUNK = 128
+SOS_GROUP = 16
+SOS_CARRY_LEVELS = 40
+
+
+def sos_step_matrix(co: np.ndarray) -> np.ndarray:
+    """A, [2S, 2S] float64: one sample of the cascade with zero input, acting
+    on the state vector ``state[..., S, 2].reshape(2S)`` (s0, s1 of section 0,
+    then of section 1, ...). ``co``: [S, 5] (b0, b1, b2, a1, a2), as
+    :func:`sos_coefficients` gives them. Column i is one step from unit
+    state e_i."""
+    co = np.asarray(co, np.float64)
+    s = np.eye(2 * co.shape[0])
+    new = np.empty_like(s)
+    v = np.zeros(s.shape[1])
+    for k, (b0, b1, b2, a1, a2) in enumerate(co):
+        y = b0 * v + s[2 * k]
+        new[2 * k] = b1 * v - a1 * y + s[2 * k + 1]
+        new[2 * k + 1] = b2 * v - a2 * y
+        v = y
+    return new
+
+
+def sos_chunk_transition(co: np.ndarray, chunk: int) -> np.ndarray:
+    """Φ = A^chunk, [2S, 2S]: the state after ``chunk`` samples of zero input,
+    in float64 from the f32-rounded coefficients ``co``, rounded to float32.
+    A chunk entered in state s and left in z from the zero state leaves in
+    Φ·s + z."""
+    return np.linalg.matrix_power(sos_step_matrix(co), chunk).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=64)
+def _chunk_powers(co_key: bytes, n_sec: int, chunk: int) -> np.ndarray:
+    phi = np.linalg.matrix_power(
+        sos_step_matrix(np.frombuffer(co_key, np.float32).reshape(n_sec, 5)), chunk)
+    out = np.empty((SOS_CARRY_LEVELS, *phi.shape), np.float32)
+    with np.errstate(over="ignore", under="ignore", invalid="ignore"):
+        for j in range(SOS_CARRY_LEVELS):
+            out[j] = phi
+            phi = phi @ phi
+    return frozen(out)
+
+
+def sos_chunk_powers(co: np.ndarray, chunk: int = SOS_CHUNK) -> np.ndarray:
+    """[SOS_CARRY_LEVELS, 2S, 2S] float32, read-only and cached per
+    (coefficients, chunk): Φ^(2^j), squared in float64 from Φ = A^chunk and
+    each rounded to float32. The carry of the chunked scan combines spans of
+    2^j chunks with them."""
+    co = np.ascontiguousarray(co, np.float32)
+    return _chunk_powers(co.tobytes(), co.shape[0], chunk)
+
+
+def sos_chunked_ref(x: torch.Tensor, sos: np.ndarray, state: torch.Tensor,
+                    chunk: int = SOS_CHUNK) -> tuple[torch.Tensor, torch.Tensor]:
+    """The ``iir_sos`` kernel's chunked state-space scan, in plain PyTorch, for
+    the tests: the same result as :func:`sos_apply` in exact arithmetic.
+
+    Per group of up to SOS_GROUP sections, the stream (each later group the
+    previous group's output) is cut into chunks of ``chunk`` samples, the last
+    one partial. Every chunk runs through the cascade from the zero state
+    (its end state z_k); the entering states s_0 = state and
+    s_{k+1} = Φ·s_k + z_k come from a log-depth scan with the powers of
+    :func:`sos_chunk_powers`; every chunk runs again from s_k and gives y.
+    The last chunk's end state is the new state. x: [T] or [C, T] float32;
+    state: [..., S, 2]."""
+    co = sos_coefficients(sos)
+    squeeze = x.ndim == 1
+    y = x[None] if squeeze else x
+    st = state[None] if squeeze else state
+    new_state = st.clone()
+    for k0 in range(0, co.shape[0], SOS_GROUP):
+        grp = co[k0:k0 + SOS_GROUP]
+        y, new_state[:, k0:k0 + len(grp)] = _chunked_group(
+            y, grp, st[:, k0:k0 + len(grp)], chunk)
+    return (y[0], new_state[0]) if squeeze else (y, new_state)
+
+
+def _chunked_group(x: torch.Tensor, co: np.ndarray, state: torch.Tensor,
+                   chunk: int) -> tuple[torch.Tensor, torch.Tensor]:
+    c, t = x.shape
+    n = 2 * co.shape[0]
+    if c == 0 or t == 0:
+        return x.clone(), state.clone()
+    k = -(-t // chunk)
+    xp = torch.nn.functional.pad(x, (0, k * chunk - t)).reshape(c * k, chunk)
+    zero = torch.zeros(c * k, co.shape[0], 2, dtype=x.dtype, device=x.device)
+    _, z = _cascade_loop(xp, co, zero)
+    # inclusive scan of w_k = Φ·w_{k−1} + z_k with w_{−1} = state: w_k is the
+    # state after chunk k, the entering state of chunk k + 1
+    powers = torch.from_numpy(sos_chunk_powers(co, chunk).copy()).to(x.device)
+    w = z.reshape(c, k, n)
+    w[:, 0] += state.reshape(c, n) @ powers[0].T
+    d, j = 1, 0
+    while d < k:
+        nxt = w.clone()
+        nxt[:, d:] += w[:, :-d] @ powers[j].T
+        w, d, j = nxt, 2 * d, j + 1
+    enter = torch.cat([state.reshape(c, 1, n), w[:, :-1]], dim=1)
+    y, _ = _cascade_loop(xp, co, enter.reshape(c * k, n // 2, 2))
+    _, s_out = _cascade_loop(x[:, (k - 1) * chunk:], co, enter[:, -1].reshape(c, n // 2, 2))
+    return y.reshape(c, k * chunk)[:, :t], s_out
+
+
+def _cascade_loop(x: torch.Tensor, co: np.ndarray, state: torch.Tensor
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The cascade's loop over time with [S, 5] float32 coefficients ``co``."""
+    co = [[float(v) for v in row] for row in co]
     s = [(state[..., k, 0].to(x.dtype), state[..., k, 1].to(x.dtype))
          for k in range(len(co))]
     ys = []

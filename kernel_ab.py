@@ -9,16 +9,21 @@ The first form builds this tree's kernels (``cuda_kernels.build``) and
 ``OTHER_ROOT/gnuradio4_tpu_torch/csrc/*.cu`` with the same ``nvcc`` flags (into
 ``OTHER_ROOT/gnuradio4_tpu_torch/_build/``), loads both through their plain C
 interfaces and, on the same inputs, times ``fir_banded`` at ``chip_smoke.py``'s
-timed shapes, ``fir_demod`` at its two and ``iir_sos`` at Path B's, in turns
-(other, this, this, other) with ``chip_smoke.cuda_ms``. It checks both against
-the plain version, prints one JSON line per shape, and exits non-zero if either
-disagrees.
+timed shapes, ``fir_demod`` at its two and ``iir_sos`` at Path B's (C 16, T
+2^20), one channel of it and a short stream (C 16, T 4096), in turns (other,
+this, this, other) with ``chip_smoke.cuda_ms``. It checks ``fir_banded``
+against the plain version, ``fir_demod`` bitwise against the other's and
+``iir_sos`` (whose chunked scan rounds differently from the parent's serial
+loop) against scipy's float64 ``sosfilt``, prints one JSON line per shape,
+and exits non-zero if either disagrees. OTHER's ``gr4_iir_sos`` may have
+either C interface: the serial kernel's or the chunked scan's.
 
 The second form imports ``chip_smoke`` and the package from ROOT (default: this
-tree) and prints the device milliseconds of one step of the headline chain (2^23,
-rotation absorbed) and of Path A (2^22) from ``torch.profiler``, with the
-kernels that took the most. Run it in both trees in turns (other, this, this,
-other) to compare.
+tree) and prints, for one step of the headline chain (2^23, rotation
+absorbed), Path A (2^22) and Path B (2^20), the device milliseconds from
+``torch.profiler`` with the kernels that took the most, the milliseconds per
+step by CUDA events and the device-busy share (the first over the second).
+Run it in both trees in turns (other, this, this, other) to compare.
 """
 
 from __future__ import annotations
@@ -41,7 +46,9 @@ def steps(root: Path) -> None:
     for label, build, bl, fs in (
             ("chain absorbed 2^23", lambda: cs.build_chain("null")[0], cs.BLOCK_LEN, cs.FS),
             ("Path A 2^22", lambda: cs.build_wbfm("null")[0], cs.WBFM_BLOCK_LEN,
-             cs.QUAD_RATE)):
+             cs.QUAD_RATE),
+            ("Path B 2^20", lambda: cs.build_iir_path(5, "null")[0], cs.IIR_BLOCK_LEN,
+             cs.IIR_FS)):
         sched = gt.Scheduler(build(), block_len=bl, sample_rate=fs, device="cuda")
         for _ in range(3):
             sched.step_once()
@@ -50,9 +57,12 @@ def steps(root: Path) -> None:
         for _ in range(3):
             ms, top = cs.profile_device(sched.step_once)
             dev_ms.append(ms)
+        step_ms, windows = cs.events_ms_per_step(sched.step_once, 10)
         print(json.dumps({"root": str(root), "path": label,
                           "device_ms_per_step": statistics.median(dev_ms),
-                          "runs": dev_ms,
+                          "runs": dev_ms, "events_ms_per_step": step_ms,
+                          "device_busy": statistics.median(dev_ms) / step_ms,
+                          "windows": [[round(a, 4), round(b, 4)] for a, b in windows],
                           "top": [[round(t, 4), k[:60]] for t, k in top[:4]]}))
 
 
@@ -82,8 +92,11 @@ def build_other(other: Path, ck) -> ctypes.CDLL:
     lib.gr4_fir_demod.argtypes = [ctypes.c_void_p] * 4 + [
         ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_float, ctypes.c_void_p]
-    lib.gr4_iir_sos.argtypes = [ctypes.c_void_p] * 5 + [
-        ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_void_p]
+    if hasattr(lib, "gr4_iir_sos_chunk"):
+        ck.set_iir_sos_argtypes(lib)
+    else:                                   # the serial kernel's interface
+        lib.gr4_iir_sos.argtypes = [ctypes.c_void_p] * 5 + [
+            ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_void_p]
     return lib
 
 
@@ -95,6 +108,7 @@ def kernels(other: Path) -> int:
     from gnuradio4_tpu_torch.ops import cuda_kernels as ck
     from gnuradio4_tpu_torch.ops import filter_design as fd
     from gnuradio4_tpu_torch.ops.fir import freq_xlating_taps
+    from gnuradio4_tpu_torch.ops.cuda_kernels import device_constant, sos_carry_table
     from gnuradio4_tpu_torch.ops.iir import sos_coefficients
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -177,29 +191,39 @@ def kernels(other: Path) -> int:
         print(json.dumps({"kernel": "fir_demod", "case": label, "ms": ms,
                           "other_ms": other_ms, "bitwise_equal": same, "card": card}))
 
-    co = sos_coefficients(cs.iir_design(5).sos)
-    x = torch.randn(cs.IIR_CHANNELS, cs.IIR_BLOCK_LEN, device=dev, generator=gen)
-    s0 = torch.zeros(cs.IIR_CHANNELS, 3, 2, device=dev)
-    ys = {name: (torch.empty_like(x), torch.empty_like(s0)) for name in ("this", "that")}
+    from scipy import signal
+    sos = cs.iir_design(5).sos
+    co = sos_coefficients(sos)
+    for label, c, n in (("C=16 T=2^20 S=3 (Path B)", cs.IIR_CHANNELS, cs.IIR_BLOCK_LEN),
+                        ("C=1 T=2^20 S=3", 1, cs.IIR_BLOCK_LEN),
+                        ("C=16 T=4096 S=3", cs.IIR_CHANNELS, cs.IIR_CPU_BLOCK_LEN)):
+        x = torch.randn(c, n, device=dev, generator=gen)
+        s0 = torch.zeros(c, 3, 2, device=dev)
+        ys = {name: (torch.empty_like(x), torch.empty_like(s0)) for name in ("this", "that")}
+        bufs = {lib: (device_constant(sos_carry_table(co), dev),
+                      torch.empty(lib.gr4_iir_sos_work_size(c, n, 3), device=dev))
+                for lib in (this, that) if hasattr(lib, "gr4_iir_sos_chunk")}
 
-    def call(lib, name):
-        y, st = ys[name]
-        assert lib.gr4_iir_sos(x.data_ptr(), y.data_ptr(), s0.data_ptr(), st.data_ptr(),
-                               co.ctypes.data, cs.IIR_CHANNELS, cs.IIR_BLOCK_LEN, 3,
-                               stream()) == 0
-    call(this, "this")
-    call(that, "that")
-    torch.cuda.synchronize()
-    same = all(torch.equal(a, b) for a, b in zip(ys["this"], ys["that"]))
-    t = [cs.cuda_ms(lambda: call(that, "that"), reps=3),
-         cs.cuda_ms(lambda: call(this, "this"), reps=3),
-         cs.cuda_ms(lambda: call(this, "this"), reps=3),
-         cs.cuda_ms(lambda: call(that, "that"), reps=3)]
-    bad += not same
-    print(json.dumps({"kernel": "iir_sos", "case": "C=16 T=2^20 S=3 (Path B)",
-                      "ms": statistics.median(t[1:3]),
-                      "other_ms": statistics.median((t[0], t[3])),
-                      "bitwise_equal": same, "card": card}))
+        def call(lib, name):
+            y, st = ys[name]
+            args = (x.data_ptr(), y.data_ptr(), s0.data_ptr(), st.data_ptr(), co.ctypes.data)
+            if lib in bufs:
+                args += (bufs[lib][0].data_ptr(), bufs[lib][1].data_ptr())
+            assert lib.gr4_iir_sos(*args, c, n, 3, stream()) == 0
+        call(this, "this")
+        call(that, "that")
+        torch.cuda.synchronize()
+        want = signal.sosfilt(sos, x.cpu().numpy().astype(np.float64), axis=-1)
+        err = {name: cs.rms_err(y.cpu().numpy().astype(np.float64), want)
+               for name, (y, _) in ys.items()}
+        ms, other_ms = in_turns(lambda: call(that, "that"), lambda: call(this, "this"))
+        b_ms, b_by = cs.iir_bound_ms(c, n, 3)
+        bad += max(err.values()) > cs.SCIPY_RTOL
+        print(json.dumps({"kernel": "iir_sos", "case": label, "ms": ms,
+                          "other_ms": other_ms, "bound_ms": b_ms, "bound_by": b_by,
+                          "share_of_bound": b_ms / ms, "other_share": b_ms / other_ms,
+                          "float64_rms_err": err["this"],
+                          "other_float64_rms_err": err["that"], "card": card}))
     return 1 if bad else 0
 
 
