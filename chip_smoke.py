@@ -17,9 +17,10 @@ result line:
    channels; ``iir_sos`` with 17 and 33 sections, two calls with the state
    carried against one, a narrow-band design against float64); device times
    by CUDA events over calls queued behind a spin kernel, and for each timed
-   ``fir_banded`` and ``iir_sos`` shape its bound (bytes over the HBM rate or
-   FLOPs over the FP32 peak) and the share of it reached, with
-   ``F.conv1d``'s time (cuDNN TF32 off) as the FIR's yardstick;
+   ``fir_banded``, ``fir_demod`` and ``iir_sos`` shape its bound (bytes over
+   the HBM rate or FLOPs over the FP32 peak) and the share of it reached,
+   with ``F.conv1d``'s time (cuDNN TF32 off) as the FIR's yardstick and the
+   unfused ``fir_banded`` → ``quadrature_demod`` as the fused kernel's;
 4. the headline chain (ComplexToneSource → FreqXlatingFir(127) → {FFT(4096) ;
    QuadratureDemod → FirFilter(63, ÷8)}) through ``Graph`` → ``Scheduler`` at
    block_len 2^23 for 4 steps with rotation absorption (the default): tone peak
@@ -304,6 +305,19 @@ def fir_work(shape, x_complex: bool, taps_complex: bool, k: int, decim: int
     sy = 8 if x_complex or taps_complex else 4
     return (ch * m * k * per_mac,
             ch * (t + k - 1) * sx + k * (8 if taps_complex else 4) + ch * m * sy)
+
+
+def demod_work(shape, taps_complex: bool, k: int, decim: int
+               ) -> tuple[float, float]:
+    """(FLOPs, bytes) of one fused FIR→demod call: the FIR's MACs and 6 FLOPs
+    of the conjugate product per output (atan2 not counted); the stream read
+    once, the taps and prev once, 4 bytes written per output."""
+    flops, nbytes = fir_work(shape, True, taps_complex, k, decim)
+    ch = 1
+    for d in shape[:-1]:
+        ch *= d
+    m = ch * (shape[-1] // decim)
+    return flops + 6.0 * m, nbytes - 4.0 * m + 8.0 * ch
 
 
 def conv1d_ms(x, hist, h, decim: int) -> float:
@@ -1398,6 +1412,7 @@ def main() -> int:
 
     # fir_demod against FIR then demod, on FM-modulated input (away from the
     # |v| ≈ 0 points where atan2 turns f32 rounding into any angle)
+    from gnuradio4_tpu_torch.ops.demod import quadrature_demod
     def fm_stream(shape):
         n = shape[-1]
         walk = torch.randn(shape, device=dev, generator=gen).cumsum(-1) * 0.05
@@ -1413,9 +1428,11 @@ def main() -> int:
     chan = wbfm_channel_taps()
     xl_wbfm = freq_xlating_taps(chan, 60e3, QUAD_RATE)
     tol_d = DEMOD_ATOL * WBFM_GAIN
+    demod_rows = {}
     for label, taps, decim, shape, timed in (
             ("c64 x f32 taps K=127 T=2^22 (Path A)", chan, 1, (WBFM_BLOCK_LEN,), True),
             ("c64 x c64 taps K=127 T=2^23", xl_wbfm, 1, (1 << 23,), True),
+            ("c64 x f32 taps K=127 decim 4 T=2^22", chan, 4, (1 << 22,), True),
             ("c64 x f32 taps K=127 decim 2 ragged T=1000003", chan, 2, (1000003,), False),
             ("c64 x c64 taps K=127 C=4 T=2^18+77", xl_wbfm, 1, (4, (1 << 18) + 77), False),
             ("c64 x f32 taps K=127 decim 1024 T=2^22", chan, 1024, (1 << 22,), False),
@@ -1438,23 +1455,30 @@ def main() -> int:
             row["ms"], row["plain_ms"] = kernel_vs_plain_ms(
                 lambda: ck.fir_demod(xc, h, decim, prev, WBFM_GAIN),
                 lambda: ck.fir_demod_ref(xc, h, decim, prev, WBFM_GAIN))
+            # the fusion's yardstick: the fir_banded kernel, then the demod
+            row["unfused_ms"] = cuda_ms(lambda: quadrature_demod(
+                ck.fir_banded(xc[k - 1:], xc[: k - 1], h, decim), prev,
+                gain=WBFM_GAIN))
+            row["bound_ms"], row["bound_by"] = bound_ms(*demod_work(
+                shape, h.is_complex(), k, decim))
+            row["share_of_bound"] = row["bound_ms"] / row["ms"]
+            demod_rows[label] = {key: row[key] for key in (
+                "ms", "plain_ms", "unfused_ms", "bound_ms", "bound_by", "share_of_bound")}
             if "Path A" in label:
-                # the FIR's MACs and the conjugate product (atan2 not counted)
-                flops, nbytes = fir_work(shape, True, False, k, decim)
-                b_ms, b_by = bound_ms(flops + 6.0 * shape[-1], nbytes - 4.0 * shape[-1] + 8)
                 results["fir_demod"].update(
-                    ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=b_ms,
-                    bound_by=b_by, share_of_bound=b_ms / row["ms"], library_ms=None,
+                    demod_rows[label], library_ms=None,
                     library_note="no single PyTorch call fuses a FIR with the "
                                  "quadrature demod")
         print(f"  fir_demod {label}: max|Δ| {err:.3e} (tol {tol_d:.3e}, wrapped)"
-              + (f"; kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms"
-                 if timed else ""))
+              + (f"; kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+                 f"unfused (fir_banded, then the demod) {row['unfused_ms']:.4f} ms, "
+                 f"bound {row['bound_ms']:.5f} ms ({row['bound_by']}), "
+                 f"{row['share_of_bound']:.2%} of it on {card}" if timed else ""))
         check(err <= tol_d, f"fir_demod {label}: {err} > {tol_d}")
         results["fir_demod"]["max_abs_err"] = max(results["fir_demod"]["max_abs_err"], err)
+    results["fir_demod"]["timed_shapes"] = demod_rows
     # K 16384 complex taps: the taps go in chunks; against the demod of the
     # float64 FIR rounded to complex64
-    from gnuradio4_tpu_torch.ops.demod import quadrature_demod
     xc = fm_stream(((1 << 15) + 16383,))
     prev = torch.ones((), dtype=torch.complex64, device=dev)
     y = ck.fir_demod(xc, long_taps, 1, prev, WBFM_GAIN)

@@ -1,12 +1,45 @@
-// The FIR kernels' shared pieces: the multiply-add for every (tap, sample)
-// type pair (fir_banded.cu, fir_demod.cu), and fir_demod.cu's direct-form
-// tile loop.
+// The FIR kernels' shared pieces (fir_banded.cu, fir_demod.cu): the
+// multiply-add for every (tap, sample) type pair, the register-blocked
+// polyphase tile loop (TileLoop) and its launch planner (plan). Each kernel
+// walks its tiles, runs the loop for a tile's FIR outputs in registers and
+// then does its own epilogue: fir_banded stores them, fir_demod demodulates
+// them.
 //
-// The loop: a block stages the reversed taps and the samples of its outputs
-// in shared memory; each thread then keeps kFirOutPerThread outputs in
-// registers, one f32 FMA chain each. Neighbouring threads own neighbouring
-// outputs, so for a window stride of 1 their shared loads hit neighbouring
-// banks; the taps are a broadcast read.
+// What the loop computes, per channel, over the history-prefixed stream
+//   xc[j] = j < K-1 ? hist[j] : x[j-(K-1)]            (length T + K - 1)
+//   v[m] = sum_k h[k] * xc[m*decim + K-1 - k]         for m < M = T / decim
+// i.e. outputs on the decimated grid aligned to the first input sample, as
+// gnuradio4_tpu/ops/fir.py fir_apply frames them. Full float32 FMAs on the
+// CUDA cores; no tensor cores.
+//
+// Design.
+// - Polyphase planes. With hr[j] = h[K-1-j] and j = q*decim + p,
+//     v[m] = sum_p sum_q hr[q*decim + p] * plane_p[m + q],
+//     plane_p[n] = xc[n*decim + p],
+//   so each of the P = min(decim, K) phases is a decim-1 FIR of
+//   Q_p = ceil((K-p)/decim) taps over its plane. Phases p >= K carry no taps
+//   and are never read. A block stages its tile's planes (n outputs need
+//   n + Q - 1 samples of each) and the reversed taps in shared memory: the
+//   staged bytes scale with min(decim, K), not with decim.
+// - Staging. When the stage holds every phase, its samples are one contiguous
+//   run of xc, read with 16-byte loads (eight in flight per thread for f32
+//   samples, four for c64) and scattered to the planes; otherwise (decim > K,
+//   or planes split over stages) one sample per (plane, row).
+// - Register blocking. Each thread owns kR consecutive outputs. It keeps a
+//   ring of kR samples of the plane in registers: per tap it loads one sample
+//   from shared memory and does kR MACs from registers, where a direct form
+//   loads one sample per MAC. kR is odd, so the 32 lanes' loads, kR words
+//   apart, fall on 32 different banks (for float2, 16 different bank pairs
+//   per half-warp). The taps are a warp-uniform broadcast: complex ones one
+//   load per tap, real ones eight slots per two 16-byte loads.
+// - Every shape. Taps or planes that do not fit the shared-memory budget are
+//   staged in chunks, the accumulators staying in registers; the tile shrinks
+//   first (32 threads at least). Tiles of every channel are flattened into
+//   grid x and walked by a grid-stride loop, so any channel count runs.
+// - Overlap of staging with the MACs comes from several resident blocks per
+//   SM (48 KB of shared memory a block at most).
+// - At decim 1 there is one plane holding every tap in order, so each output
+//   is one FMA chain over k = K-1 .. 0: the order of a direct-form loop.
 
 #pragma once
 
@@ -15,9 +48,11 @@
 
 namespace gr4fir {
 
-constexpr int kFirThreads = 256;
-constexpr int kFirOutPerThread = 4;
-constexpr size_t kSmemBudget = 48 * 1024;         // keep several blocks per SM
+constexpr int kR = 7;                 // outputs per thread (odd: see above)
+constexpr int kMaxThreads = 256;
+constexpr size_t kBudget = 48 * 1024;  // shared memory per block: several per SM
+constexpr int kSlots = 8;             // tap slots per ring block: kR taps, padded
+static_assert(kR <= kSlots, "a ring block's taps fill one block of slots");
 
 template <typename T> __device__ __forceinline__ T zero();
 template <> __device__ __forceinline__ float zero<float>() { return 0.f; }
@@ -48,43 +83,255 @@ __host__ __device__ __forceinline__ size_t align16(size_t n) {
   return (n + 15) & ~size_t(15);
 }
 
-// Outputs j < n of the staged windows: sum_i s_h[i] * s_x[j*stride + i],
-// handed to store(j, value). Output j's K-sample window starts at j*stride
-// (the decimation, or the window length when windows are staged apart).
-// Expects blockDim.x == kFirThreads.
-template <typename X, typename H, typename Y, typename Store>
-__device__ __forceinline__ void fir_direct(const X* s_x, const H* s_h, int K,
-                                           int stride, int n, Store store) {
-  for (int base = 0; base < n; base += kFirThreads * kFirOutPerThread) {
-    Y acc[kFirOutPerThread];
-    const X* px[kFirOutPerThread];
+struct Plan {
+  int64_t T, M, channels, tiles;      // tiles per channel
+  int K, decim;
+  int P, Q;                           // phase planes, most taps of one plane
+  int pc, qc;                         // planes and taps per stage
+  int n;                              // outputs per tile: blockDim.x * kR
+  int ls;                             // staged samples per plane: n + qc - 1
+  int hs;                             // tap slots per plane: kSlots per kR taps
+};
+
+// floor(e / d) for e * d < 2^32 with m = magic(d): a staged index e < 2^16
+// (shared memory) by d < 2^16 (the planes of one stage)
+__host__ __device__ __forceinline__ unsigned magic(int d) {
+  return d <= 1 ? 0u : unsigned(((uint64_t(1) << 32) + uint64_t(d) - 1) / uint64_t(d));
+}
+__device__ __forceinline__ int div_magic(int e, int d, unsigned m) {
+  return d == 1 ? e : int(__umulhi(unsigned(e), m));
+}
+
+// Sample u of a 16-byte load (u is a compile-time constant after unrolling).
+template <typename X> __device__ __forceinline__ X lane(const float4& v, int u);
+template <> __device__ __forceinline__ float lane<float>(const float4& v, int u) {
+  return u == 0 ? v.x : u == 1 ? v.y : u == 2 ? v.z : v.w;
+}
+template <> __device__ __forceinline__ float2 lane<float2>(const float4& v, int u) {
+  return u == 0 ? make_float2(v.x, v.y) : make_float2(v.z, v.w);
+}
+
+// One ring block's taps. Complex taps are read one at a time (a broadcast
+// load each), which keeps the complex kernels' registers down; real taps
+// come in two 16-byte loads per block, which takes most tap loads off the
+// shared-memory pipe for the real-tap kernels.
+template <typename H> struct BlockTaps {
+  const H* p;
+  __device__ __forceinline__ void load(const H* s) { p = s; }
+  __device__ __forceinline__ H operator[](int u) const { return p[u]; }
+};
+template <> struct BlockTaps<float> {
+  float t[kSlots];
+  __device__ __forceinline__ void load(const float* s) {
 #pragma unroll
-    for (int r = 0; r < kFirOutPerThread; ++r) {
-      acc[r] = zero<Y>();
-      // outputs past n compute on a valid row and are not stored
-      const int o = min(base + int(threadIdx.x) + r * kFirThreads, n - 1);
-      px[r] = s_x + o * stride;
+    for (int i = 0; i < kSlots / 4; ++i) {
+      const float4 q = reinterpret_cast<const float4*>(s)[i];
+      t[4 * i] = q.x; t[4 * i + 1] = q.y; t[4 * i + 2] = q.z; t[4 * i + 3] = q.w;
     }
-    for (int j = 0; j < K; ++j) {
-      const H hj = s_h[j];
+  }
+  __device__ __forceinline__ float operator[](int u) const { return t[u]; }
+};
+
+// acc[r] += sum_{j < qn} h[j] * sx[j + r], r < kR, with tap j in slot
+// (j / kR) * kSlots + j % kR of sh. w[s % kR] holds sx[s]: the window slides
+// through the ring with compile-time indices (u is a constant after
+// unrolling).
+template <typename X, typename H, typename Y>
+__device__ __forceinline__ void plane_fir(Y (&acc)[kR], const X* sx, const H* sh,
+                                          int qn) {
+  X w[kR];
 #pragma unroll
-      for (int r = 0; r < kFirOutPerThread; ++r) mac(acc[r], hj, px[r][j]);
+  for (int s = 0; s < kR - 1; ++s) w[s] = sx[s];
+  int jb = 0;
+  for (; jb + kR <= qn; jb += kR, sh += kSlots) {
+    BlockTaps<H> t;
+    t.load(sh);
+#pragma unroll
+    for (int u = 0; u < kR; ++u) {
+      w[(u + kR - 1) % kR] = sx[jb + u + kR - 1];
+#pragma unroll
+      for (int r = 0; r < kR; ++r) mac(acc[r], t[u], w[(u + r) % kR]);
     }
+  }
+  if (jb < qn) {
+    BlockTaps<H> t;
+    t.load(sh);
 #pragma unroll
-    for (int r = 0; r < kFirOutPerThread; ++r) {
-      const int o = base + int(threadIdx.x) + r * kFirThreads;
-      if (o < n) store(o, acc[r]);
+    for (int u = 0; u < kR - 1; ++u) {
+      if (jb + u < qn) {
+        w[(u + kR - 1) % kR] = sx[jb + u + kR - 1];
+#pragma unroll
+        for (int r = 0; r < kR; ++r) mac(acc[r], t[u], w[(u + r) % kR]);
+      }
     }
   }
 }
 
-// Largest outputs-per-block (a power-of-two fraction of one pass of the
-// block, at least 1) whose shared memory fits the budget.
-template <typename SmemBytes>
-inline int outputs_per_block(SmemBytes smem_bytes) {
-  int opb = kFirThreads * kFirOutPerThread;
-  while (opb > 1 && smem_bytes(opb) > kSmemBudget) opb /= 2;
-  return opb;
+template <typename X>
+__device__ __forceinline__ float4 load16(const X* p) {
+  return __ldg(reinterpret_cast<const float4*>(p));
+}
+
+// The tile loop of one block. It is set up once per block, before the
+// block's loop over tiles, so that what stays fixed over the tiles is
+// computed once, as a kernel's own locals would be (per tile, the division in
+// magic() is not hoisted: it sits behind a branch). s_h holds the tap slots,
+// s_x the planes, which the caller's epilogue may reuse once the last stage
+// is read.
+// X: stream sample (float | float2), H: tap (float | float2).
+template <typename X, typename H>
+struct TileLoop {
+  const Plan& pl;
+  const H* __restrict__ taps;
+  H* s_h;
+  X* s_x;
+  int tid, nt, K, decim, ls, hs;
+  unsigned dmul;
+
+  __device__ __forceinline__ TileLoop(unsigned char* smem, const Plan& plan,
+                                      const H* __restrict__ h)
+      : pl(plan), taps(h), s_h(reinterpret_cast<H*>(smem)),
+        s_x(reinterpret_cast<X*>(smem + align16(size_t(plan.pc) * plan.hs * sizeof(H)))),
+        tid(threadIdx.x), nt(blockDim.x), K(plan.K), decim(plan.decim), ls(plan.ls),
+        hs(plan.hs), dmul(magic(plan.decim)) {}
+
+  // One tile: acc[r] = v[m0 + tid*kR + r] of one channel, whose stream is
+  // hrow[0 .. K-1) then xrow[0 .. T) (zero past its end). Every thread of the
+  // block takes part; it starts with __syncthreads(), so the block's previous
+  // readers of s_h and s_x are done, and ends with the last stage's planes
+  // still being read (sync before reusing s_x).
+  // Y: output (float2 when either is complex, else float).
+  template <typename Y>
+  __device__ __forceinline__ void run(Y (&acc)[kR], const X* xrow, const X* hrow,
+                                      int64_t m0) const {
+    constexpr int kEpv = 16 / sizeof(X);          // samples per 16-byte load
+    constexpr int kBatch = 32 / sizeof(X);        // 16-byte loads in flight per thread
+    auto at = [&](int64_t g) {
+      if (g < K - 1) return hrow[g];
+      const int64_t t = g - (K - 1);
+      return t < pl.T ? xrow[t] : zero<X>();
+    };
+
+#pragma unroll
+    for (int r = 0; r < kR; ++r) acc[r] = zero<Y>();
+
+    for (int p0 = 0; p0 < pl.P; p0 += pl.pc) {
+      const int np = pl.P - p0 < pl.pc ? pl.P - p0 : pl.pc;
+      for (int q0 = 0; q0 < pl.Q; q0 += pl.qc) {
+        __syncthreads();    // the last stage's (or tile's) readers are done
+        // plane pi's tap q = hr[(q0+q)*decim + p0 + pi] in slot
+        // pi*hs + (q / kR)*kSlots + q % kR; zero past the taps
+        for (int e = tid; e < np * hs; e += nt) {
+          const int pi = e / hs, slot = e - pi * hs;
+          const int u = slot % kSlots, q = slot / kSlots * kR + u;
+          const int64_t j = int64_t(q0 + q) * decim + p0 + pi;
+          s_h[e] = (u < kR && q < pl.qc && j < K) ? taps[K - 1 - j] : zero<H>();
+        }
+        // s_x[pi*ls + i] = xc[(m0 + q0 + i)*decim + p0 + pi], i < ls
+        const int64_t g0 = (m0 + q0) * decim + p0;
+        if (np == decim) {
+          // every phase: one contiguous run of ls*decim samples from g0
+          const int cnt = ls * decim;
+          auto put = [&](int e, X v) {
+            const int i = div_magic(e, decim, dmul);
+            s_x[(e - i * decim) * ls + i] = v;
+          };
+          const int nh = int(K - 1 - g0 < 0 ? 0 : (K - 1 - g0 < cnt ? K - 1 - g0 : cnt));
+          for (int e = tid; e < nh; e += nt) put(e, hrow[g0 + e]);
+          // x[t] for t in [t_lo, t_hi): 16-byte loads where x has samples
+          const int64_t t_lo = g0 + nh - (K - 1), t_hi = g0 + cnt - (K - 1);
+          const int64_t t_end = t_hi < pl.T ? t_hi : pl.T;
+          if (t_lo < t_end) {
+            const int a = int((reinterpret_cast<uintptr_t>(xrow) / sizeof(X)) % kEpv);
+            const X* base = xrow - a;                  // 16-byte aligned
+            const int64_t k_lo = (t_lo + a) / kEpv, k_hi = (t_end - 1 + a) / kEpv;
+            for (int64_t k = k_lo + tid; k <= k_hi; k += int64_t(kBatch) * nt) {
+              float4 v[kBatch];
+#pragma unroll
+              for (int b = 0; b < kBatch; ++b)
+                if (k + b * nt <= k_hi) v[b] = load16(base + (k + b * nt) * kEpv);
+#pragma unroll
+              for (int b = 0; b < kBatch; ++b) {
+                if (k + b * nt > k_hi) break;
+#pragma unroll
+                for (int u = 0; u < kEpv; ++u) {
+                  const int64_t t = (k + b * nt) * kEpv + u - a;
+                  if (t >= t_lo && t < t_end) put(int(t + (K - 1) - g0), lane<X>(v[b], u));
+                }
+              }
+            }
+          }
+          const int e_zero = int((t_end > t_lo ? t_end : t_lo) + (K - 1) - g0);
+          for (int e = e_zero + tid; e < cnt; e += nt) put(e, zero<X>());
+        } else {
+          // some phases: one sample per (row i, plane pi), planes innermost
+          const unsigned pmul = magic(np);
+          for (int e = tid; e < np * ls; e += nt) {
+            const int i = div_magic(e, np, pmul), pi = e - i * np;
+            s_x[pi * ls + i] = at(g0 + int64_t(i) * decim + pi);
+          }
+        }
+        __syncthreads();
+        for (int pi = 0; pi < np; ++pi) {
+          const int qp = (K - (p0 + pi) + decim - 1) / decim;   // taps of the plane
+          const int qn = qp - q0 < pl.qc ? qp - q0 : pl.qc;
+          if (qn > 0) plane_fir(acc, s_x + pi * ls + tid * kR, s_h + pi * hs, qn);
+        }
+      }
+    }
+  }
+};
+
+template <typename X, typename H, typename Y>
+size_t smem_bytes(int nt, int pc, int qc) {
+  const size_t n = size_t(nt) * kR;
+  const size_t planes = size_t(pc) * (n + qc - 1) * sizeof(X);
+  const size_t outs = n * sizeof(Y);
+  const size_t slots = size_t(pc) * ((qc + kR - 1) / kR) * kSlots;
+  return align16(slots * sizeof(H)) + (planes > outs ? planes : outs);
+}
+
+// A tile loop's launch: its plan, block size, shared memory (at most kBudget,
+// so no opt-in above 48 KB is needed) and grid.
+struct Launch {
+  Plan pl;
+  int threads;
+  size_t smem;
+  unsigned grid;
+};
+
+// The launch of a TileLoop over `channels` rows of T samples, M = T / decim > 0
+// outputs each; consecutive tiles of a row start `overlap` outputs before the
+// previous tile's end (so pl.tiles = ceil(M / (n - overlap))).
+template <typename X, typename H, typename Y>
+Launch plan(int64_t channels, int64_t T, int K, int decim, int overlap) {
+  Plan pl = {};
+  pl.T = T; pl.M = T / decim; pl.channels = channels; pl.K = K; pl.decim = decim;
+  pl.P = decim < K ? decim : K;
+  pl.Q = (K + decim - 1) / decim;
+  auto bytes = [&](int nt, int pc, int qc) { return smem_bytes<X, H, Y>(nt, pc, qc); };
+  // tile: no more threads than outputs need, a power of two in [32, 256]
+  int nt_max = 32;
+  while (nt_max < kMaxThreads && int64_t(nt_max) * kR - overlap < pl.M) nt_max *= 2;
+  // whole planes and taps in one stage, shrinking the tile; else chunk the
+  // taps at the largest tile; else one tap per plane and chunk the planes
+  int nt = nt_max, pc = pl.P, qc = pl.Q;
+  while (nt > 32 && bytes(nt, pc, qc) > kBudget) nt /= 2;
+  if (bytes(nt, pc, qc) > kBudget) {
+    nt = nt_max;
+    while (qc > 1 && bytes(nt, pc, qc) > kBudget) qc = (qc + 1) / 2;
+    if (bytes(nt, pc, qc) > kBudget) {
+      nt = 32;
+      while (pc > 1 && bytes(nt, pc, qc) > kBudget) pc = (pc + 1) / 2;
+    }
+  }
+  pl.pc = pc; pl.qc = qc; pl.n = nt * kR; pl.ls = pl.n + qc - 1;
+  pl.hs = (qc + kR - 1) / kR * kSlots;
+  const int step = pl.n - overlap;
+  pl.tiles = (pl.M + step - 1) / step;
+  const int64_t n_tiles = channels * pl.tiles;
+  return {pl, nt, bytes(nt, pc, qc),
+          unsigned(n_tiles < 0x7fffffff ? n_tiles : 0x7fffffff)};
 }
 
 }  // namespace gr4fir

@@ -52,7 +52,8 @@ _ANGLE = float(np.float32(2.0 * np.pi)) / 4294967296.0   # f32(2π)·2^-32
 class KernelLibrary:
     """The loaded kernel library: its path, build seconds (0 when the library
     was already built for these sources) and the compiler's report
-    (``-Xptxas -v``: registers, shared memory and spills per kernel)."""
+    (``-Xptxas -v``: registers, shared memory and spills per kernel; kept
+    beside the library as ``.log``)."""
 
     lib: ctypes.CDLL
     path: Path
@@ -110,6 +111,7 @@ def _compile(so: Path) -> str:
     if proc.returncode != 0:
         raise GrError(f"linking the kernels failed with exit code "
                       f"{proc.returncode}:\n{log}")
+    so.with_suffix(".log").write_text(log)
     os.replace(tmp, so)
     return log
 
@@ -122,7 +124,11 @@ def build() -> KernelLibrary:
             return _library
         so = BUILD_DIR / f"libgr4kernels_{_source_hash()}.so"
         t0 = time.perf_counter()
-        log = "" if so.exists() else _compile(so)
+        if so.exists():
+            report = so.with_suffix(".log")
+            log = report.read_text() if report.exists() else ""
+        else:
+            log = _compile(so)
         lib = ctypes.CDLL(str(so))
         lib.gr4_fir_banded.argtypes = [ctypes.c_void_p] * 4 + [
             ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_int,

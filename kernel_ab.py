@@ -7,16 +7,22 @@ on one card, in one process.
 
 The first form builds this tree's kernels (``cuda_kernels.build``) and
 ``OTHER_ROOT/gnuradio4_tpu_torch/csrc/*.cu`` with the same ``nvcc`` flags (into
-``OTHER_ROOT/gnuradio4_tpu_torch/_build/``), loads both through their plain C
-interfaces and, on the same inputs, times ``fir_banded`` at ``chip_smoke.py``'s
-timed shapes, ``fir_demod`` at its two and ``iir_sos`` at Path B's (C 16, T
-2^20), one channel of it and a short stream (C 16, T 4096), in turns (other,
-this, this, other) with ``chip_smoke.cuda_ms``. It checks ``fir_banded``
-against the plain version, ``fir_demod`` bitwise against the other's and
-``iir_sos`` (whose chunked scan rounds differently from the parent's serial
-loop) against scipy's float64 ``sosfilt``, prints one JSON line per shape,
-and exits non-zero if either disagrees. OTHER's ``gr4_iir_sos`` may have
-either C interface: the serial kernel's or the chunked scan's.
+``OTHER_ROOT/gnuradio4_tpu_torch/_build/``), prints both builds' ``-Xptxas
+-v`` registers per kernel, loads both through their plain C interfaces and,
+on the same inputs, times ``fir_banded`` at ``chip_smoke.py``'s timed shapes,
+``fir_demod`` at its three (c64 x f32 and c64 x c64 taps at decim 1, c64 x
+f32 at decim 4) and ``iir_sos`` at Path B's (C 16, T 2^20), one channel of it
+and a short stream (C 16, T 4096), in turns (other, this, this, other) with
+``chip_smoke.cuda_ms``, each row with its bound and the share of it reached.
+It checks ``fir_banded`` bitwise against the other's and against the plain
+version; ``fir_demod`` bitwise against the other's at decim 1 (one plane: the
+taps summed in the same order as the direct-form loop it replaced) and, at
+every shape, against ``fir_demod_ref`` within ``DEMOD_ATOL``·gain with the
+differences wrapped into (−π, π]; ``iir_sos`` (whose chunked scan rounds
+differently from the parent's serial loop) against scipy's float64
+``sosfilt``. It prints one JSON line per shape and exits non-zero if any
+check fails. OTHER's ``gr4_iir_sos`` may have either C interface: the serial
+kernel's or the chunked scan's.
 
 The second form imports ``chip_smoke`` and the package from ROOT (default: this
 tree) and prints, for one step of the headline chain (2^23, rotation
@@ -30,6 +36,8 @@ from __future__ import annotations
 
 import ctypes
 import json
+import math
+import re
 import statistics
 import subprocess
 import sys
@@ -66,8 +74,23 @@ def steps(root: Path) -> None:
                           "top": [[round(t, 4), k[:60]] for t, k in top[:4]]}))
 
 
-def build_other(other: Path, ck) -> ctypes.CDLL:
-    """OTHER's csrc/*.cu compiled with this tree's flags, one nvcc per source."""
+def registers(log: str) -> dict[str, int]:
+    """Registers per kernel from an ``nvcc -Xptxas -v`` log (mangled names)."""
+    regs, entry = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            entry = m.group(1)
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry:
+            regs[entry] = int(m.group(1))
+            entry = None
+    return regs
+
+
+def build_other(other: Path, ck) -> tuple[ctypes.CDLL, str]:
+    """OTHER's csrc/*.cu compiled with this tree's flags, one nvcc per source;
+    the library and the compilers' output."""
     out = other / "gnuradio4_tpu_torch" / "_build"
     out.mkdir(parents=True, exist_ok=True)
     nvcc = ck._nvcc()
@@ -76,10 +99,12 @@ def build_other(other: Path, ck) -> ctypes.CDLL:
     procs = [subprocess.Popen([nvcc, *ck.NVCC_FLAGS, "-c", "-o", str(o), str(s)],
                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
              for s, o in zip(srcs, objs)]
+    logs = ""
     for p in procs:
         log, _ = p.communicate()
         if p.returncode:
             raise SystemExit(f"nvcc failed for {other}:\n{log}")
+        logs += log
     so = out / "libab_other.so"
     r = subprocess.run([nvcc, *ck.NVCC_FLAGS[:2], "-shared", "-o", str(so),
                         *map(str, objs)], capture_output=True, text=True)
@@ -97,7 +122,7 @@ def build_other(other: Path, ck) -> ctypes.CDLL:
     else:                                   # the serial kernel's interface
         lib.gr4_iir_sos.argtypes = [ctypes.c_void_p] * 5 + [
             ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_void_p]
-    return lib
+    return lib, logs
 
 
 def kernels(other: Path) -> int:
@@ -117,7 +142,10 @@ def kernels(other: Path) -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True)
     card = smi.stdout.strip().splitlines()[0]
-    this, that = ck.build().lib, build_other(other, ck)
+    built = ck.build()
+    this, (that, that_log) = built.lib, build_other(other, ck)
+    for name, log in (("this", built.log), ("other", that_log)):
+        print(json.dumps({"registers": name, "kernels": registers(log), "card": card}))
     stream = lambda: torch.cuda.current_stream().cuda_stream
     gen = torch.Generator(device=dev).manual_seed(cs.SEED)
     bad = 0
@@ -155,41 +183,58 @@ def kernels(other: Path) -> int:
         call(that, "that")
         torch.cuda.synchronize()
         err = {name: float((y - ref).abs().max()) for name, y in ys.items()}
+        same = torch.equal(ys["this"], ys["that"])
         ms, other_ms = in_turns(lambda: call(that, "that"), lambda: call(this, "this"))
         b_ms, b_by = cs.bound_ms(*cs.fir_work((n,), x.is_complex(), h.is_complex(), k, decim))
-        bad += max(err.values()) > cs.FIR_ATOL
+        bad += max(err.values()) > cs.FIR_ATOL or not same
         print(json.dumps({"kernel": "fir_banded", "case": label, "ms": ms,
                           "other_ms": other_ms, "bound_ms": b_ms, "bound_by": b_by,
                           "share_of_bound": b_ms / ms, "other_share": b_ms / other_ms,
                           "max_abs_err": err["this"], "other_max_abs_err": err["that"],
-                          "card": card}))
+                          "bitwise_equal": same, "card": card}))
         del x, hist, ref, ys
 
     chan = fd.design_fir("lowpass", 127, sample_rate=cs.QUAD_RATE, f_low=80e3
                          ).astype(np.float32)
     gain = cs.WBFM_GAIN
-    for label, taps, n in (("c64 x f32 taps K=127 T=2^22", chan, cs.WBFM_BLOCK_LEN),
-                           ("c64 x c64 taps K=127 T=2^23",
-                            freq_xlating_taps(chan, 60e3, cs.QUAD_RATE), 1 << 23)):
+    tol_d = cs.DEMOD_ATOL * gain
+
+    def wrapped(a, b) -> float:
+        d = (a - b) / gain
+        return float(torch.remainder(d + math.pi, 2 * math.pi).sub(math.pi).abs().max()) * gain
+
+    for label, taps, decim, n in (
+            ("c64 x f32 taps K=127 decim 1 T=2^22 (Path A)", chan, 1, cs.WBFM_BLOCK_LEN),
+            ("c64 x c64 taps K=127 decim 1 T=2^23",
+             freq_xlating_taps(chan, 60e3, cs.QUAD_RATE), 1, 1 << 23),
+            ("c64 x f32 taps K=127 decim 4 T=2^22", chan, 4, 1 << 22)):
         k = len(taps)
         xc = torch.polar(torch.ones(n + k - 1, device=dev),
                          torch.randn(n + k - 1, device=dev, generator=gen).cumsum(0) * 0.1)
         prev = torch.ones((), dtype=torch.complex64, device=dev)
         h = torch.from_numpy(np.ascontiguousarray(taps)).to(dev)
-        ys = {name: torch.empty(n, device=dev) for name in ("this", "that")}
+        ys = {name: torch.empty(n // decim, device=dev) for name in ("this", "that")}
 
         def call(lib, name):
             assert lib.gr4_fir_demod(xc.data_ptr(), h.data_ptr(), prev.data_ptr(),
-                                     ys[name].data_ptr(), 1, n, k, 1,
+                                     ys[name].data_ptr(), 1, n, k, decim,
                                      int(h.is_complex()), float(gain), stream()) == 0
         call(this, "this")
         call(that, "that")
+        ref = ck.fir_demod_ref(xc, h, decim, prev, gain)
         torch.cuda.synchronize()
         same = torch.equal(ys["this"], ys["that"])
+        err = {name: wrapped(y, ref) for name, y in ys.items()}
         ms, other_ms = in_turns(lambda: call(that, "that"), lambda: call(this, "this"))
-        bad += not same
+        b_ms, b_by = cs.bound_ms(*cs.demod_work((n,), h.is_complex(), k, decim))
+        # decim 1: one plane, the taps in the direct form's order
+        bad += (decim == 1 and not same) or max(err.values()) > tol_d
         print(json.dumps({"kernel": "fir_demod", "case": label, "ms": ms,
-                          "other_ms": other_ms, "bitwise_equal": same, "card": card}))
+                          "other_ms": other_ms, "bound_ms": b_ms, "bound_by": b_by,
+                          "share_of_bound": b_ms / ms, "other_share": b_ms / other_ms,
+                          "bitwise_equal": same, "wrapped_err": err["this"],
+                          "other_wrapped_err": err["that"], "tol": tol_d, "card": card}))
+        del xc, ys, ref
 
     from scipy import signal
     sos = cs.iir_design(5).sos

@@ -57,6 +57,9 @@ def _taps(kind: str) -> np.ndarray:
     if kind == "real63":
         return fd.design_fir("lowpass", 63, sample_rate=fs, f_low=1e6
                              ).astype(np.float32)
+    if kind == "audio127":
+        return fd.design_fir("lowpass", 127, sample_rate=250e3, f_low=15e3
+                             ).astype(np.float32)
     if kind == "xlating7":
         return np.ascontiguousarray(_taps("xlating127")[60:67])
     if kind == "random16384":
@@ -96,6 +99,29 @@ def test_fir_banded_matches_plain(cuda, x_dt, taps, decim, shape):
     assert y.dtype == y_ref.dtype
     if y.numel():
         assert float((y - y_ref).abs().max()) <= FIR_ATOL
+
+
+@pytest.mark.parametrize("x_dt,taps,decim,n", [
+    (torch.complex64, "xlating127", 1, 1 << 23),   # the chain, absorbed
+    (torch.complex64, "real127", 1, 1 << 23),      # the chain, derotated
+    (torch.float32, "real63", 8, 1 << 23),         # the chain's audio FIR
+    (torch.float32, "audio127", 5, 4194305)])      # Path A's audio FIR
+def test_fir_banded_chain_shapes_on_the_shared_loop(cuda, x_dt, taps, decim, n):
+    """fir_banded at the chain's and Path A's shapes, on the tile loop it
+    shares with fir_demod (fir_common.cuh): one launch each, against the
+    plain version."""
+    g = torch.Generator(device=cuda).manual_seed(19)
+    h = _taps(taps)
+    k = len(h)
+    x = torch.randn(n, dtype=x_dt, device=cuda, generator=g)
+    hist = torch.randn(k - 1, dtype=x_dt, device=cuda, generator=g)
+    before = ck.fir_banded.launches
+    y = ck.fir_banded(x, hist, h, decim)
+    y_ref = ck.fir_banded_ref(x, hist, h, decim)
+    torch.cuda.synchronize()
+    assert ck.fir_banded.launches == before + 1
+    assert y.shape == y_ref.shape == (n // decim,)
+    assert float((y - y_ref).abs().max()) <= FIR_ATOL
 
 
 def test_fir_apply_state_carry_on_card(cuda):
@@ -276,12 +302,28 @@ def _wrapped_err(a, b, gain):
     return float(torch.remainder(d + torch.pi, 2 * torch.pi).sub(torch.pi).abs().max()) * gain
 
 
+# fir_demod's demod outputs per tile at 256 threads (K 127 at decim 1 and 3):
+# 7 FIR outputs a thread, one of them recomputed from the previous tile
+DEMOD_TILE = 256 * 7 - 1
+
+
 @pytest.mark.parametrize("taps,decim,shape", [
     ("real127", 1, (1 << 20,)), ("xlating127", 1, (1 << 20,)),
     ("real63", 2, (100003,)), ("xlating127", 1, (4, 65536 + 13)),
     ("one", 1, (1000,)), ("real63", 3, (40,)),
     ("real63", 1024, (1 << 20,)), ("xlating127", 2048, (1 << 20,)),
-    ("xlating7", 1, (65539, 64))])
+    ("xlating7", 1, (65539, 64)),
+    # tile edges: M = 2·tile − 1, 2·tile, 2·tile + 1
+    ("real127", 1, (2 * DEMOD_TILE - 1,)), ("real127", 1, (2 * DEMOD_TILE,)),
+    ("real127", 1, (2 * DEMOD_TILE + 1,)),
+    ("real127", 3, (3 * (2 * DEMOD_TILE - 1),)), ("real127", 3, (3 * 2 * DEMOD_TILE,)),
+    ("real127", 3, (3 * (2 * DEMOD_TILE + 1) + 2,)),
+    # the polyphase path: decim 4 and 8, real and complex taps
+    ("real127", 4, (1 << 20,)), ("xlating127", 4, (1 << 20,)),
+    ("real127", 8, (1 << 20,)), ("xlating127", 8, (3, 100007)),
+    # M = 1; T shorter than one tile; decim > K with the planes in chunks
+    ("real127", 1, (1,)), ("xlating127", 4, (7,)), ("real127", 1, (500,)),
+    ("xlating127", 200, (50000,))])
 def test_fir_demod_matches_plain(cuda, taps, decim, shape):
     g = torch.Generator(device=cuda).manual_seed(12)
     h = _taps(taps)

@@ -301,15 +301,21 @@ def test_quadrature_demod_matches_jax(rng, rot, shape):
 DEMOD_ATOL = 2e-3
 
 
-@pytest.mark.parametrize("k,decim,t", [(127, 1, 1 << 15), (64, 2, 1 << 15),
-                                       (127, 1, 12345 + 126)])
-def test_fir_quad_demod_fused_matches_jax(k, decim, t):
+@pytest.mark.parametrize("k,decim,t,xlating", [
+    (127, 1, 1 << 15, False), (64, 2, 1 << 15, False), (127, 1, 12345 + 126, False),
+    # the CUDA kernel's polyphase path: decim 4 (the JAX package composes FIR
+    # and demod there), decim 3 with heterodyned taps (its Pallas kernel in
+    # interpret mode), and a tail that leaves T % decim samples unused
+    (127, 4, 1 << 15, False), (127, 3, 3 * 4096, True), (127, 4, 12347, False)])
+def test_fir_quad_demod_fused_matches_jax(k, decim, t, xlating):
     """tests/test_pallas_kernels.py:110-128 (seed, taps, gain 1.5, carried
     prev) through both packages' fir_quad_demod_fused; the port's CPU path is
     fir_demod_ref."""
     from gnuradio4_tpu_torch.ops.fir import fir_quad_demod_fused
     rng = np.random.default_rng(0)
     taps = (rng.standard_normal(k) / 8).astype(np.float32)
+    if xlating:
+        taps = jfir.freq_xlating_taps(taps, 0.15, 1.0)
     x = (rng.standard_normal(t + k - 1)
          + 1j * rng.standard_normal(t + k - 1)).astype(np.complex64)
     prev = np.complex64(0.3 + 0.1j)
