@@ -88,6 +88,20 @@ result line:
     ``auto`` on CUDA in ``blocks/fourier.py``), and the FFT's
     ``matmul_exact`` at 4096.
 
+21. the YAML entry point (``core/yaml_io``, the port's own YAML reader: the
+    script makes PyYAML unimportable before it imports the port): (a) the
+    chain through ``load_grc(save_grc(...))`` at 2^23, absorbed and
+    derotated, bitwise equal to phases 4 and 5 with their launches, and
+    timed; (b) ``python -m gnuradio4_tpu_torch run`` on
+    ``examples/fm_receiver.yaml`` as written (16 steps of 24000) and at
+    ``--block-len 5242880 --steps 4``, and ``blocks``; (c) ``run_grc`` of
+    that flow on a loopback FM station (1 kHz at 100 MHz) at 5242880: the
+    audio's strongest bin at 1 kHz, ``fir_banded`` counted, the card against
+    the CPU at 24000; (d) ``examples/channelizer.yaml`` with a
+    ``StreamingPoller``, card against CPU; (e) a checkpoint of the chain at
+    2^23 after 2 steps, resumed on the card, bitwise equal to steps 3–4;
+    (f) ``GraphGRC`` Get and Set (suite config 1) on a running scheduler.
+
 Phases 13–17 each print the card against the CPU on a short run of the same
 graph, Msps (coded Mbit/s for 7 and 7k), ms per step by CUDA events over 5
 windows, host ms per step, the device-busy share of one profiled step, peak
@@ -104,10 +118,18 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
+
+# a hidden PyYAML dependency fails here as on a machine without PyYAML: the
+# port reads and writes YAML itself
+sys.modules["yaml"] = None
+
+ROOT = Path(__file__).resolve().parent
 
 FS = 20e6
 BLOCK_LEN = 1 << 23
@@ -183,6 +205,13 @@ SUITE_RTOL = 1e-4
 ROTATOR_BLOCK_LEN = 1 << 20
 ROTATOR_STEPS = 4
 IFFT_SIZES = (1024, 4096, 16384)
+# phase 21: examples/fm_receiver.yaml's rates, and its full-size block
+FM_FS = 240e3
+FM_DEV = 37.5e3
+FM_BLOCK_LEN = 5242880
+# examples/channelizer.yaml, card against CPU: dB of the channel's power
+# after f32 PFB sums, two FFT implementations and two erfinvs
+CHAN_DB_ATOL = 1e-3
 KERNELS = {
     "fir_banded": {
         "source": "gnuradio4_tpu_torch/csrc/fir_banded.cu",
@@ -1144,6 +1173,242 @@ def suite_phases(dev, gen, results: dict) -> list[dict]:
     return paths
 
 
+def fm_station_waveform(fs: float = FM_FS, seconds: float = 1.0):
+    """One second of an FM station's baseband: a 1 kHz tone at 37.5 kHz peak
+    deviation (whole cycles, so the loopback's repeat is continuous)."""
+    import numpy as np
+    t = np.arange(int(fs * seconds)) / fs
+    return np.exp(1j * 2 * np.pi * FM_DEV * np.cumsum(np.sin(2 * np.pi * 1e3 * t)) / fs)
+
+
+def fm_flow(driver: str, sink: str, wav_path: str = "") -> str:
+    """examples/fm_receiver.yaml on ``driver``, ending in ``sink``: 'wav' (its
+    WavSink writing ``wav_path``) or 'vector' (a VectorSink named wav)."""
+    text = (ROOT / "examples" / "fm_receiver.yaml").read_text().replace(
+        "driver: loopback", f"driver: {driver}")
+    if sink == "wav":
+        return text.replace("/tmp/fm_audio.wav", wav_path)
+    head, _, _ = text.partition("  - name: wav\n")
+    return head + "  - name: wav\n    id: VectorSink\n" + text.partition(
+        "connections:")[1] + text.partition("connections:")[2]
+
+
+def wav_frames(path) -> int:
+    import wave
+    with wave.open(str(path)) as w:
+        return w.getnframes()
+
+
+def yaml_phases(dev, card: str, phase45, paths: list) -> None:
+    """Phase 21: the YAML entry point on the card."""
+    import tempfile
+    import numpy as np
+    import torch
+    import gnuradio4_tpu_torch as gt
+    from gnuradio4_tpu_torch.blocks.sdr import LoopbackDevice, register_sdr_driver
+    from gnuradio4_tpu_torch.ops import cuda_kernels as ck
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_yaml_"))
+    try:
+        # (a) the chain through save_grc → load_grc, absorbed and derotated
+        g, _, _, _ = build_chain("vector")
+        text = gt.save_grc(g, sample_rate=FS, block_len=BLOCK_LEN)
+        print(f"[21a yaml chain] load_grc(save_grc(chain)) ({len(text)} bytes of "
+              f"YAML) at block_len 2^23, {STEPS} steps, absorbed then derotated")
+        for absorb, ref, label in ((True, phase45[0], "absorbed"),
+                                   (False, phase45[1], "derotated")):
+            if absorb:
+                os.environ.pop("GR4TPU_NO_ROTATION_ABSORB", None)
+            else:
+                os.environ["GR4TPU_NO_ROTATION_ABSORB"] = "1"
+            try:
+                gy = gt.load_grc(text)
+                sched = gt.Scheduler(gy, block_len=BLOCK_LEN, sample_rate=FS,
+                                     device=dev)
+                ck.reset_launch_counts()
+                sched.run_and_wait(STEPS)
+                torch.cuda.synchronize()
+                counts = ck.launch_counts()
+            finally:
+                os.environ.pop("GR4TPU_NO_ROTATION_ABSORB", None)
+            sinks = {b.name: b.data() for b in gy.blocks if b.name in ("spec", "audio")}
+            want = {"fir_banded": 2 * STEPS, "nco_mix": 0 if absorb else STEPS}
+            print(f"  {label}: launches {counts}")
+            check(all(counts[k] == v for k, v in want.items()),
+                  f"yaml chain {label}: launches {counts}, expected {want}")
+            same = (np.array_equal(sinks["spec"], ref[0])
+                    and np.array_equal(sinks["audio"], ref[1]))
+            print(f"  {label}: sinks bitwise equal to phase {4 if absorb else 5}: {same}")
+            check(same, f"yaml chain {label}: sinks differ from phase {4 if absorb else 5}")
+        # timed in turns with the chain built in Python (built, yaml, yaml,
+        # built): the step is host-bound and windows drift across a run
+        def chain_ms(from_yaml: bool):
+            gc = build_chain("null")[0]
+            if from_yaml:
+                gc = gt.load_grc(gt.save_grc(gc, sample_rate=FS, block_len=BLOCK_LEN))
+            sc = gt.Scheduler(gc, block_len=BLOCK_LEN, sample_rate=FS, device=dev)
+            for _ in range(3):
+                sc.step_once()
+            torch.cuda.synchronize()
+            return events_ms_per_step(sc.step_once, 20)
+
+        turns = {False: [], True: []}
+        for from_yaml in (False, True, True, False):
+            turns[from_yaml].append(chain_ms(from_yaml))
+        for from_yaml, label in ((True, "yaml chain"), (False, "built chain")):
+            ms = statistics.median(m for m, _ in turns[from_yaml])
+            msps = BLOCK_LEN / (ms * 1e-3) / 1e6
+            print(f"  {label}: {msps:.2f} Msps, {ms:.4f} ms/step (median of 2 runs "
+                  f"× 5 windows of 20 steps, in turns, CUDA events; (events ms, "
+                  f"wall ms) {[fmt_windows(w) for _, w in turns[from_yaml]]}) on {card}")
+            if from_yaml:
+                paths.append({"name": "chain from YAML", "msps": msps,
+                              "ms_per_step": ms})
+
+        # (b) the CLI as users run it
+        print("[21b cli] python -m gnuradio4_tpu_torch run examples/fm_receiver.yaml")
+        listed = subprocess.run([sys.executable, "-m", "gnuradio4_tpu_torch", "blocks"],
+                                capture_output=True, text=True, timeout=300, cwd=ROOT)
+        check(listed.returncode == 0 and listed.stdout.split()
+              == gt.global_registry.known_blocks(),
+              f"`blocks` lists {listed.stdout.split()[:5]}…: {listed.stderr[-500:]}")
+        print(f"  blocks: {len(listed.stdout.split())} types, every registered one")
+        for extra, frames in ((["--steps", "16"], 16 * 24000 // 5),
+                              (["--block-len", str(FM_BLOCK_LEN), "--steps", "4"],
+                               4 * FM_BLOCK_LEN // 5)):
+            wav = tmp / "cli.wav"
+            flow = tmp / "fm_receiver.yaml"
+            flow.write_text(fm_flow("loopback", "wav", str(wav)))
+            t0 = time.perf_counter()
+            r = subprocess.run([sys.executable, "-m", "gnuradio4_tpu_torch", "run",
+                                *extra, str(flow)], capture_output=True, text=True,
+                               timeout=600, cwd=ROOT)
+            wall = time.perf_counter() - t0
+            got = wav_frames(wav) if wav.exists() else -1
+            print(f"  run {' '.join(extra)}: rc {r.returncode}, {got} WAV frames "
+                  f"(expected {frames}), {wall:.1f} s wall; {r.stderr.strip()[-200:]}")
+            check(r.returncode == 0 and got == frames, "the CLI run failed")
+
+        # (c) an FM station from YAML
+        wf = fm_station_waveform()
+        register_sdr_driver("fmstation", lambda: LoopbackDevice(
+            waveform=wf, waveform_freq=100e6))
+        print(f"[21c fm station] run_grc(fm_receiver.yaml) on a loopback FM "
+              f"station (1 kHz tone at 100 MHz) at block_len {FM_BLOCK_LEN}, 4 steps")
+        wav = tmp / "station.wav"
+        ck.reset_launch_counts()
+        sched = gt.run_grc(fm_flow("fmstation", "wav", str(wav)), n_steps=4,
+                           scheduler_kwargs={"block_len": FM_BLOCK_LEN, "device": dev})
+        torch.cuda.synchronize()
+        counts = ck.launch_counts()
+        next(b for b in sched.graph.blocks if b.name == "wav").stop()
+        import wave
+        with wave.open(str(wav)) as w:
+            pcm = np.frombuffer(w.readframes(w.getnframes()), "<i2").astype(np.float64)
+        skip = 48000 // 10
+        spec = np.abs(np.fft.rfft(pcm[skip:]))
+        peak = float(np.fft.rfftfreq(len(pcm) - skip, 1 / 48000)[np.argmax(spec[1:]) + 1])
+        print(f"  launches {counts}; {len(pcm)} audio samples, strongest bin "
+              f"{peak:.2f} Hz")
+        # one launch per step: the audio filter's 65 taps (÷5); the flow's
+        # FreqXlatingFir has `taps: []`, one unit tap, a scale in both packages
+        check(counts["fir_banded"] == 4,
+              f"fm station: fir_banded launched {counts['fir_banded']} times, expected 4")
+        check(abs(peak - 1e3) <= 1.0, f"fm station: audio peak at {peak} Hz")
+        audio = {}
+        for where in ("cpu", dev):
+            s = gt.run_grc(fm_flow("fmstation", "vector"), n_steps=2,
+                           scheduler_kwargs={"device": where})
+            audio[str(where)] = next(b for b in s.graph.blocks if b.name == "wav").data()
+        a, b = audio["cpu"], audio[str(dev)]
+        err = float(np.max(np.abs(a - b)))
+        tol = WBFM_ATOL * max(1.0, float(np.max(np.abs(a))))
+        print(f"  card vs cpu at block_len 24000, 2 steps: audio max|Δ| {err:.3e} "
+              f"(tol {tol:.3e})")
+        check(a.shape == b.shape == (2 * 4800,) and err <= tol,
+              "fm station: card and CPU audio disagree")
+
+        # (d) examples/channelizer.yaml with a StreamingPoller
+        print("[21d channelizer] examples/channelizer.yaml, 8 steps at block_len "
+              "65536, StreamingPoller on channel5_power")
+        src = (ROOT / "examples" / "channelizer.yaml").read_text()
+        runs = {}
+        for where in (dev, "cpu"):
+            gc = gt.load_grc(src)
+            poller = gt.global_data_sink_registry.get_streaming_poller(
+                "channel5_power", max_chunks=64)
+            s = gt.Scheduler(gc, block_len=65536, sample_rate=16e6, device=where)
+            s.run_and_wait(8)
+            uname = {b.name: b.unique_name for b in s.compiled.order}
+            key = s._states[uname["wideband"]]
+            chunks = poller.read_all()
+            runs[str(where)] = (np.concatenate([c.data for c in chunks]),
+                                [c.abs_index for c in chunks], key.cpu().numpy())
+        (dc, ic, kc), (dg, ig, kg) = runs["cpu"], runs[str(dev)]
+        med = float(np.median(dg[2000:]))
+        err = float(np.max(np.abs(dc - dg)))
+        print(f"  card: {len(ig)} chunks, channel-5 power median {med:.2f} dB; "
+              f"threefry keys equal: {np.array_equal(kc, kg)}; card vs cpu max|Δ| "
+              f"{err:.3e} dB (tol {CHAN_DB_ATOL})")
+        check(med > -10.0 and ig == ic and np.array_equal(kc, kg)
+              and err <= CHAN_DB_ATOL, "channelizer.yaml: card and CPU disagree")
+
+        # (e) a checkpoint at full size
+        print(f"[21e checkpoint] the chain at 2^23: 2 steps, save_checkpoint, "
+              f"load_checkpoint on the card, 2 more steps")
+        g, _, _, _ = build_chain("vector")
+        s = gt.Scheduler(g, block_len=BLOCK_LEN, sample_rate=FS, device=dev)
+        s.run_and_wait(2)
+        t0 = time.perf_counter()
+        gt.save_checkpoint(s, tmp / "ckpt")
+        t_save = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        r = gt.load_checkpoint(tmp / "ckpt", device=dev)
+        t_load = time.perf_counter() - t0
+        for _ in range(2):
+            r.step_once()
+        r._drain()
+        sinks = {b.name: b.data() for b in r.graph.blocks if b.name in ("spec", "audio")}
+        half = [x[x.shape[-1] // 2:] for x in phase45[0]]
+        same = (np.array_equal(sinks["spec"], half[0])
+                and np.array_equal(sinks["audio"], half[1]))
+        print(f"  save {t_save:.3f} s, load {t_load:.3f} s; steps 3-4 bitwise equal "
+              f"to the uninterrupted run (phase 4): {same}")
+        check(same, "checkpoint: resumed steps differ from the uninterrupted run")
+        del s, r
+
+        # (f) GraphGRC Get and Set on a running scheduler
+        print("[21f GraphGRC] Get from the running chain, Set to suite config 1")
+        g, _, _, _ = build_chain("null")
+        s = gt.Scheduler(g, block_len=BLOCK_LEN, sample_rate=FS, device=dev)
+        s.step_once()
+
+        def ask(command, data=None):
+            rid = s.bus.send_command(command, "", gt.Property.GRAPH_GRC, data)
+            s._process_messages()
+            return next(m for m in s.bus.drain_replies() if m.client_request_id == rid)
+
+        got = ask(gt.Command.Get)
+        check(not got.is_error, f"GraphGRC Get: {got.data}")
+        back = gt.load_grc(got.data["grc"])
+        c1, _, _, _ = build_suite("1", "NullSink")
+        reply = ask(gt.Command.Set, {"grc": gt.save_grc(c1)})
+        check(not reply.is_error, f"GraphGRC Set: {reply.data}")
+        ck.reset_launch_counts()
+        for _ in range(2):
+            s.step_once()
+        torch.cuda.synchronize()
+        counts = ck.launch_counts()
+        types = sorted(type(b).__name__ for b in s.graph.blocks)
+        print(f"  Get: {len(got.data['grc'])} bytes, load_grc gives "
+              f"{len(back.blocks)} blocks; Set: {reply.data}; then 2 steps of "
+              f"{types}: launches {counts}")
+        check(len(back.blocks) == len(g.blocks) and counts["fir_banded"] == 2
+              and counts["nco_mix"] == 0, "GraphGRC: config 1 did not run as swapped in")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1273,12 +1538,19 @@ def main() -> int:
               f"nco_mix {label}: phase {ph} vs {ph_ref}")
         row = {"case": label, "max_abs_err": err, "tol": NCO_ATOL}
         if shape == (BLOCK_LEN,):
-            row["ms"], row["plain_ms"] = kernel_vs_plain_ms(
+            # the median of three spin-queued readings (one reading alone
+            # once came out 2.4× the others)
+            readings = [kernel_vs_plain_ms(
                 lambda: ck.nco_mix(x, phase0, dphi),
-                lambda: ck.nco_mix_ref(x, phase0, dphi))
+                lambda: ck.nco_mix_ref(x, phase0, dphi)) for _ in range(3)]
+            row["ms"] = statistics.median(r[0] for r in readings)
+            row["plain_ms"] = statistics.median(r[1] for r in readings)
+            row["readings"] = readings
             main_nco = row
         print(f"  nco_mix {label}: max|Δ| {err:.3e} (tol {NCO_ATOL})"
-              + (f"; kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms"
+              + (f"; kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms "
+                 f"(medians of (kernel, plain) readings "
+                 f"{[(round(a, 4), round(b, 4)) for a, b in row['readings']]})"
                  if "ms" in row else ""))
         check(err <= NCO_ATOL, f"nco_mix {label}: max|Δ| {err} > {NCO_ATOL}")
         results["nco_mix"]["max_abs_err"] = max(results["nco_mix"]["max_abs_err"], err)
@@ -1532,6 +1804,7 @@ def main() -> int:
     compare_sinks(absorbed, derotated, "absorbed vs derotated", skip_audio=8)
     for k in KERNELS:
         results[k]["launches"] = counts[k]
+    phase45 = (absorbed, derotated)      # phase 21 holds the YAML chain to them
     del absorbed, derotated
 
     # chain throughput: NullSinks (no device→host copy), CUDA events over steps
@@ -1916,6 +2189,8 @@ def main() -> int:
                       "ms_per_step": ms, "host_ms_per_step": host_ms})
 
     paths += suite_phases(dev, gen, results)
+    yaml_phases(dev, card, phase45, paths)
+    del phase45
 
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "share_of_bound", "library_ms")

@@ -2,12 +2,13 @@
 
 The same flowgraph model as the JAX package (blocks under the same registry
 names and settings, the same rate algebra, ``Graph`` → ``compile_graph`` →
-``Scheduler``), running on PyTorch tensors on one device: a CUDA GPU when one is
-present, else the CPU. Kernels the JAX package wrote in Pallas for the TPU are
-hand-written CUDA C++ for Hopper here (``csrc/``, built at first use); every one
-has a plain PyTorch version that runs on the CPU.
+``Scheduler``, YAML flowgraphs, checkpoints), running on PyTorch tensors on
+one device: the CUDA card unless the caller asks for the CPU (``device="cpu"``,
+``--cpu``). Kernels the JAX package wrote in Pallas for the TPU are hand-written
+CUDA C++ for Hopper here (``csrc/``, built at first use); every one has a plain
+PyTorch version that runs on the CPU.
 
-This package imports torch and NumPy and never JAX.
+This package imports torch and NumPy and never JAX or PyYAML.
 """
 
 from .core.block import (Block, BlockCtx, HostCtx, Port, PortRef, SinkBlock,
@@ -18,13 +19,20 @@ from .core.graph import Edge, Graph
 from .core.lifecycle import State
 from .core.messages import Command, Message, MessageBus, Property
 from .core.profiler import NullProfiler, Profiler
-from .core.registry import (BlockRegistry, global_registry,
+from .core.registry import (BlockRegistry, PluginLoader, global_registry,
                             global_scheduler_registry, register_block,
                             register_scheduler)
 from .core.scheduler import (BreadthFirstScheduler, DepthFirstScheduler,
                              Scheduler, SimpleScheduler)
 from .core.settings import Setting, Settings, SettingsCtx
 from .core.tags import Keys, Tag, TagPropagation
+from .core.dataset import Axis, DataSet, SignalMeta
+from .core.datasink import (DataSink, DataSinkQuery, DataSinkRegistry,
+                            global_data_sink_registry)
+from .core.trigger import MatchResult
+from .core.yaml_io import load_grc, run_grc, save_grc
+from .core.checkpoint import load_checkpoint, save_checkpoint
+from .core import pmt
 
 # importing the block library populates the global registry
 from . import blocks  # noqa: E402,F401
@@ -40,5 +48,8 @@ __all__ = [
     "global_scheduler_registry", "register_block", "register_scheduler",
     "BreadthFirstScheduler", "DepthFirstScheduler", "Scheduler",
     "SimpleScheduler", "Setting", "Settings", "SettingsCtx", "Keys", "Tag",
-    "TagPropagation",
+    "TagPropagation", "PluginLoader", "Axis", "DataSet", "SignalMeta",
+    "DataSink", "DataSinkQuery", "DataSinkRegistry", "global_data_sink_registry",
+    "MatchResult", "load_grc", "run_grc", "save_grc", "load_checkpoint",
+    "save_checkpoint", "pmt",
 ]

@@ -1,4 +1,4 @@
 """Block library of the port; importing it populates the global registry."""
 
-from . import (basic, channelizer, filter, fourier, ldpc, math,  # noqa: F401
-               sdr, testing)
+from . import (basic, channelizer, fileio, filter, fourier, ldpc,  # noqa: F401
+               math, sdr, testing)

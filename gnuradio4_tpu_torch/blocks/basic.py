@@ -1,5 +1,8 @@
-"""Basic sources (≈ reference blocks/basic/SignalGenerator.hpp:25) and the
-device noise source.
+"""Basic blocks (≈ reference blocks/basic/): SignalGenerator
+(SignalGenerator.hpp:25), the device noise source, the Selector N×M router
+(Selector.hpp:15), Interleave/Deinterleave and the converter blocks
+(ConverterBlocks.hpp: Convert, ScalingConvert, Real/Imag/Arg,
+complex↔interleaved/RealImag/MagPhase, deg↔rad).
 
 The NCO phase state is a 0-d int64 *host* tensor holding a uint32 value: the
 phase is a host integer wherever it is used (the start phase of a device ramp),
@@ -8,11 +11,12 @@ so keeping it on the host costs no device→host read per step.
 
 from __future__ import annotations
 
+from fractions import Fraction
+
 import numpy as np
 import torch
 
-from ..core.block import Port, SourceBlock
-from ..core.errors import GrError
+from ..core.block import Block, Port, SourceBlock
 from ..core.registry import register_block
 from ..core.settings import Setting
 from ..core.stream import canonical_dtype, torch_dtype
@@ -35,7 +39,9 @@ class SignalGenerator(SourceBlock):
     UniformNoise,TriangularNoise,GaussianNoise} (the reference's full type
     list, SignalGenerator.hpp:18), frequency [Hz], amplitude, offset,
     phase [rad], sample_rate [Hz], n_samples (0=∞), seed (noise types).
-    The noise types are not ported to this package yet and raise.
+    Noise conventions match NoiseGenerator.hpp: Uniform/Triangular on
+    [−A, +A) + O, Gaussian N(0, A²) + O; generated on the device from the
+    threefry stream of ``ops/noise.py`` (the JAX package's bits).
     """
 
     OUT = (Port("out"),)
@@ -78,11 +84,14 @@ class SignalGenerator(SourceBlock):
         fs = float(self.settings.get("sample_rate"))
         return fs if fs > 0 else ctx_rate
 
+    def _is_noise(self) -> bool:
+        return str(self.settings.get("signal")).endswith("Noise")
+
     def init_state(self, ctx):
         self._ctx_rate = ctx.sample_rate
-        if str(self.settings.get("signal")).endswith("Noise"):
-            raise GrError(f"{self.name}: noise signal types are not ported to "
-                          f"this package yet", block=self.name)
+        if self._is_noise():
+            return noise_ops.noise_init_state(int(self.settings.get("seed")),
+                                              ctx.device)
         return phase_state()
 
     def prepare_params(self, params):
@@ -115,6 +124,19 @@ class SignalGenerator(SourceBlock):
         ch = ctx.channels["out"]
         amp = float(np.float32(ctx.p("amplitude", 1.0)))
         off = float(np.float32(ctx.p("offset", 0.0)))
+        if self._is_noise():
+            shape = (n,) if ch == 0 else (ch, n)
+            kind = str(self.settings.get("signal"))
+            if kind == "UniformNoise":
+                y, key = noise_ops.uniform_noise(state, shape, low=-1.0, high=1.0)
+            elif kind == "TriangularNoise":
+                y, key = noise_ops.triangular(state, shape)
+            else:
+                y, key = noise_ops.gaussian(state, shape)
+            # a*y + o rounded once, as XLA's fused multiply-add rounds it (in
+            # float64, whose exact product leaves one rounding to float32)
+            y = (y.to(torch.float64) * amp + off).to(torch.float32)
+            return key, {"out": self._cast_out(y)}
         start, dphi = self._nco(state, ctx)
         frac = phase_to_frac(nco_phases(start, dphi, n, ctx.device))
         kind = str(self.settings.get("signal"))
@@ -213,3 +235,290 @@ class NoiseSource(SourceBlock):
         else:
             y, key = noise_ops.complex_gaussian(state, shape, std=std)
         return key, {"out": y}
+
+
+@register_block("Selector")
+class Selector(Block):
+    """N×M stream router (≈ Selector.hpp:15). ``map_in``/``map_out`` pair up
+    connections; unrouted outputs emit zeros, unrouted inputs are dropped.
+
+    Reference parity extras (Selector.hpp:83-95): an optional ``select``
+    input (uint32 stream; the last sample of each step picks the monitored
+    input, ≈ ``selectSpan.back()``, Selector.hpp:149) and an optional
+    ``monitor`` output mirroring the selected input. ``selected_src`` is the
+    message-settable equivalent when no select stream is connected.
+
+    Fan-in (several inputs mapped to one output) *sums* here; the reference's
+    round-robin interleave is the dedicated :class:`Interleave` block."""
+
+    n_inputs = Setting(default=1, kind="static", limits=(1, 64))
+    n_outputs = Setting(default=1, kind="static", limits=(1, 64))
+    map_in = Setting(default=(0,), kind="static", description="routing: input idx list")
+    map_out = Setting(default=(0,), kind="static", description="routing: output idx list")
+    selected_src = Setting(default=0, description="input index mirrored to the "
+                                                  "monitor output (≈ _selectedSrc)")
+
+    def __init__(self, name=None, **settings):
+        super().__init__(name=name, **settings)
+        n_in = int(self.settings.get("n_inputs"))
+        n_out = int(self.settings.get("n_outputs"))
+        self.in_ports = tuple(Port(f"in{i}") for i in range(n_in)) + (
+            Port("select", dtype="uint32", optional=True, asynchronous=True),)
+        self.out_ports = tuple(Port(f"out{i}") for i in range(n_out)) + (
+            Port("monitor", optional=True),)
+
+    def apply(self, state, ins, ctx):
+        m_in = list(self.settings.get("map_in"))
+        m_out = list(self.settings.get("map_out"))
+        outs = {}
+        n_in = int(self.settings.get("n_inputs"))
+        example = ins["in0"] if "in0" in ins else next(iter(ins.values()))
+        for o in range(int(self.settings.get("n_outputs"))):
+            routed = [ins[f"in{i}"] for i, oo in zip(m_in, m_out) if oo == o]
+            if routed:
+                outs[f"out{o}"] = routed[0] if len(routed) == 1 else sum(routed)
+            else:
+                outs[f"out{o}"] = torch.zeros_like(example)
+        # monitor: mirror the dynamically selected input (Selector.hpp:239-243)
+        stacked = torch.stack([ins[f"in{i}"] for i in range(n_in)], dim=0)
+        if "select" in ins:
+            sel = ins["select"][..., -1].clamp(0, n_in - 1)   # selectSpan.back()
+            picked = torch.index_select(stacked, 0, sel.reshape(-1))
+            outs["monitor"] = picked.reshape(*sel.shape, *stacked.shape[1:])
+        else:
+            sel = min(max(int(ctx.p("selected_src", 0)), 0), n_in - 1)
+            outs["monitor"] = stacked[sel]
+        return state, outs
+
+
+@register_block("Interleave")
+class Interleave(Block):
+    """Round-robin stream combiner — the reference Selector's synchronised
+    fan-in semantics (Selector.hpp:60-66: inputs mapped to one output emit
+    ``in0[0], in1[0], …, in0[1], in1[1], …``) as a dedicated block, because a
+    per-port rate change rides the block-level ``ratio``. ``chunk_size``
+    samples are taken from each input per visit."""
+
+    n_inputs = Setting(default=2, kind="static", limits=(1, 64))
+    chunk_size = Setting(default=1, kind="static", limits=(1, None))
+
+    OUT = (Port("out"),)
+
+    def __init__(self, name=None, **settings):
+        super().__init__(name=name, **settings)
+        self.in_ports = tuple(
+            Port(f"in{i}") for i in range(int(self.settings.get("n_inputs"))))
+
+    @property
+    def ratio(self) -> Fraction:
+        return Fraction(int(self.settings.get("n_inputs")))
+
+    @property
+    def alignment(self) -> int:
+        return int(self.settings.get("chunk_size"))
+
+    def apply(self, state, ins, ctx):
+        k = int(self.settings.get("n_inputs"))
+        cs = int(self.settings.get("chunk_size"))
+        xs = [ins[f"in{i}"] for i in range(k)]
+        t = xs[0].shape[-1]
+        # [..., T] per input → [..., T/cs, k, cs] → [..., k·T]
+        parts = [x.reshape(*x.shape[:-1], t // cs, 1, cs) for x in xs]
+        out = torch.cat(parts, dim=-2)
+        return state, {"out": out.reshape(*xs[0].shape[:-1], k * t)}
+
+
+@register_block("Deinterleave")
+class Deinterleave(Block):
+    """Round-robin stream splitter (inverse of :class:`Interleave`)."""
+
+    n_outputs = Setting(default=2, kind="static", limits=(1, 64))
+    chunk_size = Setting(default=1, kind="static", limits=(1, None))
+
+    IN = (Port("in"),)
+
+    def __init__(self, name=None, **settings):
+        super().__init__(name=name, **settings)
+        self.out_ports = tuple(
+            Port(f"out{i}") for i in range(int(self.settings.get("n_outputs"))))
+
+    @property
+    def ratio(self) -> Fraction:
+        return Fraction(1, int(self.settings.get("n_outputs")))
+
+    @property
+    def alignment(self) -> int:
+        return int(self.settings.get("n_outputs")) * \
+            int(self.settings.get("chunk_size"))
+
+    def apply(self, state, ins, ctx):
+        k = int(self.settings.get("n_outputs"))
+        cs = int(self.settings.get("chunk_size"))
+        x = ins["in"]
+        t = x.shape[-1]
+        parts = x.reshape(*x.shape[:-1], t // (k * cs), k, cs)
+        return state, {f"out{i}":
+                       parts[..., i, :].reshape(*x.shape[:-1], t // k)
+                       for i in range(k)}
+
+
+# -- converters (≈ ConverterBlocks.hpp) ----------------------------------------
+
+def _cast(x: torch.Tensor, dtype) -> torch.Tensor:
+    """``x.astype(dtype)`` as the JAX package casts: complex → real keeps the
+    real part."""
+    dt = canonical_dtype(dtype)
+    if x.is_complex() and not np.issubdtype(dt, np.complexfloating):
+        x = x.real
+    return x.to(torch_dtype(dt))
+
+
+@register_block("Convert")
+class Convert(Block):
+    """dtype cast (≈ Convert<T,U>); target dtype is a static setting."""
+
+    IN = (Port("in"),)
+    OUT = (Port("out"),)
+    to = Setting(default="float32", kind="static", description="target dtype")
+
+    def out_dtype(self, port, in_dtypes):
+        return self.settings.get("to")
+
+    def apply(self, state, ins, ctx):
+        return state, {"out": _cast(ins["in"], self.settings.get("to"))}
+
+
+@register_block("ScalingConvert")
+class ScalingConvert(Convert):
+    scale = Setting(default=1.0)
+
+    def apply(self, state, ins, ctx):
+        x = ins["in"]
+        # the scale takes the input's type first, as in the JAX package
+        scale = np.asarray(ctx.p("scale", 1.0)).astype(ctx.dtype("in"))
+        y = x * torch.from_numpy(np.asarray(scale)).to(x.device)
+        return state, {"out": _cast(y, self.settings.get("to"))}
+
+
+@register_block("ComplexToReal")
+class ComplexToReal(Block):
+    IN = (Port("in", dtype="complex64"),)
+    OUT = (Port("out", dtype="float32"),)
+
+    def apply(self, state, ins, ctx):
+        return state, {"out": ins["in"].real.contiguous()}
+
+
+@register_block("ComplexToImag")
+class ComplexToImag(Block):
+    IN = (Port("in", dtype="complex64"),)
+    OUT = (Port("out", dtype="float32"),)
+
+    def apply(self, state, ins, ctx):
+        return state, {"out": ins["in"].imag.contiguous()}
+
+
+@register_block("ToRealImag")
+class ToRealImag(Block):
+    """Complex → (real, imag) component streams (≈ ConverterBlocks ToRealImag)."""
+
+    IN = (Port("in", dtype="complex64"),)
+    OUT = (Port("real", dtype="float32"), Port("imag", dtype="float32"))
+
+    def apply(self, state, ins, ctx):
+        x = ins["in"]
+        return state, {"real": x.real.contiguous(), "imag": x.imag.contiguous()}
+
+
+@register_block("ComplexToMagPhase")
+class ComplexToMagPhase(Block):
+    IN = (Port("in", dtype="complex64"),)
+    OUT = (Port("mag", dtype="float32"), Port("phase", dtype="float32"))
+
+    def apply(self, state, ins, ctx):
+        x = ins["in"]
+        return state, {"mag": x.abs(), "phase": x.angle()}
+
+
+@register_block("Arg")
+class Arg(Block):
+    """Complex argument/angle in radians (≈ ConverterBlocks Arg)."""
+
+    IN = (Port("in", dtype="complex64"),)
+    OUT = (Port("out", dtype="float32"),)
+
+    def apply(self, state, ins, ctx):
+        return state, {"out": ins["in"].angle()}
+
+
+@register_block("MagPhaseToComplex")
+class MagPhaseToComplex(Block):
+    """(magnitude, phase) → complex (≈ ConverterBlocks.hpp:219)."""
+
+    IN = (Port("mag", dtype="float32"), Port("phase", dtype="float32"))
+    OUT = (Port("out", dtype="complex64"),)
+
+    def apply(self, state, ins, ctx):
+        return state, {"out": torch.polar(ins["mag"], ins["phase"])}
+
+
+@register_block("RealImagToComplex")
+class RealImagToComplex(Block):
+    IN = (Port("real", dtype="float32"), Port("imag", dtype="float32"))
+    OUT = (Port("out", dtype="complex64"),)
+
+    def apply(self, state, ins, ctx):
+        return state, {"out": torch.complex(ins["real"], ins["imag"])}
+
+
+@register_block("ComplexToInterleaved")
+class ComplexToInterleaved(Block):
+    """complex64 [T] → float32 [2T] (re,im interleaved); rate 2/1."""
+
+    IN = (Port("in", dtype="complex64"),)
+    OUT = (Port("out", dtype="float32"),)
+
+    @property
+    def ratio(self):
+        return Fraction(2, 1)
+
+    def apply(self, state, ins, ctx):
+        x = ins["in"].contiguous()
+        return state, {"out": torch.view_as_real(x).reshape(*x.shape[:-1], -1)}
+
+
+@register_block("InterleavedToComplex")
+class InterleavedToComplex(Block):
+    IN = (Port("in", dtype="float32"),)
+    OUT = (Port("out", dtype="complex64"),)
+
+    @property
+    def ratio(self):
+        return Fraction(1, 2)
+
+    @property
+    def alignment(self):
+        return 2
+
+    def apply(self, state, ins, ctx):
+        x = ins["in"]
+        xr = x.reshape(*x.shape[:-1], -1, 2).contiguous()
+        return state, {"out": torch.view_as_complex(xr)}
+
+
+@register_block("DegToRad")
+class DegToRad(Block):
+    IN = (Port("in", dtype="float32"),)
+    OUT = (Port("out", dtype="float32"),)
+
+    def apply(self, state, ins, ctx):
+        return state, {"out": ins["in"] * float(np.float32(np.pi / 180.0))}
+
+
+@register_block("RadToDeg")
+class RadToDeg(Block):
+    IN = (Port("in", dtype="float32"),)
+    OUT = (Port("out", dtype="float32"),)
+
+    def apply(self, state, ins, ctx):
+        return state, {"out": ins["in"] * float(np.float32(180.0 / np.pi))}

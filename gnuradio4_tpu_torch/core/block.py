@@ -44,11 +44,14 @@ class Port:
 
     ``dtype=None`` → polymorphic (resolved at compile time from the upstream edge).
     ``optional`` ports may stay unconnected (≈ Optional attribute, Port.hpp:329).
+    ``asynchronous`` marks a port that does not gate scheduling (≈ Async,
+    Port.hpp:394); here it is read once per step like any other input.
     """
 
     name: str
     dtype: Any = None
     optional: bool = False
+    asynchronous: bool = False
 
     def __post_init__(self):
         if self.dtype is not None:

@@ -32,6 +32,10 @@ class Edge:
     dst: Block
     dst_port: str
     name: str = ""
+    # scheduling metadata kept with the edge (≈ BlockModel.hpp:70-198); the
+    # fused step function has no buffers for them to size
+    min_buffer_size: int = 0
+    weight: int = 0
     # feedback edges close graph cycles (≈ reference feedback merges,
     # BlockMerging.hpp:628-645); the compiler does not lower them yet and
     # raises naming the loop
@@ -90,7 +94,8 @@ class Graph(Block):
 
     def connect(self, src: Block | PortRef, dst: Block | PortRef,
                 *, src_port: str | None = None, dst_port: str | None = None,
-                name: str = "", feedback: bool = False, delay: int = 1,
+                name: str = "", min_buffer_size: int = 0, weight: int = 0,
+                feedback: bool = False, delay: int = 1,
                 fb_init: float = 0.0) -> Edge:
         """Connect an output port to an input port. Accepts ``blk["port"]`` refs,
         bare blocks (single-port inference), or string port names.
@@ -105,6 +110,7 @@ class Graph(Block):
         if feedback and delay < 1:
             raise ConnectionError_("feedback delay must be >= 1 sample")
         edge = Edge(sref.block, sref.port, dref.block, dref.port, name=name,
+                    min_buffer_size=int(min_buffer_size), weight=int(weight),
                     feedback=feedback, delay=int(delay), fb_init=float(fb_init))
         # single-writer per input port (ring semantics): reject double connection
         for e in self.edges:

@@ -11,6 +11,7 @@ comes from ``torch.profiler`` or CUDA events).
 
 from __future__ import annotations
 
+import json
 import threading
 import time
 from contextlib import contextmanager
@@ -72,3 +73,10 @@ class Profiler(NullProfiler):
             for buf in self._buffers:
                 out.extend(buf)
         return sorted(out, key=lambda e: e["ts"])
+
+    def write(self, path: str) -> None:
+        """Write the events as a chrome://tracing JSON file."""
+        doc = {"traceEvents": self.events(), "displayTimeUnit": "ms",
+               "otherData": {"process": "gnuradio4_tpu_torch"}}
+        with open(path, "w") as f:
+            json.dump(doc, f)

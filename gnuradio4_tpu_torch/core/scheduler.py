@@ -1280,8 +1280,26 @@ class Scheduler:
             self._dirty = True
             self.bus.reply(msg, {})
         elif ep == Property.GRAPH_GRC:
-            raise GrError("GraphGRC needs the YAML graph format (core/yaml_io), "
-                          "which is not ported to this package yet")
+            # ≈ kGraphGRC (Scheduler.hpp:233): Get returns the running graph
+            # as GRC YAML; Set hot-swaps the WHOLE flowgraph from YAML (new
+            # graph compiles at the next step boundary, fresh states)
+            from .yaml_io import load_grc, save_grc
+            if cmd is Command.Set:
+                new_graph = load_grc(str(data["grc"]),
+                                     registry=self.graph.registry)
+                self.graph = new_graph
+                self._states = {}
+                self._abs_in.clear()
+                self._abs_out.clear()
+                self._finished_sources.clear()
+                self._eos_announced.clear()
+                self._inflight.clear()
+                self._dirty = True
+                self.bus.reply(msg, {"blocks": len(new_graph.blocks)})
+            else:
+                self.bus.reply(msg, {"grc": save_grc(
+                    self.graph, sample_rate=self.sample_rate,
+                    block_len=self.block_len)})
         else:
             self.bus.reply(msg, Error.here(f"unknown scheduler endpoint {ep!r}"))
 

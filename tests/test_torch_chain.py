@@ -248,10 +248,13 @@ def test_unported_options_raise():
     g.connect_chain(src, fir, snk)
     with pytest.raises(GrError, match="bf16"):
         gt.Scheduler(g, block_len=1024, sample_rate=1e4, device="cpu").run_and_wait(1)
+    # SignalGenerator's noise types are ported now (tests/
+    # test_torch_blocks_basic.py); the FFT's bf16 matmul rung is not
     g = gt.Graph()
-    g.connect(g.emplace("SignalGenerator", signal="GaussianNoise"),
-              g.emplace("NullSink"))
-    with pytest.raises(GrError, match="noise"):
+    g.connect_chain(g.emplace("ComplexToneSource", frequency=1e3),
+                    g.emplace("FFT", fft_size=1024, engine="matmul_bf16"),
+                    g.emplace("NullSink"))
+    with pytest.raises(GrError, match="matmul_bf16"):
         gt.Scheduler(g, block_len=1024, device="cpu").run_and_wait(1)
 
 

@@ -5,6 +5,7 @@ notifications), block-to-block message edges drive settings identically, and
 runtime graph mutation by message gives the same sinks."""
 
 import numpy as np
+import yaml
 import pytest
 import torch
 
@@ -174,9 +175,18 @@ def test_inspect_graph_and_registry_types():
 
 
 def test_graph_grc_is_refused_until_yaml_is_ported():
-    s, _, _ = _make(gt)
-    r = _ask(gt, s, "Get", "", "GraphGRC")
-    assert r.is_error and "yaml" in r.data.message.lower()
+    # the YAML graph format is ported: Get answers with the running graph
+    # as GRC YAML, the same document the JAX package answers with
+    docs = []
+    for pkg in (gr, gt):
+        s, _, _ = _make(pkg)
+        r = _ask(pkg, s, "Get", "", "GraphGRC")
+        assert not r.is_error
+        doc = yaml.safe_load(r.data["grc"])
+        # block names carry each package's instance counter: compare the rest
+        docs.append([(b["id"], {k: v for k, v in (b.get("parameters") or {}).items()
+                                if k != "name"}) for b in doc["blocks"]])
+    assert docs[0] == docs[1]
 
 
 def test_runtime_emplace_and_edge_messages():
