@@ -102,6 +102,23 @@ result line:
     2^23 after 2 steps, resumed on the card, bitwise equal to steps 3–4;
     (f) ``GraphGRC`` Get and Set (suite config 1) on a running scheduler.
 
+22. feedback loops, the Agc block and the precision ladder: (a) ``python -m
+    gnuradio4_tpu_torch run examples/agc_loop.yaml`` on the card; (b) the
+    same flow through ``Scheduler`` (delay 1: 4096 sub-steps per step) on
+    the card against the CPU and against the ``Agc`` block on the card, the
+    output's mean magnitude 0.8–1.2, and the expression evaluator's host
+    scalars beside CUDA tensors against the CPU; (c) the loop at delay 64;
+    sub-steps, torch ops and kernel launches (torch.profiler) and ms per
+    step of each, and of ``Agc``; (d) FirFilter at every precision rung at
+    config 1's shape (c64 × f32 K 127, 2^22) and at the chain's audio FIR
+    (f32 K 63 ÷8, 2^23): each rung's SNR against a float64 FIR, held to the
+    JAX package's contracts (``high`` ≥ 90 dB, ``bf16``/``default`` > 45;
+    ``int8`` > 40 real and > 38 complex on white taps, the contract's data,
+    and on the designed taps equal to the CPU's integer result), with its ms
+    beside ``highest``'s matmul and the ``fir_banded`` kernel; (e) the FFT's
+    matmul engines at
+    4096 over 2^22 samples: SNR against a float64 FFT and ms beside cuFFT.
+
 Phases 13–17 each print the card against the CPU on a short run of the same
 graph, Msps (coded Mbit/s for 7 and 7k), ms per step by CUDA events over 5
 windows, host ms per step, the device-busy share of one profiled step, peak
@@ -212,6 +229,32 @@ FM_BLOCK_LEN = 5242880
 # examples/channelizer.yaml, card against CPU: dB of the channel's power
 # after f32 PFB sums, two FFT implementations and two erfinvs
 CHAN_DB_ATOL = 1e-3
+# phase 22: the AGC loop against the Agc block on one device (the same ops
+# in the same order: measured bitwise equal on the CPU) and the card against
+# the CPU, where the flow's Gaussian noise differs by NOISE_RTOL of max(1,|x|)
+# and the loop's gain (~20 at std 0.05) carries that into the output
+LOOP_ATOL = 1e-5
+LOOP_STEPS = 4
+# the precision ladder's dB contracts (tests/test_fir_methods.py:111-145,
+# 203-245, 271): SNR against a float64 reference
+RUNG_DB = {"high": 90.0, "default": 45.0, "bf16": 45.0}
+INT8_DB = {"real": 40.0, "complex": 38.0}
+FFT_DB = {"matmul": 90.0, "matmul_bf16": 45.0, "matmul_exact": 90.0}
+# ... and a ceiling, so that no rung passes at full float32 (~135 dB here):
+# bf16×3 stays HIGH_BELOW_F32_DB under the float32 rung's reading, one bf16
+# pass under ONE_PASS_MAX_DB
+HIGH_BELOW_F32_DB = 15.0
+ONE_PASS_MAX_DB = 70.0
+# the int8 rung against the CPU's integers on the first INT8_CPU_N samples
+# (the integers are as exact there as at full size; the CPU's int32 matmul
+# at full size costs tens of seconds)
+INT8_CPU_N = 1 << 16
+# an input whose every partial sum is exact in float32: c = 1 + 2^-9 splits
+# into bf16 hi = 1, lo = 2^-9, and over K = 16 each rung has one exact value
+# (full float32 and TF32 16·c², bf16×3 16·(1 + 2^-8), one bf16 pass 16)
+PROBE_C = 1.0 + 2.0 ** -9
+PROBE = {"highest": 16.0 + 2.0 ** -4 + 2.0 ** -14, "high": 16.0 + 2.0 ** -4,
+         "default": 16.0, "bf16": 16.0}
 KERNELS = {
     "fir_banded": {
         "source": "gnuradio4_tpu_torch/csrc/fir_banded.cu",
@@ -367,15 +410,19 @@ def conv1d_ms(x, hist, h, decim: int) -> float:
 
 
 def fir_float64(xc, taps, decim: int):
-    """``y[..., m] = Σ_k h[k]·xc[..., m·decim + K−1−k]`` in float64 (numpy FFT):
-    the reference where the plain version's Toeplitz band would not fit."""
+    """``y[..., m] = Σ_k h[k]·xc[..., m·decim + K−1−k]`` in float64, as a
+    NumPy array: the reference where the plain version's Toeplitz band would
+    not fit. A complex128 torch FFT on ``xc``'s device, at a power-of-two
+    length (NumPy's FFT at the stream's own length takes seconds)."""
     import numpy as np
-    xc = xc.cpu().numpy().astype(np.complex128)
+    import torch
     k = len(taps)
-    n = xc.shape[-1] + k - 1
-    full = np.fft.ifft(np.fft.fft(xc, n) * np.fft.fft(np.asarray(taps, np.complex128), n))
+    nfft = 1 << (xc.shape[-1] + k - 2).bit_length()
+    h = torch.from_numpy(np.asarray(taps, np.complex128)).to(xc.device)
+    full = torch.fft.ifft(torch.fft.fft(xc.to(torch.complex128), nfft)
+                          * torch.fft.fft(h, nfft))
     m = (xc.shape[-1] - (k - 1)) // decim
-    return full[..., k - 1: k - 1 + m * decim: decim]
+    return full[..., k - 1: k - 1 + m * decim: decim].cpu().numpy()
 
 
 def events_ms_per_step(step, n_steps: int, windows: int = 5):
@@ -1409,6 +1456,281 @@ def yaml_phases(dev, card: str, phase45, paths: list) -> None:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+def count_ops(fn):
+    """(kernels launched, torch ops called) by one call of ``fn``, from
+    torch.profiler's raw events (``key_averages()`` would take seconds over
+    the ~50 000 ops of a loop's step); kernels None when it saw no device
+    activity."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = ops = 0
+    for e in prof.profiler.kineto_results.events():
+        if str(e.device_type()).endswith("CUDA"):
+            kernels += 1
+        elif e.name().startswith("aten::"):
+            ops += 1
+    return (kernels or None), ops
+
+
+def agc_loop_graph(x, rate: float, delay: int):
+    """tests/test_feedback.py's AGC as a graph cycle over a host array."""
+    import gnuradio4_tpu_torch as gt
+    g = gt.Graph()
+    src = g.emplace("VectorSource", data=x)
+    mul = g.emplace("Multiply", n_inputs=2)
+    upd = g.emplace("ExpressionDISO",
+                    expression=f"clip(y + {rate}*(1.0 - abs(x)), 1e-6, 65536.0)")
+    snk = gt.global_registry.create("VectorSink")
+    g.connect(src, mul["in0"])
+    g.connect(mul, upd["x"])
+    g.connect(upd["out"], mul["in1"], feedback=True, delay=delay, fb_init=1.0)
+    g.connect(upd["out"], upd["y"], feedback=True, delay=delay, fb_init=1.0)
+    g.connect(mul, snk)
+    return g, snk
+
+
+def snr_db(y, ref) -> float:
+    import numpy as np
+    y = np.asarray(y, np.complex128)
+    err = float(np.sum(np.abs(y - ref) ** 2))
+    return float(10 * np.log10(np.sum(np.abs(ref) ** 2) / max(err, 1e-300)))
+
+
+def loop_phases(dev, paths: list) -> None:
+    """Phase 22: feedback loops, Agc and the precision ladder on the card."""
+    import numpy as np
+    import torch
+    import gnuradio4_tpu_torch as gt
+    from gnuradio4_tpu_torch.ops import cuda_kernels as ck
+    from gnuradio4_tpu_torch.ops import filter_design as fd
+    from gnuradio4_tpu_torch.ops.expression import compile_expression
+    from gnuradio4_tpu_torch.ops.fir import fir_apply
+    from gnuradio4_tpu_torch.ops.precision import rung_dot
+
+    secs = {}                   # wall seconds of each sub-phase
+    t_sub = time.perf_counter()
+
+    def lap(name: str) -> None:
+        nonlocal t_sub
+        now = time.perf_counter()
+        secs[name] = now - t_sub
+        t_sub = now
+
+    # (a) the CLI on the card
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "gnuradio4_tpu_torch", "run",
+                        "examples/agc_loop.yaml"], capture_output=True,
+                       text=True, timeout=300, cwd=str(ROOT), env=env)
+    wall = time.perf_counter() - t0
+    print(f"[22a agc_loop cli] python -m gnuradio4_tpu_torch run "
+          f"examples/agc_loop.yaml: rc {r.returncode} in {wall:.1f} s wall; "
+          f"{r.stderr.strip().splitlines()[-1] if r.stderr.strip() else ''}")
+    check(r.returncode == 0 and "device=cuda" in r.stderr,
+          f"agc_loop.yaml on the card: rc {r.returncode}: {r.stderr[-2000:]}")
+    lap("a cli")
+
+    # (b) the flow through Scheduler, card against CPU, loop against Agc
+    text = (ROOT / "examples" / "agc_loop.yaml").read_text()
+    runs = {}
+    for where in ("cpu", dev):
+        s = gt.run_grc(text, n_steps=LOOP_STEPS,
+                       scheduler_kwargs={"device": where})
+        runs[str(where)] = next(b for b in s.compiled.order
+                                if b.name == "audio").data()
+        del s
+    y_card, y_cpu = runs[str(dev)], runs["cpu"]
+    err_cpu = float(np.max(np.abs(y_card - y_cpu) / np.maximum(1.0, np.abs(y_cpu))))
+    mean_mag = float(np.mean(np.abs(y_card[-512:])))
+    g = gt.Graph()
+    nz = g.emplace("NoiseSource", seed=7, std=0.05, n_samples=16384)
+    agc = g.emplace("Agc", reference=1.0, rate=0.01)
+    ka = gt.global_registry.create("VectorSink")
+    g.connect_chain(nz, agc, ka)
+    gt.Scheduler(g, block_len=4096, sample_rate=48e3, device=dev).run_and_wait(LOOP_STEPS)
+    err_agc = float(np.max(np.abs(ka.data() - y_card)))
+    print(f"[22b agc loop] examples/agc_loop.yaml via run_grc, {LOOP_STEPS} steps "
+          f"of 4096 (delay 1): card vs cpu max|Δ|/max(1,|y|) {err_cpu:.3e} (tol "
+          f"{LOOP_ATOL + NOISE_RTOL:.1e}); graph loop vs Agc block on the card "
+          f"max|Δ| {err_agc:.3e} (tol {LOOP_ATOL}); mean |y| over the last 512 "
+          f"{mean_mag:.4f}")
+    check(y_card.shape == (LOOP_STEPS * 4096,) and err_cpu <= LOOP_ATOL + NOISE_RTOL
+          and err_agc <= LOOP_ATOL and 0.8 < mean_mag < 1.2,
+          "agc loop: card, CPU and Agc disagree or the loop did not converge")
+    # host numbers beside CUDA tensors in every evaluator form
+    src_expr = ("var k := 0; for (var i := 0; i < 3; i += 1) { k += i }; "
+                "min(x, 0.5) + max(0.25, x) + atan2(x, 2) + hypot(x, 1) "
+                "+ if(x > 0, x, 0.5) + mod(x, 0.3) + pow(2, x) + k "
+                "+ ((x > 0) and 1 ? 1 : 0) + (not x ? 1 : 0) + clamp(-1, x, 1) "
+                "+ sum(x) + (x > 0.5 or 0)")
+    fn = compile_expression(src_expr, ("x",))
+    xe = torch.linspace(-2, 2, 4097, dtype=torch.float32)
+    ye_cpu = fn(x=xe)
+    ye_card = fn(x=xe.to(dev)).cpu()
+    err_expr = float((ye_card - ye_cpu).abs().max())
+    print(f"  expression evaluator, CUDA against CPU tensors: max|Δ| {err_expr:.3e}")
+    check(err_expr <= 1e-4, "expression evaluator: card and CPU disagree")
+    lap("b loop vs cpu and Agc")
+
+    # (c) delay 64, and the per-step cost of each loop form and of Agc
+    rng = np.random.default_rng(SEED)
+    x = (0.25 * rng.standard_normal(LOOP_STEPS * 4096)).astype(np.float32)
+    out = {}
+    for where in ("cpu", dev):
+        g, snk = agc_loop_graph(x, 0.5, 64)
+        gt.Scheduler(g, block_len=4096, device=where).run_and_wait()
+        out[str(where)] = snk.data()
+    err64 = float(np.max(np.abs(out[str(dev)] - out["cpu"])))
+    mag64 = float(np.mean(np.abs(out[str(dev)][-512:])))
+    print(f"[22c delay 64] card vs cpu max|Δ| {err64:.3e} (tol {LOOP_ATOL}); "
+          f"mean |y| over the last 512 {mag64:.4f}")
+    check(err64 <= LOOP_ATOL and 0.8 < mag64 < 1.2, "delay-64 loop")
+    lap("c delay 64")
+    for label, build, sub in (
+            ("loop delay 1", lambda: agc_loop_graph(x, 0.01, 1)[0], 4096),
+            ("loop delay 64", lambda: agc_loop_graph(x, 0.5, 64)[0], 64),
+            ("Agc block", None, 0)):
+        if build is None:
+            g = gt.Graph()
+            g.connect_chain(g.emplace("VectorSource", data=x),
+                            g.emplace("Agc", reference=1.0, rate=0.01),
+                            gt.global_registry.create("NullSink"))
+        else:
+            g = build()
+        s = gt.Scheduler(g, block_len=4096, device=dev, pipeline_depth=1)
+        s.init()
+        s.step_once()
+        torch.cuda.synchronize()
+        kernels, ops = count_ops(s.step_once)
+        ms, windows = events_ms_per_step(s.step_once, 1, windows=2)
+        print(f"  {label}: {sub} sub-steps per step of 4096; {ops} torch ops, "
+              f"{kernels if kernels is not None else 'not measured'} kernel "
+              f"launches per step (torch.profiler); {ms:.3f} ms/step (CUDA "
+              f"events, median of 2 one-step windows; (events ms, wall ms) "
+              f"{fmt_windows(windows)})")
+        paths.append({"name": f"phase 22 {label}", "ms_per_step": ms,
+                      "sub_steps": sub, "torch_ops_per_step": ops,
+                      "kernels_per_step": kernels})
+        del s
+    lap("c per-step cost")
+
+    # (d) the precision ladder: each rung's exact value on the probe, then
+    # FirFilter at each rung
+    a = torch.full((32, 16), PROBE_C, dtype=torch.float32, device=dev)
+    w = torch.full((16, 16), PROBE_C, dtype=torch.float32, device=dev)
+    got = {r: rung_dot(a, w, r) for r in PROBE}
+    probe = {r: float(y[0, 0]) for r, y in got.items()}
+    ok = all(bool((got[r] == v).all()) for r, v in PROBE.items())
+    print(f"[22d precision probe] 16·c², c = 1 + 2^-9, on the card: {probe} "
+          f"(each rung its exact value: {ok})")
+    check(ok, f"precision probe: a rung ran at another precision: {probe}")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 22)
+    c1_taps = fd.design_fir("lowpass", 127, sample_rate=C1_FS,
+                            f_low=2e6).astype(np.float32)
+    audio_taps = fd.design_fir("lowpass", 63, sample_rate=FS,
+                               f_low=1e6).astype(np.float32)
+    for label, shape, x_dt, taps, decim in (
+            ("config 1 c64 × f32 K 127, 2^22", (SUITE_BLOCK_LEN,),
+             torch.complex64, c1_taps, 1),
+            ("audio FIR f32 K 63 ÷8, 2^23", (BLOCK_LEN,), torch.float32,
+             audio_taps, 8)):
+        k = len(taps)
+        xs = torch.randn(shape, dtype=x_dt, device=dev, generator=gen)
+        hist = torch.randn((k - 1,), dtype=x_dt, device=dev, generator=gen)
+        ref = fir_float64(torch.cat([hist, xs]), taps, decim)
+        cx = "complex" if xs.is_complex() else "real"
+        h = torch.from_numpy(taps).to(dev)
+        t_kernel = cuda_ms(lambda: ck.fir_banded(xs, hist, h, decim), reps=5)
+        print(f"[22d FirFilter rungs] {label}: fir_banded kernel {t_kernel:.4f} ms")
+        # int8's contract was set on white taps (tests/test_fir_methods.py:
+        # 111-145); a designed low-pass spends the Toeplitz's one int8 scale
+        # on its main lobe, so with these taps the rung is held to the CPU's
+        # integer result instead, and a white-tap row to the contract
+        white = (np.random.default_rng(SEED).standard_normal(k)
+                 / np.sqrt(k)).astype(np.float32)
+        y8, _ = fir_apply(xs, white, hist, decim=decim, precision="int8")
+        db8 = snr_db(y8.cpu().numpy(), fir_float64(torch.cat([hist, xs]),
+                                                   white, decim))
+        print(f"  int8 on white taps {db8:7.2f} dB (contract > "
+              f"{INT8_DB[cx]:.0f})")
+        check(db8 > INT8_DB[cx], f"FIR rung int8 (white taps) at {label}: "
+              f"{db8:.2f} dB")
+        db_of = {}
+        for rung in ("highest", "high", "default", "bf16", "int8"):
+            g = gt.Graph()
+            blk = gt.global_registry.create("FirFilter", taps=taps, decim=decim,
+                                            precision=rung)
+            src = gt.global_registry.create("VectorSource",
+                                            data=xs.cpu().numpy(),
+                                            device_resident=True)
+            snk = gt.global_registry.create("VectorSink")
+            g.connect_chain(src, blk, snk)
+            gt.Scheduler(g, block_len=shape[-1], device=dev).run_and_wait(1)
+            y_direct, _ = fir_apply(xs, taps, torch.zeros_like(hist),
+                                    decim=decim, precision=rung)
+            same = np.array_equal(snk.data(), y_direct.cpu().numpy())
+            y, _ = fir_apply(xs, taps, hist, decim=decim, precision=rung)
+            db = snr_db(y.cpu().numpy(), ref)
+            ms = cuda_ms(lambda: fir_apply(xs, taps, hist, decim=decim,
+                                           precision=rung), reps=5)
+            db_of[rung] = db
+            if rung == "int8":
+                xn = xs[:INT8_CPU_N]
+                y_n, _ = fir_apply(xn, taps, hist, decim=decim, precision=rung)
+                y_cpu, _ = fir_apply(xn.cpu(), taps, hist.cpu(), decim=decim,
+                                     precision=rung)
+                d = float((y_n.cpu() - y_cpu).abs().max() / y_cpu.abs().max())
+                held = (f"card vs CPU on the first 2^{INT8_CPU_N.bit_length() - 1}"
+                        f" samples {d:.2e} of the peak (tol 1e-6)")
+                ok = d <= 1e-6
+            else:
+                need = RUNG_DB.get(rung, 90.0)
+                top = (db_of["highest"] - HIGH_BELOW_F32_DB if rung == "high"
+                       else ONE_PASS_MAX_DB if rung in ("default", "bf16")
+                       else float("inf"))
+                held = (f"contract {'≥' if rung == 'high' else '>'} {need:.0f}"
+                        + (f", ceiling {top:.2f}" if top < float("inf") else ""))
+                ok = need <= db < top
+            print(f"  {rung:8s} {db:7.2f} dB ({held}); {ms:.4f} ms; FirFilter "
+                  f"block equal to fir_apply: {same}")
+            paths.append({"name": f"phase 22 FIR {rung} {label}", "snr_db": db,
+                          "ms": ms, "fir_banded_ms": t_kernel})
+            check(same and ok, f"FIR rung {rung} at {label}: {db:.2f} dB; {held}")
+    lap("d FIR rungs")
+
+    # (e) the FFT's matmul engines
+    n = 4096
+    xf = torch.randn((SUITE_BLOCK_LEN // n, n), dtype=torch.complex64,
+                     device=dev, generator=gen)
+    ref = np.fft.fft(xf.cpu().numpy().astype(np.complex128), axis=-1)
+    from gnuradio4_tpu_torch.ops.fft import MATMUL_ENGINES, matmul_fft
+    t_cufft = cuda_ms(lambda: torch.fft.fft(xf, dim=-1), reps=5)
+    print(f"[22e FFT engines] 4096-point FFTs over 2^22 samples: cuFFT "
+          f"{t_cufft:.4f} ms, {snr_db(torch.fft.fft(xf, dim=-1).cpu().numpy(), ref):.2f} dB")
+    db_of = {}
+    for eng in ("matmul_exact", "matmul", "matmul_bf16"):
+        mode = MATMUL_ENGINES[eng]
+        y = matmul_fft(xf, n, mode=mode)
+        db = db_of[eng] = snr_db(y.cpu().numpy(), ref)
+        ms = cuda_ms(lambda: matmul_fft(xf, n, mode=mode), reps=5)
+        top = {"matmul": db_of["matmul_exact"] - HIGH_BELOW_F32_DB,
+               "matmul_bf16": ONE_PASS_MAX_DB}.get(eng, float("inf"))
+        print(f"  {eng:12s} ({mode}) {db:7.2f} dB (contract ≥ {FFT_DB[eng]:.0f}"
+              + (f", ceiling {top:.2f}" if top < float("inf") else "")
+              + f"); {ms:.4f} ms")
+        paths.append({"name": f"phase 22 FFT {eng}", "snr_db": db, "ms": ms,
+                      "cufft_ms": t_cufft})
+        check(FFT_DB[eng] <= db < top, f"FFT engine {eng}: {db:.2f} dB")
+    lap("e FFT engines")
+    print(f"[22 seconds] wall s by sub-phase {({k: round(v, 2) for k, v in secs.items()})}"
+          f"; phase 22 {sum(secs.values()):.1f} s")
+    paths.append({"name": "phase 22 seconds", "seconds": sum(secs.values()),
+                  "by_sub_phase": secs})
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2191,6 +2513,7 @@ def main() -> int:
     paths += suite_phases(dev, gen, results)
     yaml_phases(dev, card, phase45, paths)
     del phase45
+    loop_phases(dev, paths)
 
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "share_of_bound", "library_ms")

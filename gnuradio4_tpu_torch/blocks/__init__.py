@@ -1,4 +1,4 @@
 """Block library of the port; importing it populates the global registry."""
 
-from . import (basic, channelizer, fileio, filter, fourier, ldpc,  # noqa: F401
-               math, sdr, testing)
+from . import (basic, channelizer, dsp_extras, fileio, filter,  # noqa: F401
+               fourier, ldpc, math, misc, sdr, testing)

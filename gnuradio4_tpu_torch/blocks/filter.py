@@ -45,9 +45,13 @@ class FirFilter(Block):
     decim = Setting(default=1, kind="static", limits=(1, 1 << 16))
     precision = Setting(default="auto", kind="static", choices=PRECISIONS,
                         description="precision rung of this block's FIR: "
-                                    "auto/highest = full float32; the other "
-                                    "rungs are not ported to this package "
-                                    "yet and raise")
+                                    "auto → the banded kernel in full "
+                                    "float32; an explicit rung takes the "
+                                    "matmul path (host taps, ntaps<=512, "
+                                    "else GrError): highest = float32, "
+                                    "high = bf16×3, default/bf16 = one bf16 "
+                                    "pass, int8 = int8 × int8 (ops/"
+                                    "precision.py)")
     uncertain = Setting(default=False, kind="static",
                         description="input is a 2-plane (value, sigma) stream "
                                     "(not ported to this package yet; raises)")

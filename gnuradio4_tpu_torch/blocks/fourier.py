@@ -2,9 +2,10 @@
 
 The FFT block consumes ``k·fft_size`` samples per step and emits the spectra as a
 stream (one spectrum per chunk, concatenated), through ``torch.fft.fft`` or,
-with ``engine="matmul_exact"``, the four-step float32 matmul FFT
-(ops/fft.py ``matmul_fft``). ``IFFT`` is the inverse (complex in, complex
-out); its ``auto`` engine is decided from the device.
+with ``engine="matmul_exact"|"matmul"|"matmul_bf16"``, the four-step matmul
+FFT (ops/fft.py ``matmul_fft``) at the precision rung ``highest``, ``high``
+or ``bf16``. ``IFFT`` is the inverse (complex in, complex out); its ``auto``
+engine is decided from the device.
 """
 
 from __future__ import annotations
@@ -15,22 +16,12 @@ import numpy as np
 import torch
 
 from ..core.block import Block, Port
-from ..core.errors import GrError
 from ..core.registry import register_block
 from ..core.settings import Setting
 from ..core.stream import torch_dtype
 from ..ops.fft import (MATMUL_ENGINES, fftshift, magnitude, magnitude_db,
                        matmul_fft, spectrum_scale)
 from ..ops.windows import WINDOWS, make_window
-
-
-def _check_engine(block) -> None:
-    eng = str(block.settings.get("engine"))
-    if eng in ("matmul", "matmul_bf16"):
-        raise GrError(f"{block.name}: engine {eng!r} (the "
-                      f"{MATMUL_ENGINES[eng]!r} precision rung of the matmul "
-                      f"FFT) is not ported to this package yet; "
-                      f"'matmul_exact' is", block=block.name)
 
 
 def _matmul_size(n: int) -> bool:
@@ -42,8 +33,8 @@ def _matmul_size(n: int) -> bool:
 
 def _fft(frames: torch.Tensor, n: int, engine: str) -> torch.Tensor:
     """Forward transform of the last axis by ``engine``."""
-    if engine == "matmul_exact" and _matmul_size(n):
-        return matmul_fft(frames, n)
+    if engine in MATMUL_ENGINES and _matmul_size(n):
+        return matmul_fft(frames, n, mode=MATMUL_ENGINES[engine])
     return torch.fft.fft(frames, dim=-1)
 
 
@@ -73,9 +64,8 @@ class FFT(Block):
                      description="auto/xla → torch.fft; matmul_exact → "
                                  "four-step float32 matmul FFT (power-of-two "
                                  "sizes 64..65536, else torch.fft); matmul "
-                                 "and matmul_bf16 (lower precision rungs) "
-                                 "are not ported to this package yet and "
-                                 "raise")
+                                 "→ the same at the 'high' rung (bf16×3 on "
+                                 "the card), matmul_bf16 → one bf16 pass")
 
     def __init__(self, name=None, **settings):
         super().__init__(name=name, **settings)
@@ -133,7 +123,6 @@ class FFT(Block):
                         else np.float32)
 
     def init_state(self, ctx):
-        _check_engine(self)
         n = int(self.settings.get("fft_size"))
         s = self._stride()
         if s >= n:
@@ -188,9 +177,9 @@ class FFT(Block):
 
 @register_block("IFFT")
 class IFFT(Block):
-    """Inverse chunked FFT (complex in → complex out). ``engine=matmul_exact``
-    runs the inverse as the conjugate of the float32 four-step transform
-    (IFFT(x) = conj(FFT(conj(x)))/N). ``auto`` is torch.fft on every device:
+    """Inverse chunked FFT (complex in → complex out). ``engine=matmul*``
+    runs the inverse as the conjugate of the four-step transform at that
+    engine's rung (IFFT(x) = conj(FFT(conj(x)))/N). ``auto`` is torch.fft on every device:
     the JAX package's CPU choice, and on CUDA (cuFFT) the faster engine. cuFFT
     against the float32 matmul inverse over 2^22 samples on an NVIDIA H100
     80GB HBM3, 700.00 W (PERF.md §6): 0.0528 / 0.5515 ms at fft_size 1024,
@@ -208,7 +197,6 @@ class IFFT(Block):
         return int(self.settings.get("fft_size"))
 
     def init_state(self, ctx):
-        _check_engine(self)
         return None
 
     def apply(self, state, ins, ctx):
@@ -216,8 +204,9 @@ class IFFT(Block):
         n = int(self.settings.get("fft_size"))
         xr = x.reshape(*x.shape[:-1], -1, n)
         eng = str(self.settings.get("engine"))
-        if eng == "matmul_exact" and _matmul_size(n):
-            y = torch.conj(matmul_fft(torch.conj(xr).resolve_conj(), n)) \
+        if eng in MATMUL_ENGINES and _matmul_size(n):
+            y = torch.conj(matmul_fft(torch.conj(xr).resolve_conj(), n,
+                                      mode=MATMUL_ENGINES[eng])) \
                 * float(np.float32(1.0 / n))
         else:
             y = torch.fft.ifft(xr, dim=-1)

@@ -1,18 +1,22 @@
 """Deterministic test/instrumentation blocks (≈ reference blocks/testing/:
 NullSource/NullSink, ConstantSource, CountingSource, CountingSink, Copy,
 HeadBlock, VectorSource/VectorSink, TagSource/TagSink/TagMonitor, Delay,
-SettingsChangeRecorder — NullSources.hpp, TagMonitors.hpp, Delay.hpp,
-CollectionTestBlocks.hpp). They drive the golden-value tests: deterministic
-sources → block under test → capturing sinks."""
+SettingsChangeRecorder, SlowSource, SimCompute, PerformanceMonitor,
+ArraySource/ArraySink — NullSources.hpp, TagMonitors.hpp, Delay.hpp,
+PerformanceMonitor.hpp, CollectionTestBlocks.hpp). They drive the
+golden-value tests: deterministic sources → block under test → capturing
+sinks."""
 
 from __future__ import annotations
 
+import time
 from typing import Any
 
 import numpy as np
 import torch
 
 from ..core.block import Block, Port, SinkBlock, SourceBlock
+from ..core.errors import GrError
 from ..core.registry import register_block
 from ..core.settings import Setting
 from ..core.stream import canonical_dtype, torch_dtype
@@ -394,3 +398,125 @@ class SettingsChangeRecorder(Block):
     def process_tags(self, in_tags, ctx):
         self._step = ctx.step
         return super().process_tags(in_tags, ctx)
+
+
+@register_block("SlowSource")
+class SlowSource(ConstantSource):
+    """Wall-clock-throttled source (≈ SlowSource, NullSources.hpp): sleeps
+    ``delay_s`` per feed step to simulate a slow producer."""
+
+    delay_s = Setting(default=0.01, limits=(0.0, 10.0))
+
+    def host_done(self, abs_out, n):
+        time.sleep(float(self.settings.get("delay_s")))
+        return super().host_done(abs_out, n)
+
+
+@register_block("SimCompute")
+class SimCompute(Block):
+    """Simulated compute load: N fused multiply-adds per sample (≈ SimCompute with
+    target_throughput; here the knob is explicit ops/sample)."""
+
+    IN = (Port("in"),)
+    OUT = (Port("out"),)
+    ops_per_sample = Setting(default=64, kind="static", limits=(1, 1 << 20))
+
+    def apply(self, state, ins, ctx):
+        y = ins["in"]
+        for _ in range(int(self.settings.get("ops_per_sample"))):
+            y = y * 1.0000001 + 1e-9
+        return state, {"out": y}
+
+
+@register_block("PerformanceMonitor")
+class PerformanceMonitor(SinkBlock):
+    """Measures delivered samples/s at its input (≈ PerformanceMonitor.hpp)."""
+
+    IN = (Port("in"),)
+    WANTS_HOST_DATA = False
+    CONSUME_IGNORES_DATA = True   # rate metering never reads contents
+
+    def __init__(self, name=None, **settings):
+        super().__init__(name=name, **settings)
+        self.n = 0
+        self.t0: float | None = None
+        self.t_last: float | None = None
+
+    def consume(self, arrays, tags, n_valid, abs_index):
+        now = time.monotonic()
+        if self.t0 is None:
+            self.t0 = now
+        self.t_last = now
+        self.n += n_valid
+
+    @property
+    def samples_per_second(self) -> float:
+        if self.t0 is None or self.t_last is None or self.t_last <= self.t0:
+            return 0.0
+        return self.n / (self.t_last - self.t0)
+
+
+@register_block("ArraySource")
+class ArraySource(SourceBlock):
+    """Multi-port playback source: one host array per output port
+    (≈ ArraySource qa helper, CollectionTestBlocks.hpp). All arrays must share
+    the trailing (time) length; ports are named out0..outN-1."""
+
+    OUT = ()
+    FEED = True
+    repeat = Setting(default=False, kind="static")
+
+    def __init__(self, arrays=(), name=None, **settings):
+        super().__init__(name=name, **settings)
+        self.arrays = [np.asarray(a) for a in arrays]
+        if not self.arrays:
+            raise GrError("ArraySource needs at least one array")
+        if len({a.shape[-1] for a in self.arrays}) != 1:
+            raise GrError("ArraySource arrays must share the time length")
+        self.out_ports = tuple(Port(f"out{i}") for i in range(len(self.arrays)))
+
+    def out_dtype(self, port, in_dtypes):
+        return self.arrays[int(port[3:])].dtype
+
+    def out_channels(self, port, in_channels):
+        a = self.arrays[int(port[3:])]
+        return 0 if a.ndim <= 1 else a.shape[0]
+
+    def host_feed(self, n, abs_index):
+        total = self.arrays[0].shape[-1]
+        if self.settings.get("repeat"):
+            idx = (np.arange(abs_index, abs_index + n) % total)
+            return {f"out{i}": a[..., idx] for i, a in enumerate(self.arrays)}, n
+        if abs_index >= total:
+            return None
+        out = {f"out{i}": a[..., abs_index:abs_index + n]
+               for i, a in enumerate(self.arrays)}
+        return out, self.arrays[0][..., abs_index:abs_index + n].shape[-1]
+
+    def apply(self, state, ins, ctx):
+        return state, dict(ins)
+
+
+@register_block("ArraySink")
+class ArraySink(SinkBlock):
+    """Multi-port collecting sink: captures each input port into its own list
+    (≈ ArraySink qa helper). ``data(i)`` returns port i's concatenated stream."""
+
+    IN = ()
+
+    def __init__(self, n_inputs: int = 1, name=None, **settings):
+        super().__init__(name=name, **settings)
+        self.in_ports = tuple(Port(f"in{i}") for i in range(int(n_inputs)))
+        self._chunks: dict[str, list[np.ndarray]] = \
+            {p.name: [] for p in self.in_ports}
+
+    def consume(self, arrays, tags, n_valid, abs_index):
+        for pname, arr in arrays.items():
+            if n_valid > 0:
+                self._chunks[pname].append(np.asarray(arr[..., :n_valid]))
+
+    def data(self, port: int = 0) -> np.ndarray:
+        chunks = self._chunks[f"in{port}"]
+        if not chunks:
+            return np.zeros(0)
+        return np.concatenate(chunks, axis=-1)

@@ -12,12 +12,19 @@ tensors. Host-fed sources (``FEED`` blocks) see their fed arrays as inputs.
 
 Static shapes: per-edge samples-per-step come from Graph.resolve_rates (the rate
 algebra replacing the reference's per-work() computeResampling, Block.hpp:1611).
+
+Feedback loops (≈ reference feedback merges, BlockMerging.hpp:628-645): each
+cycle closed by a ``feedback=True`` edge is contracted into a loop group that
+runs as a Python loop over ``delay``-sized sub-steps. The back-edge values are
+the loop's carry, one sub-step behind; they persist across steps as the
+``__fb__<i>`` state, seeded from the edges' ``fb_init``.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
+from fractions import Fraction
 from typing import Any
 
 import numpy as np
@@ -68,15 +75,25 @@ class CompiledGraph:
     # when they run, so a static change applied before its recompile runs
     # with these (the scheduler's ``_compiled_statics``)
     statics: dict[str, dict[str, Any]] = dataclasses.field(default_factory=dict)
+    # the step's execution order: blocks, with each feedback loop group
+    # contracted into one dict ``{members, order, delay, fb, fb_keys,
+    # state_key, outputs}`` at its place in the condensed topological order
+    exec_plan: list[Any] = dataclasses.field(default_factory=list)
+    loop_groups: list[dict] = dataclasses.field(default_factory=list)
+    fb_init_states: dict[str, Any] = dataclasses.field(default_factory=dict)
     _params_cache: Any = None
     _zero_feeds_cache: Any = None
     _pump_plan: Any = None
     _tag_plan: Any = None
 
     def init_states(self) -> dict[str, Any]:
-        """Fresh block states, created on the graph's device."""
-        return {b.unique_name: b.init_state(self.block_ctx[b.unique_name])
-                for b in self.order}
+        """Fresh block states (and the loops' back-edge values, from their
+        ``fb_init``), created on the graph's device."""
+        states = {b.unique_name: b.init_state(self.block_ctx[b.unique_name])
+                  for b in self.order}
+        states.update({k: {fk: v.clone() for fk, v in fb.items()}
+                       for k, fb in self.fb_init_states.items()})
+        return states
 
     def gather_params(self, refresh: bool = True) -> dict[str, dict[str, Any]]:
         """Dynamic params (host values) for the next step. Blocks that override
@@ -152,11 +169,78 @@ class CompiledGraph:
             self._tag_plan = plan
         return self._tag_plan
 
+    def _run_loop_group(self, group, states, params, values, new_states):
+        """One step of a feedback loop group: S = T / delay sub-steps of
+        ``delay`` samples each. The external inputs are sliced as views, the
+        back-edge values and the member states are the carry, and the
+        outputs that leave the group are joined once after the loop."""
+        L = group["delay"]
+        members: list[Block] = group["order"]
+        member_names = group["members"]
+        fb_keys = group["fb_keys"]
+        S = self.in_len[members[0].unique_name] // L
+        plan = []
+        for b in members:
+            uname = b.unique_name
+            lctx = dataclasses.replace(
+                self.block_ctx[uname], params=params.get(uname, {}),
+                in_len={p.name: L for p in b.in_ports},
+                out_len={p.name: L for p in b.out_ports})
+            srcs = []
+            for e in self.in_edges[uname]:
+                skey = (e.src.unique_name, e.src_port)
+                if e.feedback:
+                    srcs.append((e.dst_port, "fb", fb_keys[skey]))
+                elif e.src.unique_name in member_names:
+                    srcs.append((e.dst_port, "val", skey))
+                else:
+                    srcs.append((e.dst_port, "ext", values[skey]))
+            plan.append((b, uname, lctx, srcs))
+        fb = states[group["state_key"]]     # init_states seeds it
+        sts = {b.unique_name: states.get(b.unique_name) for b in members}
+        outputs = group["outputs"]
+        pieces: dict[tuple[str, str], list[torch.Tensor]] = \
+            {k: [] for k in outputs}
+        for s in range(S):
+            lo, hi = s * L, (s + 1) * L
+            vals: dict[tuple[str, str], torch.Tensor] = {}
+            for b, uname, lctx, srcs in plan:
+                ins = {}
+                for port, kind, ref in srcs:
+                    if kind == "fb":
+                        ins[port] = fb[ref]
+                    elif kind == "val":
+                        ins[port] = vals[ref]
+                    else:
+                        ins[port] = ref[..., lo:hi]
+                st, outs = b.apply(sts[uname], ins, lctx)
+                sts[uname] = st
+                for pname, arr in outs.items():
+                    vals[(uname, pname)] = arr
+            fb = {fk: vals[skey] for skey, fk in fb_keys.items()}
+            for key in outputs:
+                pieces[key].append(vals[key])
+        new_states[group["state_key"]] = fb
+        new_states.update(sts)
+        for key, parts in pieces.items():
+            values[key] = torch.cat(parts, dim=-1)
+
     def _substep(self, states, params, feeds):
         values: dict[tuple[str, str], torch.Tensor] = {}
         new_states: dict[str, Any] = {}
         sink_ins: dict[str, dict[str, torch.Tensor]] = {}
-        for b in self.order:
+        for b in self.exec_plan:
+            if isinstance(b, dict):      # a contracted feedback loop group
+                try:
+                    self._run_loop_group(b, states, params, values,
+                                         new_states)
+                except GrError:
+                    raise
+                except Exception as e:
+                    names = [m.name for m in b["order"]]
+                    raise GrError(f"feedback loop {names} failed: "
+                                  f"{type(e).__name__}: {e}") from e
+                continue
             uname = b.unique_name
             ctx = dataclasses.replace(self.block_ctx[uname],
                                       params=params.get(uname, {}))
@@ -210,6 +294,153 @@ class CompiledGraph:
                         for u in per[0]}
 
 
+def _fb_init_values(group: dict, out_channels: dict, out_dtypes: dict,
+                    device: torch.device) -> dict[str, torch.Tensor]:
+    """Initial back-edge values: fb_init broadcast over [channels?, delay]."""
+    fb0 = {}
+    for e in group["fb"]:
+        key = (e.src.unique_name, e.src_port)
+        ch = out_channels[key]
+        shape = (group["delay"],) if ch == 0 else (ch, group["delay"])
+        fb0[group["fb_keys"][key]] = torch.full(
+            shape, e.fb_init, dtype=torch_dtype(out_dtypes[key]),
+            device=device)
+    return fb0
+
+
+def _plan_feedback(flat: Graph, order: list[Block], fb_edges: list[Edge],
+                   in_len: dict[str, int], sink_names: list[str],
+                   fed_names: set[str]) -> tuple[list[Any], list[dict]]:
+    """Identify feedback-loop groups and build a contracted execution plan.
+
+    A loop group = the blocks on any forward path from a feedback edge's dst to
+    its src (overlapping groups merge). The plan is a topological order over
+    the condensation: plain blocks interleaved with group dicts
+    ``{members, order, delay, fb, fb_keys, state_key, outputs}``; ``outputs``
+    are the members' output ports that blocks outside the group read.
+    """
+    fwd_out: dict[str, list[Edge]] = {b.unique_name: [] for b in flat.blocks}
+    for e in flat.edges:
+        if not e.feedback:
+            fwd_out[e.src.unique_name].append(e)
+
+    def descendants(u0: str) -> set[str]:
+        seen: set[str] = set()
+        stack = [u0]
+        while stack:
+            u = stack.pop()
+            for e in fwd_out[u]:
+                v = e.dst.unique_name
+                if v not in seen:
+                    seen.add(v)
+                    stack.append(v)
+        return seen
+
+    desc_cache = {b.unique_name: descendants(b.unique_name) for b in order}
+    raw_groups: list[set[str]] = []
+    for e in fb_edges:
+        d, s = e.dst.unique_name, e.src.unique_name
+        reach = desc_cache[d] | {d}
+        members = {u for u in reach if s == u or s in desc_cache[u]}
+        if s not in members:
+            raise GrError(f"feedback edge {e} closes no forward path "
+                          f"{e.dst.name} → {e.src.name}")
+        raw_groups.append(members)
+    merged: list[set[str]] = []
+    for g in raw_groups:
+        acc = set(g)
+        rest = []
+        for m in merged:
+            if m & acc:
+                acc |= m
+            else:
+                rest.append(m)
+        merged = rest + [acc]
+
+    by_uname = {b.unique_name: b for b in order}
+    groups: list[dict] = []
+    gid_of: dict[str, int] = {}
+    for gi, mem in enumerate(merged):
+        blocks = [b for b in order if b.unique_name in mem]  # topo within group
+        lens = {in_len[u] for u in mem}
+        for b in blocks:
+            if b.ratio != Fraction(1):
+                raise GrError(f"feedback loop member {b.name} has ratio "
+                              f"{b.ratio}; loop blocks must be rate-1")
+            if b.unique_name in sink_names or b.unique_name in fed_names:
+                raise GrError(f"feedback loop member {b.name} is a sink/"
+                              f"host-fed block; move it outside the loop")
+        if len(lens) != 1:
+            raise GrError(f"feedback loop {[b.name for b in blocks]} has "
+                          f"unequal step lengths {sorted(lens)}")
+        edges_in = [e for e in fb_edges if e.src.unique_name in mem]
+        # stable back-edge value keys (distinct src ports, group-local index):
+        # checkpoint-portable across processes and packages, unlike
+        # unique_names
+        fb_keys: dict[tuple[str, str], str] = {}
+        for e in edges_in:
+            k = (e.src.unique_name, e.src_port)
+            if k not in fb_keys:
+                fb_keys[k] = f"v{len(fb_keys)}"
+        delays = {e.delay for e in edges_in}
+        if len(delays) != 1:
+            raise GrError(f"feedback edges of one loop must share a delay; "
+                          f"got {sorted(delays)}")
+        delay = delays.pop()
+        n = lens.pop()
+        if n % delay:
+            raise GrError(f"feedback delay {delay} must divide the loop's "
+                          f"samples-per-step {n}")
+        outputs = []
+        for e in flat.edges:
+            k = (e.src.unique_name, e.src_port)
+            if not e.feedback and e.src.unique_name in mem \
+                    and e.dst.unique_name not in mem and k not in outputs:
+                outputs.append(k)
+        groups.append({"members": mem, "order": blocks, "delay": delay,
+                       "fb": edges_in, "fb_keys": fb_keys,
+                       "state_key": f"__fb__{gi}", "outputs": outputs})
+        for u in mem:
+            gid_of[u] = gi
+
+    # condensation topo sort (groups contracted to one node each)
+    def node_of(u: str):
+        return ("g", gid_of[u]) if u in gid_of else ("b", u)
+
+    nodes: list[tuple[str, Any]] = []
+    seen_nodes: set = set()
+    for b in order:
+        nd = node_of(b.unique_name)
+        if nd not in seen_nodes:
+            seen_nodes.add(nd)
+            nodes.append(nd)
+    indeg = {nd: 0 for nd in nodes}
+    succ: dict[Any, list[Any]] = {nd: [] for nd in nodes}
+    for e in flat.edges:
+        if e.feedback:
+            continue
+        a, b_ = node_of(e.src.unique_name), node_of(e.dst.unique_name)
+        if a != b_:
+            succ[a].append(b_)
+            indeg[b_] += 1
+    ready = [nd for nd in nodes if indeg[nd] == 0]
+    plan_nodes: list[Any] = []
+    while ready:
+        nd = ready.pop(0)
+        plan_nodes.append(nd)
+        for m in succ[nd]:
+            indeg[m] -= 1
+            if indeg[m] == 0:
+                ready.append(m)
+    if len(plan_nodes) != len(nodes):
+        raise GrError("feedback loop groups form a cycle among themselves; "
+                      "restructure the graph")
+    exec_plan: list[Any] = []
+    for kind, v in plan_nodes:
+        exec_plan.append(groups[v] if kind == "g" else by_uname[v])
+    return exec_plan, groups
+
+
 def _shape(channels: int, n: int) -> tuple[int, ...]:
     return (n,) if channels == 0 else (channels, n)
 
@@ -228,11 +459,6 @@ def compile_graph(graph: Graph, *, block_len: int = 1 << 16,
     device = default_device() if device is None else torch.device(device)
     graph = graph.flatten()
     graph.validate()
-    loops = [e for e in graph.edges if e.feedback]
-    if loops:
-        raise GrError(f"feedback loop groups are not ported to this package "
-                      f"yet; back-edges {loops} close loops through "
-                      f"{sorted({b.name for e in loops for b in (e.src, e.dst)})}")
     order = graph.topological_order()
     in_len, out_len = graph.resolve_rates(block_len, sample_rate)
 
@@ -245,7 +471,8 @@ def compile_graph(graph: Graph, *, block_len: int = 1 << 16,
     out_channels: dict[tuple[str, str], int] = {}
     out_dtypes: dict[tuple[str, str], Any] = {}
     for b in order:
-        ins = in_edges[b.unique_name]
+        # back-edges resolve afterwards, from their src's outputs
+        ins = [e for e in in_edges[b.unique_name] if not e.feedback]
         in_ch = {e.dst_port: out_channels[(e.src.unique_name, e.src_port)] for e in ins}
         in_dt = {e.dst_port: out_dtypes[(e.src.unique_name, e.src_port)] for e in ins}
         # input-side sample rate = the producing edges' resolved rate
@@ -299,6 +526,8 @@ def compile_graph(graph: Graph, *, block_len: int = 1 << 16,
             if desc is None:
                 continue
             outs = [e for e in graph.edges if e.src is b]
+            if any(e.feedback for e in outs):
+                continue
             if outs and all(getattr(e.dst, "absorb_rotation", None) is not None
                             and e.dst.absorb_rotation(desc, e.dst_port)
                             for e in outs):
@@ -314,6 +543,13 @@ def compile_graph(graph: Graph, *, block_len: int = 1 << 16,
     sink_names = [b.unique_name for b in order
                   if isinstance(b, SinkBlock) or not b.out_ports
                   or getattr(b, "HOST_TAP", False)]
+    fed_names = {b.unique_name for b in fed_blocks}
+    fb_edges = [e for e in graph.edges if e.feedback]
+    exec_plan: list[Any] = list(order)
+    loop_groups: list[dict] = []
+    if fb_edges:
+        exec_plan, loop_groups = _plan_feedback(
+            graph, order, fb_edges, in_len, sink_names, fed_names)
     batch_steps = int(batch_steps)
     if batch_steps < 1:
         raise GrError(f"batch_steps must be >= 1, got {batch_steps}")
@@ -324,4 +560,7 @@ def compile_graph(graph: Graph, *, block_len: int = 1 << 16,
         sample_rate=sample_rate,
         block_len=in_len[order[0].unique_name] if order else block_len,
         device=device, batch_steps=batch_steps,
-        statics={b.unique_name: b.settings.static_params() for b in order})
+        statics={b.unique_name: b.settings.static_params() for b in order},
+        exec_plan=exec_plan, loop_groups=loop_groups,
+        fb_init_states={g["state_key"]: _fb_init_values(
+            g, out_channels, out_dtypes, device) for g in loop_groups})

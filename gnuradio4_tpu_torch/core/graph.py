@@ -37,8 +37,9 @@ class Edge:
     min_buffer_size: int = 0
     weight: int = 0
     # feedback edges close graph cycles (≈ reference feedback merges,
-    # BlockMerging.hpp:628-645); the compiler does not lower them yet and
-    # raises naming the loop
+    # BlockMerging.hpp:628-645): dst sees src's output ``delay`` samples
+    # late, initialized to ``fb_init``; the compiler runs the cycle as a loop
+    # of delay-sized sub-steps
     feedback: bool = False
     delay: int = 1
     fb_init: float = 0.0
@@ -99,9 +100,8 @@ class Graph(Block):
                 fb_init: float = 0.0) -> Edge:
         """Connect an output port to an input port. Accepts ``blk["port"]`` refs,
         bare blocks (single-port inference), or string port names.
-        ``feedback=True`` declares a loop's back-edge (dst sees src delayed by
-        ``delay`` samples); compiling such a graph raises until loop groups are
-        ported."""
+        ``feedback=True`` closes a cycle: dst sees src's output delayed by
+        ``delay`` samples (initial value ``fb_init``)."""
         sref = self._resolve(src, src_port, output=True)
         dref = self._resolve(dst, dst_port, output=False)
         for b in (sref.block, dref.block):
@@ -219,8 +219,9 @@ class Graph(Block):
                     ready.append(e.dst)
         if len(order) != len(self.blocks):
             cyc = [b.name for b in self.blocks if b not in order]
-            raise GrError(f"graph has a cycle involving {cyc}; feedback loops are "
-                          f"not supported by this package yet")
+            raise GrError(f"graph has a cycle involving {cyc}; close loops with "
+                          f"connect(..., feedback=True, delay=N) so the "
+                          f"back-edge becomes a delayed loop carry")
         return order
 
     def validate(self) -> None:

@@ -25,7 +25,8 @@ from typing import Any
 import numpy as np
 
 from .errors import GrError
-from .yaml_lite import Node, read, resolve_plain, yaml_float, yaml_int
+from .yaml_lite import (Node, read, resolve_plain, scalar_text, yaml_float,
+                        yaml_int)
 
 _INT_TAGS = {f"{s}{w}": np.dtype(f"{s}{w}")
              for s in ("int", "uint") for w in (8, 16, 32, 64)}
@@ -246,7 +247,9 @@ def _np_tag(v: Any) -> str:
 
 def _emit(v: Any, indent: int, out: list[str], key: str | None = None) -> None:
     pad = "  " * indent
-    head = f"{pad}{key}:" if key is not None else f"{pad}-"
+    # a key that YAML 1.1 would read as another type (no, on, null, 1) is
+    # quoted; the reference writes it plain and then cannot load it back
+    head = f"{pad}{scalar_text(key)[0]}:" if key is not None else f"{pad}-"
     tag = _np_tag(v)
     if isinstance(v, dict):
         if not v:

@@ -38,6 +38,7 @@ import numpy as np
 import torch
 
 from ..core.errors import GrError
+from .precision import rung_dot
 from .signal import MASK32, nco_phases
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -280,19 +281,6 @@ def fir_banded(x: torch.Tensor, hist: torch.Tensor, taps, decim: int = 1
 fir_banded.launches = 0
 
 
-def check_f32_matmul(site: str) -> None:
-    """The plain FIR's banded products and the blocked one-pole's Toeplitz
-    product (ops/iir.py) are float32 or complex64 matmuls; TF32 would keep ~3
-    decimal digits. Refuse to run under any setting that allows it."""
-    if torch.get_float32_matmul_precision() != "highest" \
-            or torch.backends.cuda.matmul.allow_tf32:
-        raise GrError(f"{site}: float32 matmuls must run in full float32 "
-                      f"(torch.get_float32_matmul_precision() == 'highest' and "
-                      f"torch.backends.cuda.matmul.allow_tf32 False); got "
-                      f"{torch.get_float32_matmul_precision()!r}, allow_tf32="
-                      f"{torch.backends.cuda.matmul.allow_tf32}")
-
-
 def _next_pow2(v: int) -> int:
     p = 1
     while p < v:
@@ -328,26 +316,28 @@ def _toeplitz_np(taps_key, ntaps: int, tile: int, decim: int) -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=64)
-def _banded_weights(taps_key, tile: int, decim: int, np_dt: str
+def _banded_weights(taps_key, tile: int, decim: int
                     ) -> tuple[np.ndarray, np.ndarray]:
-    """(W_lo, W_hi) [tile, tile/decim], read-only host arrays: the Toeplitz
-    split so that y[m] = A[m] @ W_lo + A[m+1] @ W_hi over rows A of the padded
-    stream."""
+    """(W_lo, W_hi) [tile, tile/decim], read-only float32 host arrays: the
+    real Toeplitz split so that y[m] = A[m] @ W_lo + A[m+1] @ W_hi over rows
+    A of the padded stream."""
     k = len(taps_key)
     w = _toeplitz_np(taps_key, k, tile, decim)
     w_hi = np.zeros_like(w[:tile])
     w_hi[: k - 1] = w[tile:]
-    return frozen(np.ascontiguousarray(w[:tile], np_dt),
-                  np.ascontiguousarray(w_hi, np_dt))
+    return frozen(np.ascontiguousarray(w[:tile], np.float32),
+                  np.ascontiguousarray(w_hi, np.float32))
 
 
-def fir_banded_ref(x: torch.Tensor, hist: torch.Tensor, taps, decim: int = 1
-                   ) -> torch.Tensor:
+def fir_banded_ref(x: torch.Tensor, hist: torch.Tensor, taps, decim: int = 1,
+                   *, mode: str = "highest") -> torch.Tensor:
     """Plain version of :func:`fir_banded`: the JAX package's ``_fir_matmul``
     (gnuradio4_tpu/ops/fir.py) — zero-copy two-view banded matmul. The stream
     ``xc = [hist, x]`` is zero-padded to ``(n+1)`` tiles and viewed as rows
-    A [n+1, tile]; ``y[m] = A[m] @ W_lo + A[m+1] @ W_hi`` in full float32."""
-    check_f32_matmul("fir_banded_ref")
+    A [n+1, tile]; ``y[m] = A[m] @ W_lo + A[m+1] @ W_hi`` on real rails
+    (complex streams and taps split into re/im), each product through
+    :func:`~.precision.rung_dot` at the precision rung ``mode`` (the plain
+    version runs ``highest``: full float32)."""
     taps_np = _host_taps(taps)
     squeeze = x.ndim == 1
     x2 = x[None] if squeeze else x
@@ -364,25 +354,28 @@ def fir_banded_ref(x: torch.Tensor, hist: torch.Tensor, taps, decim: int = 1
     total = (n + 1) * tile
     if total != tc:
         xc = torch.cat([xc, xc.new_zeros(b, total - tc)], dim=-1)
-    a = xc.reshape(b, n + 1, tile)
     cx_t = np.iscomplexobj(taps_np)
+    cx_x = xc.is_complex()
 
-    def banded(rows, key, np_dt):
-        lo, hi = (device_constant(w, xc.device)
-                  for w in _banded_weights(key, tile, decim, np_dt))
-        return rows[:, :-1] @ lo + rows[:, 1:] @ hi
+    def banded(rows, h):
+        lo, hi = (device_constant(w, xc.device) for w in _banded_weights(
+            tuple(h.tolist()), tile, decim))
+        return (rung_dot(rows[:, :-1], lo, mode)
+                + rung_dot(rows[:, 1:], hi, mode))
 
-    real_key = tuple((taps_np.real if cx_t else taps_np).tolist())
-    if xc.is_complex() and cx_t:
-        y = banded(a, tuple(taps_np.tolist()), "complex64")
-    elif xc.is_complex():
-        y = torch.complex(banded(a.real, real_key, "float32"),
-                          banded(a.imag, real_key, "float32"))
-    elif cx_t:
-        y = torch.complex(banded(a, real_key, "float32"),
-                          banded(a, tuple(taps_np.imag.tolist()), "float32"))
+    rails = (xc.real, xc.imag) if cx_x else (xc, None)
+    ar, ai = (r.to(torch.float32).reshape(b, n + 1, tile)
+              if r is not None else None for r in rails)
+    if not (cx_x or cx_t):
+        y = banded(ar, taps_np)
+    elif not cx_t:
+        y = torch.complex(banded(ar, taps_np), banded(ai, taps_np))
+    elif not cx_x:
+        y = torch.complex(banded(ar, taps_np.real), banded(ar, taps_np.imag))
     else:
-        y = banded(a, real_key, "float32")
+        y = torch.complex(
+            banded(ar, taps_np.real) - banded(ai, taps_np.imag),
+            banded(ar, taps_np.imag) + banded(ai, taps_np.real))
     y = y.reshape(b, -1)[:, : t // decim]
     return y[0] if squeeze else y
 

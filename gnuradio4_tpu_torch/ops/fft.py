@@ -3,7 +3,8 @@
 The transform itself is ``torch.fft.fft`` (cuFFT on the card); this module holds
 the views the FFT block emits (magnitude, dB, shift, the calibration scale) and
 the four-step matmul FFT (:func:`matmul_fft`) behind the FFT/IFFT blocks'
-``matmul_exact`` engine.
+``matmul``, ``matmul_exact`` and ``matmul_bf16`` engines (the precision rungs
+``high``, ``highest`` and ``bf16`` of ``ops/precision.py``).
 """
 
 from __future__ import annotations
@@ -14,11 +15,11 @@ import numpy as np
 import torch
 
 from ..core.errors import GrError
-from .cuda_kernels import check_f32_matmul, device_constant, frozen
+from .cuda_kernels import device_constant, frozen
+from .precision import rung_dot
 from .windows import enbw
 
-# the matmul FFT's precision rungs by engine name; only 'highest' (float32
-# products, TF32 off) is ported so far
+# the matmul FFT's precision rungs by engine name
 MATMUL_ENGINES = {"matmul": "high", "matmul_exact": "highest",
                   "matmul_bf16": "bf16"}
 
@@ -85,16 +86,18 @@ def _fft_rails(fft_size: int, n1: int) -> tuple[np.ndarray, ...]:
 
 def matmul_fft(x: torch.Tensor, fft_size: int, *, n1: int | None = None,
                mode: str = "highest") -> torch.Tensor:
-    """FFT over the trailing axis as two matmul stages in float32.
+    """FFT over the trailing axis as two matmul stages: the JAX package's
+    rail-decomposed four-step FFT.
 
     x: [..., fft_size] (real or complex) → complex64 [..., fft_size]. ``n1``
     picks the split (default ≈ √N, a power of two); ``mode`` is the precision
-    rung: only 'highest' (full float32 products, checked by
-    ``check_f32_matmul``) is ported; 'high' and 'bf16' raise ``GrError``."""
-    if mode != "highest":
-        raise GrError(f"matmul_fft: precision rung {mode!r} is not ported to "
-                      f"this package yet; only 'highest' (full float32) exists")
-    check_f32_matmul("matmul_fft")
+    rung of both stages (:func:`~.precision.rung_dot`): 'highest' (full
+    float32 products, checked by ``check_f32_matmul``), 'high' (bf16×3 on the
+    card, exact float32 on the CPU) or 'bf16' (one bf16 pass; bf16-rounded
+    operands with float32 sums on the CPU)."""
+    if mode not in ("highest", "high", "bf16"):
+        raise GrError(f"matmul_fft: unknown precision rung {mode!r}; known: "
+                      f"'highest', 'high', 'bf16'")
     if n1 is None:
         n1 = 1 << ((fft_size.bit_length() - 1) // 2)   # ~sqrt, power of two
     n2 = fft_size // n1
@@ -104,19 +107,24 @@ def matmul_fft(x: torch.Tensor, fft_size: int, *, n1: int | None = None,
     a = x.reshape(*lead, n1, n2)
     f1r, f1i, twr, twi, f2r, f2i = (device_constant(a, x.device)
                                     for a in _fft_rails(fft_size, n1))
-    ar = (a.real if a.is_complex() else a).to(torch.float32)
-    # stage 1: contract n1 → Y[..., k1, n2] = F1ᵀ @ a
-    if a.is_complex():
-        ai = a.imag.to(torch.float32)
-        yr = f1r @ ar - f1i @ ai
-        yi = f1r @ ai + f1i @ ar
-    else:
-        yr, yi = f1r @ ar, f1i @ ar
+
+    def cx_dot(ar, ai, wr, wi):
+        dot = lambda v, w: rung_dot(v, w, mode)
+        if ai is None:
+            return dot(ar, wr), dot(ar, wi)
+        return dot(ar, wr) - dot(ai, wi), dot(ar, wi) + dot(ai, wr)
+
+    # stage 1 contracts n1 (einsum '...ns,nk->...ks'): rows over n2
+    ar = (a.real if a.is_complex() else a).to(torch.float32).transpose(-1, -2)
+    ai = a.imag.to(torch.float32).transpose(-1, -2) if a.is_complex() \
+        else None
+    yr, yi = cx_dot(ar, ai, f1r.T, f1i.T)            # [..., n2, k1]
     # twiddle (elementwise, float32 constants)
+    yr, yi = yr.transpose(-1, -2), yi.transpose(-1, -2)
     zr = yr * twr - yi * twi
     zi = yr * twi + yi * twr
-    # stage 2: contract n2 → Z[..., k1, k2]
-    zr, zi = zr @ f2r - zi @ f2i, zr @ f2i + zi @ f2r
+    # stage 2 contracts n2 → Z[..., k1, k2]
+    zr, zi = cx_dot(zr, zi, f2r, f2i)
     # output index k = k1 + N1·k2 → lay out k2-major then flatten
     return torch.complex(zr.transpose(-1, -2).reshape(*lead, fft_size),
                          zi.transpose(-1, -2).reshape(*lead, fft_size))

@@ -14,7 +14,10 @@ samples (the exact analog of the HistoryBuffer tail); each step filters
   complex streams: :func:`~.cuda_kernels.fir_banded`, the hand-written CUDA
   kernel for a CUDA tensor, its plain banded-matmul version for a CPU tensor;
 - ``matmul``: the banded-Toeplitz ``torch.matmul`` form (the JAX package's
-  ``_fir_matmul``, i.e. :func:`~.cuda_kernels.fir_banded_ref` on any device);
+  ``_fir_matmul``: :func:`~.cuda_kernels.fir_banded_ref` at the precision
+  rung, see ``ops/precision.py``);
+- ``matmul_int8``: the same product with row-quantized int8 frames against
+  a globally scaled int8 Toeplitz (:func:`_fir_matmul_int8`);
 - ``matmul_ilv``: the same product on the ``view_as_real`` of a complex
   stream against the interleaved Toeplitz (a real stream takes ``matmul``);
 - ``fft``: FFT overlap-save over ``torch.fft``;
@@ -25,11 +28,19 @@ samples (the exact analog of the HistoryBuffer tail); each step filters
 (:func:`~.cuda_kernels.fir_demod`); :func:`fir_interpolate` and
 :func:`fir_resample_matmul` are the polyphase interpolator and the one-matmul
 rational resampler.
+
+The precision rungs (``precision=``, the JAX package's ladder): an explicit
+rung with host taps and K ≤ 512 takes ``matmul`` (``int8`` takes
+``matmul_int8``); any other explicit rung raises. With no rung, ``matmul``
+and ``matmul_ilv`` run at the process-wide mode ``GR4TPU_FIR_PRECISION``,
+read as the JAX package reads it; its default here is ``highest`` (full
+float32), where the JAX package's is ``high``.
 """
 
 from __future__ import annotations
 
 import math
+import os
 from functools import lru_cache
 
 import numpy as np
@@ -38,14 +49,30 @@ import torch.nn.functional as F
 
 from ..core.errors import GrError
 from ..core.stream import torch_dtype
-from .cuda_kernels import (_choose_tile, _host_taps, _next_pow2, _toeplitz_np,
-                           check_f32_matmul, device_constant, fir_banded,
+from .cuda_kernels import (_choose_tile, _host_taps, _next_pow2,
+                           _toeplitz_np, device_constant, fir_banded,
                            fir_banded_ref, fir_demod, frozen)
+from .precision import (RUNGS, check_f32_matmul, int8_mm, quant_rows,
+                        rung_dot)
 
-# the precision rungs a block may name; only full float32 is ported so far
+# the precision rungs a block may name
 PRECISIONS = ("auto", "default", "high", "highest", "bf16", "int8")
 METHODS = ("auto", "conv", "fft", "matmul", "matmul_ilv", "matmul_int8",
            "pallas", "pallas_ilv")
+
+
+def _live_mode() -> str:
+    """The process-wide rung of the matmul paths: GR4TPU_FIR_PRECISION, read
+    when the call runs (as the JAX package's ``_live_mode`` reads it); its
+    default here is ``highest``, where the JAX package's is ``high``."""
+    return os.environ.get("GR4TPU_FIR_PRECISION", "highest").lower()
+
+
+def _rung(precision: str | None) -> str:
+    """The pass-count rung of a matmul-path call: an explicit rung, else the
+    live mode; a name that is no pass count (``int8``, unknown) → highest."""
+    mode = _live_mode() if precision in (None, "auto") else precision
+    return mode if mode in RUNGS else "highest"
 
 
 def fir_init_state(channels: int, ntaps: int, dtype,
@@ -153,7 +180,6 @@ def _fir_matmul_ilv(xc: torch.Tensor, taps_np: np.ndarray, decim: int
     """Interleaved-rail banded matmul: ``view_as_real`` of the complex64
     stream (a free view: torch stores complex interleaved), two banded
     products against the interleaved Toeplitz, ``view_as_complex`` back."""
-    check_f32_matmul("fir_apply(method='matmul_ilv')")
     b, tc = xc.shape
     k = taps_np.shape[-1]
     t = tc - (k - 1)
@@ -164,22 +190,75 @@ def _fir_matmul_ilv(xc: torch.Tensor, taps_np: np.ndarray, decim: int
     w_lo, w_hi = (device_constant(w, xc.device)
                   for w in _ilv_weights(key, tile, decim))
     z = torch.view_as_real(xc).reshape(b, n + 1, 2 * tile)
-    y = z[:, :-1] @ w_lo + z[:, 1:] @ w_hi
+    mode = _rung(None)
+    y = rung_dot(z[:, :-1], w_lo, mode) + rung_dot(z[:, 1:], w_hi, mode)
     n_out = t // decim
     y = y.reshape(b, -1)[:, : 2 * n_out].reshape(b, n_out, 2)
     return torch.view_as_complex(y.contiguous())
 
 
+@lru_cache(maxsize=64)
+def _int8_weights(taps_key, ntaps: int, tile: int, decim: int
+                  ) -> tuple[np.ndarray, float]:
+    """The full banded Toeplitz [tile+K−1, tile/decim] quantized with one
+    global scale (the taps are constants): (read-only int8 W, scale)."""
+    w = _toeplitz_np(taps_key, ntaps, tile, decim)
+    s = float(np.max(np.abs(w))) / 127.0 or 1.0
+    return frozen(np.round(w / s).astype(np.int8)), s
+
+
+def _fir_matmul_int8(xc: torch.Tensor, taps_np: np.ndarray, decim: int
+                     ) -> torch.Tensor:
+    """Quantized path (the JAX package's ``_fir_matmul_int8``): overlapping
+    frames [B, n, tile+K−1], each row quantized to int8 with its own scale,
+    times the globally scaled int8 Toeplitz, int32 sums, rescaled to
+    float32. ``xc`` = [B, K−1+T]; returns [B, T // decim]."""
+    b, tc = xc.shape
+    k = taps_np.shape[-1]
+    t = tc - (k - 1)
+    tile = _choose_tile(t, k, decim)
+    xc = _pad_right(xc, -(-t // tile) * tile - t)
+    cx_t = np.iscomplexobj(taps_np)
+    cx_x = xc.is_complex()
+
+    def quant_w(h: np.ndarray):
+        wq, s = _int8_weights(tuple(h.tolist()), k, tile, decim)
+        return device_constant(wq, xc.device), s
+
+    def qdot(frames: torch.Tensor, w) -> torch.Tensor:
+        wq, w_scale = w
+        fq, row_scale = quant_rows(frames)
+        acc = int8_mm(fq.reshape(-1, fq.shape[-1]), wq)
+        acc = acc.reshape(*fq.shape[:-1], wq.shape[-1])
+        return acc.to(torch.float32) * (row_scale * float(np.float32(w_scale)))
+
+    def frames_of(v: torch.Tensor) -> torch.Tensor:
+        return _frame_overlapping_general(v.to(torch.float32), tile,
+                                          tile + k - 1)
+
+    if cx_x or cx_t:
+        xr = xc.real if cx_x else xc
+        fr = frames_of(xr)
+        fi = frames_of(xc.imag if cx_x else torch.zeros_like(xr))
+        if cx_t:
+            wr, wi = quant_w(taps_np.real), quant_w(taps_np.imag)
+            yr = qdot(fr, wr) - qdot(fi, wi)
+            yi = qdot(fr, wi) + qdot(fi, wr)
+        else:
+            wr = quant_w(taps_np)
+            yr, yi = qdot(fr, wr), qdot(fi, wr)
+        y = torch.complex(yr, yi)
+    else:
+        y = qdot(frames_of(xc), quant_w(taps_np)).to(xc.dtype)
+    return y.reshape(b, -1)[:, : t // decim]
+
+
 def _check_method(method: str, precision: str | None) -> None:
     if method not in METHODS:
         raise GrError(f"fir_apply: unknown method {method!r}; known: {METHODS}")
-    if method == "matmul_int8" or precision == "int8":
-        raise GrError("fir_apply: 'matmul_int8' (the int8 precision rung) is "
-                      "not ported to this package yet")
-    if precision not in (None, "auto", "highest"):
-        raise GrError(f"fir_apply: precision rung {precision!r} is not ported "
-                      f"to this package yet; only full float32 "
-                      f"('auto'/'highest') exists")
+    if precision is not None and precision not in PRECISIONS:
+        raise GrError(f"fir_apply: unknown precision {precision!r}; known: "
+                      f"{PRECISIONS}")
 
 
 def fir_apply(x: torch.Tensor, taps, state: torch.Tensor, *, decim: int = 1,
@@ -196,19 +275,36 @@ def fir_apply(x: torch.Tensor, taps, state: torch.Tensor, *, decim: int = 1,
     are the banded kernel for every stream on every device (its plain version
     on the CPU: the reference's ``matmul``, which its ``pallas*`` also takes
     for a real stream). A real stream with ``matmul_ilv`` takes ``matmul``,
-    and one tap is every ``decim``-th sample, scaled, as in the reference. ``matmul_int8`` and every precision rung
-    below full float32 raise ``GrError``.
+    and one tap is every ``decim``-th sample, scaled, as in the reference.
+    ``precision``: an explicit rung (``auto`` included) sends ``auto`` to
+    ``matmul`` (``int8``: ``matmul_int8``) when the taps are host values and
+    K ≤ 512, and raises ``GrError`` otherwise, as the reference does.
     """
     _check_method(method, precision)
+    host_taps = not torch.is_tensor(taps)
     taps_np = _host_taps(taps)
     k = taps_np.shape[-1]
     x = x.contiguous()
     state = state.to(x.dtype).contiguous()
     squeeze = x.ndim == 1
+    if method == "auto" and precision is not None:
+        # an explicit precision rung is a matmul-path request (conv, fft and
+        # the kernel have no pass-count ladder)
+        if not (host_taps and k <= 512):
+            raise GrError(
+                f"fir_apply: precision={precision!r} requires the matmul "
+                f"path (host taps, ntaps<=512; got ntaps={k}, "
+                f"host_taps={host_taps}). Drop the explicit precision "
+                f"setting (use 'auto') to run the default lowering at full "
+                f"precision.")
+        method = "matmul_int8" if precision == "int8" else "matmul"
     if method == "matmul_ilv" and not x.is_complex():
         method = "matmul"
+    if precision == "int8" and method == "matmul":
+        method = "matmul_int8"          # per-call quantized path
     if method == "auto":       # the banded kernel for real and complex streams
         method = "pallas"
+    mode = _rung(precision)
     if k == 1:
         # the reference's conv with one tap: every decim-th sample, scaled
         h0 = taps_np[0].item()
@@ -217,12 +313,14 @@ def fir_apply(x: torch.Tensor, taps, state: torch.Tensor, *, decim: int = 1,
     elif method in ("pallas", "pallas_ilv"):
         y = fir_banded(x, state, taps_np, decim)
     elif method == "matmul":
-        y = fir_banded_ref(x, state, taps_np, decim)
+        y = fir_banded_ref(x, state, taps_np, decim, mode=mode)
     else:
         x2 = x[None] if squeeze else x
         st2 = state[None] if squeeze else state
         xc = torch.cat([st2, x2], dim=-1)
-        if method == "matmul_ilv":
+        if method == "matmul_int8":
+            y = _fir_matmul_int8(xc, taps_np, decim)
+        elif method == "matmul_ilv":
             y = _fir_matmul_ilv(xc, taps_np, decim)
         elif method == "fft":
             y = _fir_fft(xc, taps_np, decim)

@@ -27,7 +27,8 @@ import os
 import numpy as np
 import torch
 
-from .cuda_kernels import check_f32_matmul, frozen
+from .cuda_kernels import frozen
+from .precision import check_f32_matmul
 
 
 def _normalize_ba(b: np.ndarray, a: np.ndarray) -> tuple[np.ndarray, np.ndarray, int]:

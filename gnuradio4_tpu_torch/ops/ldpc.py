@@ -28,7 +28,8 @@ import torch
 import torch.nn.functional as F
 
 from ..core.errors import GrError
-from .cuda_kernels import check_f32_matmul, device_constant, frozen
+from .cuda_kernels import device_constant, frozen
+from .precision import check_f32_matmul
 
 _BIG = 1e30
 

@@ -241,21 +241,31 @@ def _cx_chunks(rng, k, n):
 
 
 def test_unported_options_raise():
-    g = gt.Graph()
-    src = g.emplace("ComplexToneSource", frequency=1e3)
-    fir = g.emplace("FirFilter", taps=(0.5, 0.5), precision="bf16")
-    snk = g.emplace("NullSink")
-    g.connect_chain(src, fir, snk)
-    with pytest.raises(GrError, match="bf16"):
-        gt.Scheduler(g, block_len=1024, sample_rate=1e4, device="cpu").run_and_wait(1)
-    # SignalGenerator's noise types are ported now (tests/
-    # test_torch_blocks_basic.py); the FFT's bf16 matmul rung is not
+    """FirFilter's uncertain mode still raises. Its bf16 rung and the FFT's
+    bf16 matmul engine are ported now (tests/test_torch_precision.py): they
+    run, and agree with the JAX package."""
     g = gt.Graph()
     g.connect_chain(g.emplace("ComplexToneSource", frequency=1e3),
-                    g.emplace("FFT", fft_size=1024, engine="matmul_bf16"),
+                    g.emplace("FirFilter", taps=(0.5, 0.5), uncertain=True),
                     g.emplace("NullSink"))
-    with pytest.raises(GrError, match="matmul_bf16"):
-        gt.Scheduler(g, block_len=1024, device="cpu").run_and_wait(1)
+    with pytest.raises(GrError, match="uncertain"):
+        gt.Scheduler(g, block_len=1024, sample_rate=1e4,
+                     device="cpu").run_and_wait(1)
+    outs = []
+    for pkg in (gr, gt):
+        g = pkg.Graph()
+        src = g.emplace("ComplexToneSource", frequency=1e3)
+        fir = g.emplace("FirFilter", taps=(0.5, 0.5), precision="bf16")
+        fft = g.emplace("FFT", fft_size=1024, engine="matmul_bf16")
+        snk = g.emplace("VectorSink")
+        g.connect_chain(src, fir, fft, snk)
+        kw = {"device": "cpu"} if pkg is gt else {}
+        pkg.Scheduler(g, block_len=1024, sample_rate=1e4,
+                      **kw).run_and_wait(1)
+        outs.append(snk.data())
+    assert outs[1].shape == outs[0].shape == (1024,)
+    np.testing.assert_allclose(outs[1], outs[0], rtol=1e-5,
+                               atol=1e-5 * np.abs(outs[0]).max())
 
 
 def test_batch_steps_stack_sink_inputs():

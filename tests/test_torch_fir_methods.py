@@ -86,17 +86,32 @@ def test_fir_method_multichannel_and_one_tap(rng, method):
 
 
 def test_fir_methods_raise_for_unported_rungs():
-    x, st = torch.zeros(64), torch.zeros(4)
-    with pytest.raises(GrError, match="matmul_int8"):
-        tfir.fir_apply(x, np.ones(5, np.float32), st, method="matmul_int8")
-    with pytest.raises(GrError, match="matmul_int8"):
-        tfir.fir_apply(x, np.ones(5, np.float32), st, precision="int8")
-    for rung in ("default", "high", "bf16"):
-        with pytest.raises(GrError, match=rung):
-            tfir.fir_apply(x, np.ones(5, np.float32), st, method="matmul",
-                           precision=rung)
+    """Every rung is ported now (tests/test_torch_precision.py holds each
+    against the JAX package): ``matmul_int8`` and the rungs run and agree
+    with the JAX package here; what still raises is an unknown method or
+    rung, and an explicit rung the matmul path cannot take (K > 512), with
+    the reference's message."""
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal(64).astype(np.float32)
+    taps = rng.standard_normal(5).astype(np.float32)
+    st = np.zeros(4, np.float32)
+    cases = [dict(method="matmul_int8"), dict(precision="int8")] + [
+        dict(method="matmul", precision=r) for r in ("default", "high",
+                                                     "bf16")]
+    for kw in cases:
+        want, _ = jfir.fir_apply(jnp.asarray(x), taps, jnp.asarray(st), **kw)
+        got, _ = tfir.fir_apply(torch.from_numpy(x), taps,
+                                torch.from_numpy(st), **kw)
+        _rms_close(got.numpy(), np.asarray(want), RTOL)
     with pytest.raises(GrError, match="unknown method"):
-        tfir.fir_apply(x, np.ones(5, np.float32), st, method="winograd")
+        tfir.fir_apply(torch.from_numpy(x), taps, torch.from_numpy(st),
+                       method="winograd")
+    with pytest.raises(GrError, match="unknown precision"):
+        tfir.fir_apply(torch.from_numpy(x), taps, torch.from_numpy(st),
+                       precision="fp8")
+    with pytest.raises(GrError, match="requires the matmul path"):
+        tfir.fir_apply(torch.from_numpy(x), np.ones(513, np.float32),
+                       torch.zeros(512), precision="bf16")
 
 
 @pytest.mark.parametrize("method", ["pallas", "pallas_ilv", "auto"])

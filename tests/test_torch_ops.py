@@ -158,14 +158,22 @@ def test_fir_banded_ref_short_streams(rng, t, k, decim):
 
 
 def test_fir_apply_rejects_unported_rungs_and_methods(rng):
-    x = torch.from_numpy(_cx(rng, 256))
+    """The rungs and ``matmul_int8`` are ported now and agree with the JAX
+    package (tests/test_torch_precision.py holds every combination); an
+    unknown method still raises, naming it."""
+    xn = _cx(rng, 256)
+    x = torch.from_numpy(xn)
     st = fir_init_state(0, 5, np.complex64)
-    for rung in ("bf16", "int8", "high", "default"):
-        with pytest.raises(GrError, match=rung):
-            fir_apply(x, np.ones(5, np.float32), st, precision=rung)
-    for method in ("matmul_int8", "winograd"):
-        with pytest.raises(GrError, match=method):
-            fir_apply(x, np.ones(5, np.float32), st, method=method)
+    taps = np.ones(5, np.float32)
+    for kw in [dict(precision=r) for r in ("bf16", "int8", "high", "default")
+               ] + [dict(method="matmul_int8")]:
+        want, _ = jfir.fir_apply(jnp.asarray(xn), taps,
+                                 jnp.zeros(4, jnp.complex64), **kw)
+        got, _ = fir_apply(x, taps, st, **kw)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   atol=1e-6 * np.abs(np.asarray(want)).max())
+    with pytest.raises(GrError, match="winograd"):
+        fir_apply(x, taps, st, method="winograd")
 
 
 def test_fir_banded_ref_refuses_tf32(rng):

@@ -338,16 +338,19 @@ def test_wait_done_raises_runner_failure():
 
 
 def test_feedback_edges_and_meshes_raise():
-    """A feedback back-edge builds as in the JAX package but compiling it
-    raises naming the loop; meshes and bad batch sizes are refused."""
+    """A feedback back-edge compiles into one loop group, as in the JAX
+    package (tests/test_torch_feedback.py runs the loops); meshes and bad
+    batch sizes are refused."""
     h = gt.Graph()
     a = h.emplace("Copy", name="a")
     b = h.emplace("Copy", name="b")
     h.connect(a, b)
     h.connect(b, a, feedback=True, delay=4)
     h.connect(b, h.emplace("NullSink"))
-    with pytest.raises(GrError, match=r"feedback loop.*\['a', 'b'\]"):
-        gt.compile_graph(h, block_len=64, device="cpu")
+    c = gt.compile_graph(h, block_len=64, device="cpu")
+    assert [[m.name for m in grp["order"]] for grp in c.loop_groups] \
+        == [["a", "b"]]
+    assert c.loop_groups[0]["delay"] == 4
     with pytest.raises(GrError, match="mesh"):
         gt.Scheduler(h, mesh=object())
     with pytest.raises(GrError, match="batch_steps"):

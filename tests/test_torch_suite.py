@@ -122,7 +122,10 @@ def test_block_carries_the_jax_names(name):
     same settings (name, kind, default, choices), ports and sample-accurate
     set."""
     assert name in gt.global_registry.known_blocks()
-    bj, bt = gr.global_registry.create(name), gt.global_registry.create(name)
+    # ArraySource has no default: it is built from its arrays
+    kw = {"arrays": [np.zeros(8, np.float32)]} if name == "ArraySource" else {}
+    bj = gr.global_registry.create(name, **kw)
+    bt = gt.global_registry.create(name, **kw)
     sj, st = bj.settings.spec, bt.settings.spec
     assert sorted(st) == sorted(sj)
     for key in sj:

@@ -31,7 +31,7 @@ torch.set_num_threads(2)
 ROOT = Path(__file__).resolve().parent.parent
 EXAMPLES = sorted((ROOT / "examples").glob("*.yaml"))
 # the examples whose every block type the port registers
-PORTED_EXAMPLES = ("channelizer", "fm_receiver")
+PORTED_EXAMPLES = ("agc_loop", "channelizer", "fm_receiver")
 
 # every document tests/test_yaml_pmt_golden.py loads
 GOLDEN = {
@@ -351,8 +351,12 @@ def test_feedback_edge_loads_and_compiling_it_raises():
         "loopfilter, y,", "loopfilter, in1,")
     g = gt.load_grc(text)
     assert sum(e.feedback for e in g.edges) == 2
-    with pytest.raises(GrError, match="feedback"):
-        gt.compile_graph(g, block_len=4096, device="cpu")
+    # compiling it no longer raises: the loop is one group with delay 1
+    # (tests/test_torch_feedback.py runs the flow itself)
+    c = gt.compile_graph(g, block_len=4096, device="cpu")
+    assert [grp["delay"] for grp in c.loop_groups] == [1]
+    assert sorted(m.name for m in c.loop_groups[0]["order"]) \
+        == ["loopfilter", "vga"]
 
 
 def _ask(sched, command, data=None):
