@@ -119,6 +119,23 @@ result line:
     matmul engines at
     4096 over 2^22 samples: SNR against a float64 FFT and ms beside cuFFT.
 
+23. the coded link and the digital-modem layer: (a)
+    ``examples/coded_link.yaml`` as written by ``run_grc`` on the card and
+    on the CPU (tx == rx over 8192 bits, the card's bits equal the CPU's)
+    and by the CLI on the card; (b) the same flow at n_bits 0 for 8 steps
+    of 2^16 bits (2^17 LLRs per step at the decoder, config 7's size): the
+    raw BER at the channel's output against Q(1/0.42), the decoded BER
+    ≤ 1e-4, ms and host ms per step, launches per step and the device-busy
+    share; (c) the JAX package's own scenarios at their test sizes (the
+    clean and noisy QPSK links with ``BerSink``, RRC + ``MMSymbolSync``
+    with ``fir_banded`` counted, ``PfbClockSync``, 16 framed packets, OFDM
+    through AWGN, Schmidl & Cox timing and CFO, ``CmaEqualizer``, the
+    ``ChannelModel`` statistics), each asserting what its reference test
+    asserts, and each scan block's launches, torch ops and ms per step; (d)
+    ``fir_banded`` at ``RrcFilter``'s shapes (c64 × f32 ÷1: the RRC +
+    ``MMSymbolSync`` scenario's K 45 at 4096, the default K 65 at 4096 and
+    2^22) against its plain version, its bound and ``F.conv1d``.
+
 Phases 13–17 each print the card against the CPU on a short run of the same
 graph, Msps (coded Mbit/s for 7 and 7k), ms per step by CUDA events over 5
 windows, host ms per step, the device-busy share of one profiled step, peak
@@ -134,6 +151,7 @@ kernel, plain, bound and library ms at the main path's shape) and
 from __future__ import annotations
 
 import json
+import math
 import os
 import shutil
 import statistics
@@ -255,6 +273,20 @@ INT8_CPU_N = 1 << 16
 PROBE_C = 1.0 + 2.0 ** -9
 PROBE = {"highest": 16.0 + 2.0 ** -4 + 2.0 ** -14, "high": 16.0 + 2.0 ** -4,
          "default": 16.0, "bf16": 16.0}
+# phase 23: examples/coded_link.yaml runs at the default block_len 2^16 (its
+# meta section is not read, as in the JAX package): the decoder sees 2^17
+# LLRs per step, config 7's size; at n_bits 0 it runs CODED_STEPS steps
+CODED_BLOCK_LEN = 1 << 16
+CODED_STEPS = 8
+CODED_BER_MAX = 1e-4
+# the RrcFilters of phase 23(c)'s RRC + MMSymbolSync scenario
+# (tests/test_digital.py:119), and the (sps, ntaps, beta, T) shapes at which
+# (d) holds fir_banded against its plain version: that scenario's own (K 45
+# at its block_len 4096), then RrcFilter's defaults (K 65) at 4096 and 2^22
+RRC_MM = {"sps": 4, "ntaps": 45, "beta": 0.5}
+RRC_BLOCK_LEN = 4096
+RRC_SHAPES = ((RRC_MM["sps"], RRC_MM["ntaps"], RRC_MM["beta"], RRC_BLOCK_LEN),
+              (4, 65, 0.35, RRC_BLOCK_LEN), (4, 65, 0.35, 1 << 22))
 KERNELS = {
     "fir_banded": {
         "source": "gnuradio4_tpu_torch/csrc/fir_banded.cu",
@@ -1731,6 +1763,401 @@ def loop_phases(dev, paths: list) -> None:
                   "by_sub_phase": secs})
 
 
+def block_step_cost(dev, btype: str, settings: dict, ins: dict):
+    """(kernel launches, torch ops, ms) of one ``apply`` of a fresh block of
+    ``btype`` on the CUDA tensors ``ins`` from its initial state: launches
+    and ops by :func:`count_ops`, ms by CUDA events (median of 2 calls)."""
+    import numpy as np
+    import gnuradio4_tpu_torch as gt
+    blk = gt.global_registry.create(btype, **settings)
+    ctx = gt.BlockCtx(in_len={k: v.shape[-1] for k, v in ins.items()},
+                      out_len={}, sample_rate=1e6, params={},
+                      channels={k: 0 for k in ins},
+                      dtypes={k: np.dtype(str(v.dtype).split(".")[-1])
+                              for k, v in ins.items()}, device=dev)
+    state = blk.init_state(ctx)
+    step = lambda: blk.apply(state, ins, ctx)
+    step()
+    kernels, ops = count_ops(step)
+    ms, _ = events_ms_per_step(step, 1, windows=2)
+    return kernels, ops, ms
+
+
+def modem_phases(dev, paths: list, results: dict) -> None:
+    """Phase 23: the coded link and the digital-modem layer on the card."""
+    import numpy as np
+    import torch
+    import gnuradio4_tpu_torch as gt
+    from gnuradio4_tpu_torch.blocks.digital import schmidl_cox_preamble
+    from gnuradio4_tpu_torch.core.profiler import Profiler
+    from gnuradio4_tpu_torch.ops import cuda_kernels as ck
+    from gnuradio4_tpu_torch.ops.digital import make_constellation, rrc_taps
+
+    secs = {}                   # wall seconds of each sub-phase
+    t_sub = time.perf_counter()
+
+    def lap(name: str) -> None:
+        nonlocal t_sub
+        now = time.perf_counter()
+        secs[name] = now - t_sub
+        t_sub = now
+
+    def run(g, block_len: int, steps=None):
+        s = gt.Scheduler(g, block_len=block_len, sample_rate=1e6, device=dev)
+        s.run_and_wait(steps)
+        return s
+
+    # (a) examples/coded_link.yaml as written: run_grc on the card and on the
+    # CPU, and the CLI on the card
+    text = (ROOT / "examples" / "coded_link.yaml").read_text()
+    bits = {}
+    for where in (dev, "cpu"):
+        s = gt.run_grc(text, scheduler_kwargs={"device": where})
+        b = {x.name: x for x in s.graph.blocks}
+        bits[str(where)] = (b["tx_bits"].data(), b["rx_bits"].data(), str(s.device))
+        del s
+    tx, rx, ran_on = bits[str(dev)]
+    n = min(len(tx), len(rx))
+    equal = n >= 8000 and np.array_equal(tx[:n], rx[:n])
+    same_cpu = np.array_equal(rx, bits["cpu"][1])
+    print(f"[23a coded_link] run_grc on {ran_on}: {n} bits, tx == rx: {equal}; "
+          f"the card's rx_bits equal the CPU's: {same_cpu}")
+    check(equal and same_cpu and ran_on.startswith("cuda"),
+          "coded_link.yaml: bits differ, or the card and the CPU disagree")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "gnuradio4_tpu_torch", "run",
+                        "examples/coded_link.yaml"], capture_output=True,
+                       text=True, timeout=300, cwd=str(ROOT), env=env)
+    print(f"  python -m gnuradio4_tpu_torch run examples/coded_link.yaml: rc "
+          f"{r.returncode} in {time.perf_counter() - t0:.1f} s wall; "
+          f"{r.stderr.strip().splitlines()[-1] if r.stderr.strip() else ''}")
+    check(r.returncode == 0 and "device=cuda" in r.stderr,
+          f"coded_link.yaml by the CLI on the card: rc {r.returncode}: "
+          f"{r.stderr[-2000:]}")
+    lap("a as written")
+
+    # (b) the coded link at full size: 2^17 LLRs per step, CODED_STEPS steps
+    full = text.replace("n_bits: 8192", "n_bits: 0")
+    check(full != text, "coded_link.yaml: no 'n_bits: 8192' to lift")
+    g = gt.load_grc(full)
+    blk = {b.name: b for b in g.blocks}
+    s_enc = gt.global_registry.create("VectorSink")
+    s_real = gt.global_registry.create("VectorSink")
+    g.connect(blk["enc"], s_enc)
+    g.connect(blk["real"], s_real)
+    ck.reset_launch_counts()
+    s = run(g, CODED_BLOCK_LEN, CODED_STEPS)
+    counts = ck.launch_counts()
+    n_llr = s.compiled.in_len[blk["dec"].unique_name]
+    tx, rx = blk["tx_bits"].data(), blk["rx_bits"].data()
+    n = min(len(tx), len(rx))
+    raw_ber = float(np.mean((s_real.data() < 0) != (s_enc.data() > 0.5)))
+    dec_ber = float(np.mean(tx[:n] != rx[:n]))
+    # BPSK ±1 under N(0, 0.42²) on the real rail: Q(1/0.42)
+    raw_theory = 0.5 * math.erfc(1.0 / (0.42 * math.sqrt(2.0)))
+    print(f"[23b coded link, full size] {CODED_STEPS} steps of {CODED_BLOCK_LEN} "
+          f"bits, {n_llr} LLRs per step at the decoder; raw BER at the "
+          f"channel's output {raw_ber:.5f} (Q(1/0.42) = {raw_theory:.5f}); "
+          f"decoded BER {dec_ber:.3e} over {n} bits (bound {CODED_BER_MAX}); "
+          f"hand-kernel launches {counts}")
+    check(n_llr == C7_BLOCK_LEN and n == CODED_STEPS * CODED_BLOCK_LEN
+          and abs(raw_ber - raw_theory) < 0.2 * raw_theory
+          and dec_ber <= CODED_BER_MAX,
+          "coded link at full size: wrong size, channel or decoded BER")
+    del s, g, blk, s_enc, s_real
+    g = gt.load_grc(full)
+    sched = gt.Scheduler(g, block_len=CODED_BLOCK_LEN, sample_rate=1e6,
+                         device=dev, profiler=Profiler())
+    sched.init()
+    sched.fsm.transition_to(gt.State.RUNNING)
+    for _ in range(2):
+        sched._pump_once()
+    torch.cuda.synchronize()
+    ms, windows, host_ms, split = drive_windows(sched, CODED_STEPS, windows=3)
+    kernels, ops = count_ops(sched._pump_once)
+    dev_ms, top = profile_device(sched._pump_once)
+    finish(sched)
+    del sched, g
+    busy = ("not measured (the profiler saw no device activity)"
+            if dev_ms is None else f"{dev_ms:.4f} ms, {dev_ms / ms:.1%} of the step")
+    print(f"  {ms:.4f} ms/step ({CODED_BLOCK_LEN / (ms * 1e-3) / 1e6:.2f} Mbit/s of "
+          f"data; median of 3 windows of {CODED_STEPS} steps, CUDA events; "
+          f"(events ms, wall ms) {fmt_windows(windows)}); host {host_ms:.4f} "
+          f"ms/step in the pump ({fmt_split(split)}); {kernels} kernel launches, "
+          f"{ops} torch ops per step (torch.profiler); device busy {busy}; top "
+          f"kernels {[(round(a, 4), k[:60]) for a, k in top[:4]]}")
+    paths.append({"name": "phase 23 coded link", "ms_per_step": ms,
+                  "host_ms_per_step": host_ms, "kernels_per_step": kernels,
+                  "device_busy_share": None if dev_ms is None else dev_ms / ms,
+                  "raw_ber": raw_ber, "decoded_ber": dec_ber})
+    lap("b full size")
+
+    # (c) the JAX package's own scenarios, at their test sizes
+    # the clean and the noisy QPSK links (tests/test_digital.py:358-392)
+    for std in (0.0, 0.45):
+        g = gt.Graph()
+        src = g.emplace("PrbsSource", order=15, n_bits=65536)
+        pk = g.emplace("PackBits", k=2)
+        mp = g.emplace("ConstellationMapper", constellation="QPSK")
+        dm = g.emplace("ConstellationDemapper", constellation="QPSK")
+        up = g.emplace("UnpackBits", k=2)
+        ber = g.emplace("BerSink", order=15)
+        if std:
+            ni = g.emplace("NoiseSource", std=std, seed=1, n_samples=32768)
+            nq = g.emplace("NoiseSource", std=std, seed=2, n_samples=32768)
+            cx = g.emplace("RealImagToComplex")
+            ad = g.emplace("Add", n_inputs=2)
+            g.connect(ni, cx["real"])
+            g.connect(nq, cx["imag"])
+            g.connect(mp, ad["in0"])
+            g.connect(cx, ad["in1"])
+            g.connect_chain(src, pk, mp)
+            g.connect_chain(ad, dm, up, ber)
+        else:
+            g.connect_chain(src, pk, mp, dm, up, ber)
+        run(g, 8192)
+        rep = ber.report()
+        ok = (rep["synced"] and rep["bits"] == 65536 and rep["errors"] == 0
+              if not std else rep["synced"] and 0.04 < rep["ber"] < 0.08)
+        print(f"[23c QPSK link, AWGN σ {std}/rail] BerSink {rep}")
+        check(ok, f"QPSK link at σ {std}: {rep}")
+    lap("c BER links")
+
+    # RRC + MMSymbolSync on a half-symbol delay (tests/test_digital.py:119)
+    rng = np.random.default_rng(SEED)
+    sps, n_sym = RRC_MM["sps"], 8192
+    syms = rng.integers(0, 4, n_sym).astype(np.int32)
+    up = np.zeros(n_sym * sps, np.complex64)
+    up[::sps] = make_constellation("QPSK")[syms] * sps
+    g = gt.Graph()
+    snk = g.emplace("VectorSink")
+    g.connect_chain(g.emplace("VectorSource", data=up),
+                    g.emplace("RrcFilter", **RRC_MM),
+                    g.emplace("Delay", delay=2),
+                    g.emplace("RrcFilter", **RRC_MM),
+                    g.emplace("MMSymbolSync", sps=sps, gain=0.05),
+                    g.emplace("ConstellationDemapper", constellation="QPSK"), snk)
+    ck.reset_launch_counts()
+    s = run(g, RRC_BLOCK_LEN)
+    counts = ck.launch_counts()
+    out = snk.data()
+    best = max(float(np.mean(out[2000:7000][:5000] == syms[2000 - k:7000 - k]))
+               for k in range(8, 16))
+    print(f"[23c RRC + MMSymbolSync] {n_sym} symbols at block_len 4096: decisions "
+          f"agree with the sent symbols at the best alignment: {best:.4f} "
+          f"(> 0.995); launches {counts} over {s._step} steps (two RrcFilters)")
+    check(best > 0.995, f"MMSymbolSync: {best}")
+    check(counts == {**{k: 0 for k in KERNELS}, "fir_banded": 2 * s._step},
+          f"RrcFilter: launches {counts}, expected 2 per step over {s._step}")
+    results["fir_banded"]["launches"] += counts["fir_banded"]
+    del s
+    lap("c RRC + MM")
+
+    # PfbClockSync at a 0.73-sample delay and 10 ppm drift (:177)
+    nsym = 8192
+    ph = np.random.default_rng(0).integers(0, 4, nsym)
+    ups = np.zeros(nsym * 4, complex)
+    ups[::4] = np.exp(1j * (np.pi / 4 + np.pi / 2 * ph))
+    shaped = np.convolve(ups, rrc_taps(4, 45, beta=0.35))[: nsym * 4]
+    f = np.fft.fftfreq(len(shaped))
+    rxs = np.fft.ifft(np.fft.fft(shaped) * np.exp(-2j * np.pi * f * 0.73))
+    t = np.arange(len(rxs)) * (1.0 + 1e-5)
+    rxs = (np.interp(t, np.arange(len(rxs)), rxs.real)
+           + 1j * np.interp(t, np.arange(len(rxs)), rxs.imag)).astype(np.complex64)
+    g = gt.Graph()
+    snk = g.emplace("VectorSink")
+    g.connect_chain(g.emplace("VectorSource", data=rxs),
+                    g.emplace("PfbClockSync", sps=4, rolloff=0.35), snk)
+    run(g, 4096)
+    y = snk.data()
+    tail = y[len(y) // 2:]
+    ang = np.angle(tail * np.exp(-1j * np.pi / 4))
+    err_deg = float(np.degrees(np.abs(((ang + np.pi / 4) % (np.pi / 2)) - np.pi / 4).mean()))
+    mag = np.abs(tail)
+    print(f"[23c PfbClockSync] τ 0.73, drift 1e-5, {nsym} symbols: |y| mean "
+          f"{mag.mean():.4f} (1 ± 0.1), std {mag.std():.4f} (< 0.1), phase "
+          f"error {err_deg:.2f}° (< 5)")
+    check(len(y) == nsym and abs(mag.mean() - 1.0) < 0.1 and mag.std() < 0.1
+          and err_deg < 5.0, "PfbClockSync did not lock")
+    lap("c PfbClockSync")
+
+    # 16 packets through AWGN, every CRC ok (:402)
+    pb, nframes = 512, 16
+    fsyms = 63 + 8 + pb // 2 + 16
+    pbits = np.random.default_rng(7).integers(0, 2, nframes * pb).astype(np.int32)
+    g = gt.Graph()
+    fr = g.emplace("PacketFramer", payload_bits=pb)
+    ni = g.emplace("NoiseSource", std=0.05, seed=1, n_samples=nframes * fsyms)
+    nq = g.emplace("NoiseSource", std=0.05, seed=2, n_samples=nframes * fsyms)
+    cx = g.emplace("RealImagToComplex")
+    ad = g.emplace("Add", n_inputs=2)
+    cor = g.emplace("PreambleCorrelator", preamble=fr.preamble, threshold=0.6,
+                    max_detections=32)
+    prx = g.emplace("PacketReceiver")
+    g.connect(ni, cx["real"])
+    g.connect(nq, cx["imag"])
+    g.connect_chain(g.emplace("VectorSource", data=pbits), fr)
+    g.connect(fr, ad["in0"])
+    g.connect(cx, ad["in1"])
+    g.connect(ad, cor)
+    g.connect(cor["out"], prx["in"])
+    g.connect(cor["det"], prx["det"])
+    run(g, fsyms * 4)
+    ok = [p for p in prx.packets if p["ok"]]
+    sent = {pbits[i * pb:(i + 1) * pb].tobytes() for i in range(nframes)}
+    print(f"[23c packets] {len(prx.packets)} packets, {len(ok)} CRC-ok, each "
+          f"equal to a sent frame: {all(p['bits'].tobytes() in sent for p in ok)}")
+    check(len(ok) == nframes and all(p["bits"].tobytes() in sent for p in ok),
+          "packet link: not every frame decoded with its CRC")
+    lap("c packets")
+
+    # OFDM through AWGN (:53), Schmidl & Cox timing and CFO (:468)
+    n_occ, fft, cp = 48, 64, 16
+    osyms = np.random.default_rng(3).integers(0, 4, n_occ * 128).astype(np.int32)
+    g = gt.Graph()
+    mod = g.emplace("OfdmModulator", fft_size=fft, cp_len=cp, n_occupied=n_occ)
+    add = g.emplace("Add", n_inputs=2)
+    snk = g.emplace("VectorSink")
+    g.connect_chain(g.emplace("VectorSource", data=osyms),
+                    g.emplace("ConstellationMapper", constellation="QPSK"), mod)
+    g.connect(mod, add["in0"])
+    g.connect(g.emplace("NoiseSource", noise="complex_gaussian", std=0.05,
+                        n_samples=128 * (fft + cp)), add["in1"])
+    g.connect_chain(add, g.emplace("OfdmDemodulator", fft_size=fft, cp_len=cp,
+                                   n_occupied=n_occ),
+                    g.emplace("ConstellationDemapper", constellation="QPSK"), snk)
+    run(g, n_occ * 32)
+    errors = int(np.count_nonzero(snk.data() != osyms))
+    fft, cp = 256, 32
+    pre = schmidl_cox_preamble(fft, cp)
+    rng = np.random.default_rng(1)
+    sig = ((rng.standard_normal(16384) + 1j * rng.standard_normal(16384)) * 0.05
+           ).astype(np.complex64)
+    for o in (3000, 9000):
+        sig[o:o + len(pre)] += pre
+    sig = (sig * np.exp(2j * np.pi * 0.3 * np.arange(16384) / fft)).astype(np.complex64)
+    g = gt.Graph()
+    sync = g.emplace("OfdmSync", fft_size=fft, cp_len=cp, threshold=0.6)
+    det = g.emplace("OfdmSyncSink")
+    g.connect(g.emplace("VectorSource", data=sig), sync)
+    g.connect(sync["out"], g.emplace("NullSink")["in"])
+    g.connect(sync["det"], det["in"])
+    run(g, 4096)
+    dets = det.detections
+    sc_ok = len(dets) == 2 and all(o <= i <= o + cp and m > 0.9 and abs(c - 0.3) < 0.02
+                                   for (i, m, c), o in zip(dets, (3000, 9000)))
+    print(f"[23c OFDM] QPSK-OFDM through σ 0.05 AWGN: {errors} symbol errors of "
+          f"{len(osyms)}; Schmidl & Cox detections {dets}")
+    check(errors == 0 and sc_ok, "OFDM link or Schmidl & Cox sync failed")
+    lap("c OFDM")
+
+    # CmaEqualizer opening the eye (tests/test_equalizer.py:22)
+    ph = np.random.default_rng(0).integers(0, 4, 32768)
+    qs = np.exp(1j * (np.pi / 4 + np.pi / 2 * ph)).astype(np.complex64)
+    chan = np.array([1.0, 0.35 * np.exp(1j * 0.9), 0.18 * np.exp(-1j * 1.7)],
+                    np.complex64)
+    isi = np.convolve(qs, chan)[:len(qs)].astype(np.complex64)
+    g = gt.Graph()
+    snk = g.emplace("VectorSink")
+    g.connect_chain(g.emplace("VectorSource", data=isi),
+                    g.emplace("CmaEqualizer", num_taps=11, gain=0.01), snk)
+    run(g, 8192)
+    tail = snk.data()[-8192:]
+    print(f"[23c CmaEqualizer] |y| std {np.std(np.abs(isi)):.4f} before, "
+          f"{np.std(np.abs(tail)):.4f} after (< 0.08); mean {np.abs(tail).mean():.4f}")
+    check(np.std(np.abs(tail)) < 0.08 and abs(np.abs(tail).mean() - 1.0) < 0.1,
+          "CmaEqualizer did not open the eye")
+    lap("c CMA")
+
+    # ChannelModel statistics (tests/test_channels.py:28-62)
+    def through(data, block_len, **settings):
+        g = gt.Graph()
+        snk = g.emplace("VectorSink")
+        g.connect_chain(g.emplace("VectorSource", data=data),
+                        g.emplace("ChannelModel", **settings), snk)
+        run(g, block_len)
+        return snk.data()
+
+    ones = np.ones(200_000, np.complex64)
+    nz = through(ones, 65536, noise_voltage=0.5) - 1.0
+    corr = float(np.mean(nz[1:] * np.conj(nz[:-1])).real / np.var(nz.real) / 2)
+    y = through(ones, 65536, frequency_offset=0.01)
+    fo = np.angle(y[1:] * np.conj(y[:-1])) / (2 * np.pi)
+    imp = np.zeros(64, np.complex64)
+    imp[5] = 1.0
+    yi = through(imp, 32, taps=(1.0, 0.5j, -0.25))
+    xr = np.random.default_rng(0)
+    xs = (xr.standard_normal(4096) + 1j * xr.standard_normal(4096)).astype(np.complex64)
+    seam = float(np.max(np.abs(through(xs, 4096, taps=(1.0, -0.3 + 0.2j, 0.1j))
+                               - through(xs, 256, taps=(1.0, -0.3 + 0.2j, 0.1j)))))
+    a7 = through(ones, 65536, noise_voltage=0.3, seed=7)
+    same7 = np.array_equal(a7, through(ones, 65536, noise_voltage=0.3, seed=7))
+    diff8 = not np.array_equal(a7, through(ones, 65536, noise_voltage=0.3, seed=8))
+    ok = (abs(np.std(nz.real) - 0.5) < 0.01 and abs(np.std(nz.imag) - 0.5) < 0.01
+          and abs(np.mean(nz)) < 0.01 and abs(corr) < 0.02
+          and abs(np.mean(fo) - 0.01) <= 1e-6 and np.max(np.abs(np.diff(fo))) < 1e-4
+          and np.allclose(yi[5:8], [1.0, 0.5j, -0.25], atol=1e-6)
+          and np.abs(yi[:5]).max() < 1e-6 and np.abs(yi[8:]).max() < 1e-6
+          and seam <= 1e-5 and same7 and diff8)
+    print(f"[23c ChannelModel] AWGN std {np.std(nz.real):.4f}/{np.std(nz.imag):.4f} "
+          f"(0.5), neighbour correlation {corr:.4f}; CFO mean {np.mean(fo):.8f} "
+          f"(0.01), max step {np.max(np.abs(np.diff(fo))):.2e}; impulse response "
+          f"{np.round(yi[5:8], 6)}; seams max|Δ| {seam:.2e}; seed 7 repeats: "
+          f"{same7}, seed 8 differs: {diff8}")
+    check(ok, "ChannelModel statistics")
+    lap("c ChannelModel")
+
+    # each scan block's cost per step, at its scenario's step size
+    gen = torch.Generator(device=dev).manual_seed(SEED + 23)
+    cx = lambda n: torch.randn(n, dtype=torch.complex64, device=dev, generator=gen)
+    for btype, settings, ins in (
+            ("MMSymbolSync", {"sps": 4, "gain": 0.05}, {"in": cx(4096)}),
+            ("PfbClockSync", {"sps": 4, "rolloff": 0.35}, {"in": cx(4096)}),
+            ("OfdmChannelEqualizer", {"smoothing": 0.5}, {"in": cx(48 * 128)}),
+            ("CmaEqualizer", {"num_taps": 11, "gain": 0.01}, {"in": cx(8192)}),
+            ("SampleAndHold", {}, {"in": cx(8192).real.contiguous(),
+                                   "ctrl": cx(8192).real.contiguous()}),
+            ("PacketFramer", {"payload_bits": 512},
+             {"in": torch.randint(0, 2, (4 * 512,), dtype=torch.int32,
+                                  device=dev, generator=gen)})):
+        kernels, ops, ms = block_step_cost(dev, btype, settings, ins)
+        n_in = next(iter(ins.values())).shape[-1]
+        print(f"[23c scan cost] {btype} on {n_in} samples: {kernels} kernel "
+              f"launches, {ops} torch ops, {ms:.3f} ms per step")
+        paths.append({"name": f"phase 23 {btype}", "samples": n_in,
+                      "kernels_per_step": kernels, "torch_ops_per_step": ops,
+                      "ms_per_step": ms})
+    lap("c scan costs")
+
+    # (d) fir_banded at RrcFilter's shapes: c64 × f32 ÷1, a K−1 history
+    for r_sps, k, beta, t_len in RRC_SHAPES:
+        h = torch.from_numpy(rrc_taps(r_sps, k, beta=beta).astype(np.float32)).to(dev)
+        x = cx(t_len)
+        hist = cx(k - 1)
+        y = ck.fir_banded(x, hist, h, 1)
+        err = float((y - ck.fir_banded_ref(x, hist, h, 1)).abs().max())
+        k_ms, p_ms = kernel_vs_plain_ms(lambda: ck.fir_banded(x, hist, h, 1),
+                                        lambda: ck.fir_banded_ref(x, hist, h, 1))
+        b_ms, b_by = bound_ms(*fir_work((t_len,), True, False, k, 1))
+        lib = conv1d_ms(x, hist, h, 1)
+        print(f"[23d fir_banded, RrcFilter's shape] c64 × f32 K {k} (β {beta}) ÷1 "
+              f"T {t_len}: max|Δ| {err:.3e} (tol {FIR_ATOL}); kernel {k_ms:.4f} ms, "
+              f"plain {p_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}), "
+              f"{b_ms / k_ms:.1%} of it; F.conv1d (TF32 off) {lib:.4f} ms")
+        check(err <= FIR_ATOL, f"fir_banded at RrcFilter's K {k} T {t_len}: {err}")
+        results["fir_banded"]["max_abs_err"] = max(
+            results["fir_banded"]["max_abs_err"], err)
+        paths.append({"name": f"phase 23 fir_banded RrcFilter K {k} T {t_len}",
+                      "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+                      "bound_by": b_by, "library_ms": lib})
+    lap("d fir_banded")
+    print(f"[23 seconds] wall s by sub-phase {({k: round(v, 2) for k, v in secs.items()})}"
+          f"; phase 23 {sum(secs.values()):.1f} s")
+    paths.append({"name": "phase 23 seconds", "seconds": sum(secs.values()),
+                  "by_sub_phase": secs})
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2514,6 +2941,7 @@ def main() -> int:
     yaml_phases(dev, card, phase45, paths)
     del phase45
     loop_phases(dev, paths)
+    modem_phases(dev, paths, results)
 
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "share_of_bound", "library_ms")

@@ -52,8 +52,7 @@ from ..core.stream import torch_dtype
 from .cuda_kernels import (_choose_tile, _host_taps, _next_pow2,
                            _toeplitz_np, device_constant, fir_banded,
                            fir_banded_ref, fir_demod, frozen)
-from .precision import (RUNGS, check_f32_matmul, int8_mm, quant_rows,
-                        rung_dot)
+from .precision import RUNGS, int8_mm, quant_rows, rung_dot
 
 # the precision rungs a block may name
 PRECISIONS = ("auto", "default", "high", "highest", "bf16", "int8")
@@ -367,8 +366,13 @@ def fir_resample_matmul(xc: torch.Tensor, taps_np: np.ndarray, interp: int,
     """One-matmul rational resampler: frames [B, n, tile+K_p−1] @ W →
     [B, n·tile·L/M], trimmed to T·L/M. ``xc`` = [channels, (K_p−1) + T] with T
     divisible by ``decim``; ``taps_np`` host NumPy (the weights are built on
-    the host and uploaded once per device). The last tile is zero-padded."""
-    check_f32_matmul("fir_resample_matmul")
+    the host and uploaded once per device). The last tile is zero-padded.
+    The products run at the live rung (``GR4TPU_FIR_PRECISION``, through
+    :func:`~.precision.rung_dot`), as the JAX package's ``_banded_dot``
+    does; ``highest`` is the plain float32 matmul, guarded by
+    :func:`~.precision.check_f32_matmul` in ``rung_dot``."""
+    mode = _rung(None)
+    dot = lambda a, w: rung_dot(a, w, mode)
     b, tc = xc.shape
     k_total = taps_np.shape[-1]
     k_per_phase = -(-k_total // interp)
@@ -390,16 +394,16 @@ def fir_resample_matmul(xc: torch.Tensor, taps_np: np.ndarray, interp: int,
         fi = (_frame_overlapping_general(xc.imag.float(), tile, frame_len)
               if xc.is_complex() else None)
         if wi is None:
-            yr, yi = fr @ wr, fi @ wr
+            yr, yi = dot(fr, wr), dot(fi, wr)
         elif fi is None:
-            yr, yi = fr @ wr, fr @ wi
+            yr, yi = dot(fr, wr), dot(fr, wi)
         else:
-            yr = fr @ wr - fi @ wi
-            yi = fr @ wi + fi @ wr
+            yr = dot(fr, wr) - dot(fi, wi)
+            yi = dot(fr, wi) + dot(fi, wr)
         y = torch.complex(yr, yi)
     else:
-        y = (_frame_overlapping_general(xc, tile, frame_len).float() @ wr
-             ).to(xc.dtype)
+        y = dot(_frame_overlapping_general(xc, tile, frame_len).float(), wr
+                ).to(xc.dtype)
     return y.reshape(b, -1)[:, :n_out_true]
 
 

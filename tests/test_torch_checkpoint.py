@@ -1,5 +1,7 @@
 """Checkpoints across the two packages, on the CPU: the headline chain and a
 noise graph (NoiseSource and SignalGenerator's GaussianNoise, both threefry)
+and a modem graph (a ChannelModel into an OFDM demodulator and
+pilot equalizer, whose states hold a threefry key, a uint32 phase and a bool)
 run 2 steps, are saved, and resume for 2 more — JAX → port, port → JAX and
 port → port — against steps 3–4 of an uninterrupted run; and a checkpoint
 whose state tree differs from the block's is refused, naming the key.
@@ -60,7 +62,25 @@ def _noise(pkg):
     return g
 
 
-BUILDERS = {"chain": _chain, "noise": _noise}
+def _modem(pkg):
+    """Complex noise → ChannelModel (multipath, CFO, AWGN: a threefry key, a
+    uint32 phase, a history) → OfdmDemodulator → OfdmChannelEqualizer (MMSE,
+    EMA-smoothed: a carried estimate and a bool ``warm``)."""
+    g = pkg.Graph(name="modem")
+    reg = pkg.global_registry
+    g.connect_chain(
+        reg.create("NoiseSource", noise="complex_gaussian", seed=3, name="nz"),
+        reg.create("ChannelModel", taps=(1.0, 0.4, -0.2), noise_voltage=0.05,
+                   frequency_offset=0.001, seed=5, name="chan"),
+        reg.create("OfdmDemodulator", fft_size=64, cp_len=0, n_occupied=48,
+                   name="ofdm"),
+        reg.create("OfdmChannelEqualizer", fft_size=64, n_occupied=48,
+                   mode="mmse", noise_var=0.1, smoothing=0.5, name="eq"),
+        reg.create("VectorSink", name="equalized"))
+    return g
+
+
+BUILDERS = {"chain": _chain, "noise": _noise, "modem": _modem}
 
 
 def _sched(pkg, g):
@@ -119,6 +139,10 @@ def test_checkpoint_resumes(tmp_path, name, writer, reader):
     got = _resume(reader, tmp_path)
     want = _uninterrupted(writer if reader is gt and writer is gt else gr, name)
     _agree(got, want, exact=writer is reader)
+    if name == "modem":
+        blob = np.load(tmp_path / "states.npz")
+        assert blob["chan['phase']"].dtype == np.uint32
+        assert blob["eq['warm']"].dtype == np.bool_ and blob["eq['warm']"]
     if name == "noise" and reader is gt:
         # the restored threefry keys are the saved uint32 words
         blob = np.load(tmp_path / "states.npz")

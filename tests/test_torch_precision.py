@@ -351,3 +351,27 @@ def test_card_rungs_match_their_emulation(rung):
     got = tprec.rung_dot(a.cuda(), w.cuda(), rung).cpu().numpy()
     emu = tprec.card_dot(a, w, rung).numpy()
     np.testing.assert_allclose(got, emu, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("env", ["bf16", "default", "high", "highest", "int8"])
+@pytest.mark.parametrize("cx", [False, True])
+def test_resampler_matmul_reads_the_live_rung(monkeypatch, env, cx):
+    """The one-matmul rational resampler multiplies at GR4TPU_FIR_PRECISION's
+    rung, read when the call runs, as the JAX package's ``_banded_dot``
+    does: RationalResamplerKernel(3, 2) with 48 N(0, 1) taps on 4096
+    samples, two calls with the state carried, within PEAK_TOL of the JAX
+    package's peak (before the repair ``bf16`` differed by 3.0e-3)."""
+    from gnuradio4_tpu.ops.resample import RationalResamplerKernel as JR
+    from gnuradio4_tpu_torch.ops.resample import RationalResamplerKernel as TR
+    monkeypatch.setenv("GR4TPU_FIR_PRECISION", env)
+    rng = np.random.default_rng(41)
+    taps = rng.standard_normal(48)
+    jr, tr = JR(3, 2, taps), TR(3, 2, taps)
+    sj, st = jr.init_state(0, np.complex64 if cx else np.float32), \
+        tr.init_state(0, np.complex64 if cx else np.float32)
+    for _ in range(2):
+        x = _stream(rng, 4096, cx)
+        yj, sj = jr.apply(jnp.asarray(x), sj, method="matmul")
+        yt, st = tr.apply(torch.from_numpy(x), st, method="matmul")
+        _close(yt.numpy(), yj)
+        np.testing.assert_array_equal(st.numpy(), np.asarray(sj))

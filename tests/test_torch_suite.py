@@ -122,8 +122,10 @@ def test_block_carries_the_jax_names(name):
     same settings (name, kind, default, choices), ports and sample-accurate
     set."""
     assert name in gt.global_registry.known_blocks()
-    # ArraySource has no default: it is built from its arrays
-    kw = {"arrays": [np.zeros(8, np.float32)]} if name == "ArraySource" else {}
+    # ArraySource has no default: it is built from its arrays;
+    # PreambleCorrelator refuses to be built without a preamble
+    kw = {"ArraySource": {"arrays": [np.zeros(8, np.float32)]},
+          "PreambleCorrelator": {"preamble": [1.0, -1.0]}}.get(name, {})
     bj = gr.global_registry.create(name, **kw)
     bt = gt.global_registry.create(name, **kw)
     sj, st = bj.settings.spec, bt.settings.spec

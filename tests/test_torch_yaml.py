@@ -31,7 +31,7 @@ torch.set_num_threads(2)
 ROOT = Path(__file__).resolve().parent.parent
 EXAMPLES = sorted((ROOT / "examples").glob("*.yaml"))
 # the examples whose every block type the port registers
-PORTED_EXAMPLES = ("agc_loop", "channelizer", "fm_receiver")
+PORTED_EXAMPLES = ("agc_loop", "channelizer", "coded_link", "fm_receiver")
 
 # every document tests/test_yaml_pmt_golden.py loads
 GOLDEN = {
@@ -489,3 +489,22 @@ def test_port_imports_neither_jax_nor_yaml():
                          text=True, timeout=300, cwd=str(ROOT))
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]"
+
+
+def test_coded_link_runs_in_the_port_as_in_the_jax_package():
+    """examples/coded_link.yaml (PRBS → LDPC(256, 128) → BPSK → ChannelModel
+    at σ 0.42, ~0.86% raw BER → Real → LLRs → decoder) through ``run_grc``
+    on the CPU: every one of the 8192 bits decoded (the reference's own
+    check, tests/test_examples.py), and the received bits equal the JAX
+    package's."""
+    text = (ROOT / "examples" / "coded_link.yaml").read_text()
+    out = {}
+    for pkg, kw in ((gr, {}), (gt, {"scheduler_kwargs": {"device": "cpu"}})):
+        blocks = {b.name: b for b in pkg.run_grc(text, **kw).graph.blocks}
+        out[pkg] = (np.asarray(blocks["tx_bits"].data()),
+                    np.asarray(blocks["rx_bits"].data()))
+    (txj, rxj), (txt, rxt) = out[gr], out[gt]
+    assert txt.shape == rxt.shape == (8192,)
+    np.testing.assert_array_equal(rxt, txt)
+    np.testing.assert_array_equal(txt, txj)
+    np.testing.assert_array_equal(rxt, rxj)
