@@ -136,6 +136,22 @@ result line:
     ``MMSymbolSync`` scenario's K 45 at 4096, the default K 65 at 4096 and
     2^22) against its plain version, its bound and ``F.conv1d``.
 
+24. carrier and timing recovery, the RDS receiver and the terminal spectrum
+    analyzer: (a) ``examples/rds_receiver.yaml`` by ``run_grc`` for the 60
+    steps of ``tests/test_rds.py:98-112`` (PI, PS, radiotext, > 100 groups;
+    one ``nco_mix`` and one ``fir_banded`` launch per step), and the card's
+    ``CostasLoop`` against the port on the CPU over 3 steps of the card's
+    own filter output; (b) the FM stereo + RDS capstone of
+    ``tests/test_acceptance.py:74-131`` at its sizes (separation > 40 dB,
+    PI, PS, ≥ 12 groups), then ms and host ms per step, kernel launches and
+    torch ops per step and the device-busy share; (c)
+    ``examples/spectrum_analyzer.yaml`` for 20 steps (renders, the 100 and
+    230 kHz peaks 12.04 dB apart) and ``run ... --draw`` by the CLI; (d) each
+    new device block's launches, torch ops and ms per step at its JAX test's
+    size; (e) ``nco_mix`` and ``fir_banded`` at the RDS channel filter's
+    shapes (c64 T 65568 and 24000, 241 f32 taps ÷24) against their plain
+    versions, with bound and ``F.conv1d``.
+
 Phases 13–17 each print the card against the CPU on a short run of the same
 graph, Msps (coded Mbit/s for 7 and 7k), ms per step by CUDA events over 5
 windows, host ms per step, the device-busy share of one profiled step, peak
@@ -287,6 +303,19 @@ RRC_MM = {"sps": 4, "ntaps": 45, "beta": 0.5}
 RRC_BLOCK_LEN = 4096
 RRC_SHAPES = ((RRC_MM["sps"], RRC_MM["ntaps"], RRC_MM["beta"], RRC_BLOCK_LEN),
               (4, 65, 0.35, RRC_BLOCK_LEN), (4, 65, 0.35, 1 << 22))
+# phase 24: examples/rds_receiver.yaml runs at run_grc's default block_len
+# (its meta section is not read, as in the JAX package): 65568 samples per
+# step, 2732 into the Costas loop; tests/test_rds.py:98-112 runs 60 steps
+RDS_STEPS = 60
+RDS_CHECK_STEPS = 3
+# the carrier loops on the card against the CPU on the same input, per sample
+# relative to max(1, |y|) (tests/test_torch_dsp_extras.py's LOOP_ATOL)
+LOOP_SAMPLE_ATOL = 1e-5
+# the capstone (tests/test_acceptance.py:74-131): a 456 kHz IF, block_len 48000
+CAP_FS = 456000.0
+CAP_BLOCK_LEN = 48000
+CAP_STEPS = 3
+SPECTRUM_STEPS = 20
 KERNELS = {
     "fir_banded": {
         "source": "gnuradio4_tpu_torch/csrc/fir_banded.cu",
@@ -2158,6 +2187,310 @@ def modem_phases(dev, paths: list, results: dict) -> None:
                   "by_sub_phase": secs})
 
 
+def build_capstone(repeat: bool = False):
+    """tests/test_acceptance.py:74's FM broadcast: one FM carrier with the
+    stereo multiplex and 57 kHz RDS, split after the ÷2 FIR into
+    FmStereoDecoder and the RDS arm (FreqXlatingFir(241, ÷24) → CostasLoop →
+    MMSymbolSync → RdsDecoder). Returns (graph, left sink, right sink,
+    decoder, number of samples)."""
+    import numpy as np
+    import gnuradio4_tpu_torch as gt
+    from gnuradio4_tpu_torch.blocks import rds
+    from gnuradio4_tpu_torch.ops.filter_design import design_fir
+    dev_hz = 75000.0
+    wave = rds.modulate_mpx(rds.make_0a_groups(0x52A1, 9, "GR4-TPU!") * 4, fs=CAP_FS)
+    t = np.arange(len(wave)) / CAP_FS
+    left, right = np.sin(2 * np.pi * 800.0 * t), np.sin(2 * np.pi * 1400.0 * t)
+    th = 2 * np.pi * 19000.0 * t
+    mpx = (0.20 * (left + right) + 0.1 * np.sin(th)
+           + 0.20 * (left - right) * np.sin(2 * th) + 0.08 * wave)
+    tx = np.exp(1j * 2 * np.pi * np.cumsum(dev_hz * mpx) / CAP_FS).astype(np.complex64)
+    reg = gt.global_registry
+    g = gt.Graph()
+    lp = reg.create("FirFilter", decim=2, taps=tuple(design_fir(
+        "lowpass", 121, sample_rate=CAP_FS, f_low=80000.0).tolist()))
+    st = reg.create("FmStereoDecoder", sample_rate_in=228000.0)
+    kl, kr = reg.create("VectorSink"), reg.create("VectorSink")
+    dec = reg.create("RdsDecoder")
+    g.connect_chain(reg.create("VectorSource", data=tx, repeat=repeat),
+                    reg.create("QuadratureDemod", gain=CAP_FS / (2 * np.pi * dev_hz)), lp)
+    g.connect(lp["out"], st["in"])
+    g.connect(st["left"], kl["in"])
+    g.connect(st["right"], kr["in"])
+    cvt = reg.create("Convert", to="complex64")
+    g.connect(lp["out"], cvt["in"])
+    g.connect_chain(cvt, reg.create("FreqXlatingFir", center_freq=57000.0, decim=24,
+                                    f_cut=2400.0, ntaps=241),
+                    reg.create("CostasLoop", order=2, loop_bw=0.01),
+                    reg.create("MMSymbolSync", sps=4, gain=0.05), dec)
+    return g, kl, kr, dec, len(tx)
+
+
+def carrier_phases(dev, paths: list, results: dict) -> None:
+    """Phase 24: carrier and timing recovery, the RDS receiver and the
+    terminal spectrum analyzer on the card."""
+    import numpy as np
+    import torch
+    import gnuradio4_tpu_torch as gt
+    from gnuradio4_tpu_torch.core.profiler import Profiler
+    from gnuradio4_tpu_torch.ops import cuda_kernels as ck
+    from gnuradio4_tpu_torch.ops.signal import phase_increment
+
+    def xlat_dphi(b) -> int:
+        """The mixer increment of a FreqXlatingFir after its run."""
+        return int(phase_increment(-float(b.settings.get("center_freq")),
+                                   b._fs(b._fs_cached)))
+
+    secs = {}
+    t_sub = time.perf_counter()
+
+    def lap(name: str) -> None:
+        nonlocal t_sub
+        now = time.perf_counter()
+        secs[name] = now - t_sub
+        t_sub = now
+
+    # (a) examples/rds_receiver.yaml through run_grc, the JAX test's 60 steps
+    text = (ROOT / "examples" / "rds_receiver.yaml").read_text()
+    ck.reset_launch_counts()
+    t0 = time.perf_counter()
+    s = gt.run_grc(text, n_steps=RDS_STEPS, scheduler_kwargs={"device": dev})
+    wall = time.perf_counter() - t0
+    counts = ck.launch_counts()
+    blk = {b.name: b for b in s.graph.blocks}
+    n_carrier = s.compiled.in_len[blk["carrier"].unique_name]
+    dec = blk["rds"]
+    # the shape at which the flow launched fir_banded, with the block's own
+    # taps, for (e): (label, stream complex, taps, decim, T, nco_mix's
+    # increment before the FIR or None)
+    chan = blk["channel"]
+    fir_shapes = [("rds_receiver.yaml's channel filter", True, chan._taps_array(),
+                   int(chan.settings.get("decim")),
+                   s.compiled.in_len[chan.unique_name], xlat_dphi(chan))]
+    print(f"[24a rds_receiver.yaml] run_grc on {s.device}, {RDS_STEPS} steps of "
+          f"{s.compiled.in_len[blk['channel'].unique_name]} samples ({n_carrier} "
+          f"into CostasLoop per step) in {wall:.2f} s wall ({wall / RDS_STEPS * 1e3:.1f} "
+          f"ms/step); PI {dec.pi:#06x}, PS {dec.ps!r}, radiotext {dec.radiotext!r}, "
+          f"{len(dec.groups)} groups; hand-kernel launches {counts}")
+    check(str(s.device).startswith("cuda") and dec.pi == 0x52A1 and dec.ps == "GR4-TPU!"
+          and dec.radiotext == "HELLO FROM THE TPU SIDE" and len(dec.groups) > 100,
+          "rds_receiver.yaml on the card: wrong decode")
+    check(counts["nco_mix"] == counts["fir_banded"] == RDS_STEPS,
+          f"rds_receiver.yaml: expected {RDS_STEPS} nco_mix and fir_banded launches")
+    for k in ("nco_mix", "fir_banded"):
+        results[k]["launches"] += counts[k]
+    paths.append({"name": "phase 24 rds_receiver.yaml", "steps": RDS_STEPS,
+                  "wall_ms_per_step": wall / RDS_STEPS * 1e3, "groups": len(dec.groups)})
+    del s, blk, dec
+    # the card's CostasLoop against the port on the CPU, on the card's own
+    # channel-filter output over RDS_CHECK_STEPS steps
+    g = gt.load_grc(text)
+    blk = {b.name: b for b in g.blocks}
+    tap_in, tap_out = gt.global_registry.create("VectorSink"), gt.global_registry.create("VectorSink")
+    g.connect(blk["channel"], tap_in)
+    g.connect(blk["carrier"], tap_out)
+    gt.Scheduler(g, block_len=1 << 16, sample_rate=1.0, device=dev).run_and_wait(RDS_CHECK_STEPS)
+    xin, ycard = tap_in.data(), tap_out.data()
+    g2 = gt.Graph()
+    snk = gt.global_registry.create("VectorSink")
+    g2.connect_chain(gt.global_registry.create("VectorSource", data=xin),
+                     gt.global_registry.create("CostasLoop", order=2, loop_bw=0.01), snk)
+    gt.Scheduler(g2, block_len=n_carrier, sample_rate=1.0, device="cpu").run_and_wait(
+        RDS_CHECK_STEPS)
+    ycpu = snk.data()
+    d = np.abs(ycard.astype(np.complex128) - ycpu)
+    rel = float(np.max(d / np.maximum(1.0, np.abs(ycpu))))
+    print(f"  CostasLoop, card against the CPU on the card's filter output: "
+          f"{len(ycard)} samples, max|Δ|/max(1,|y|) {rel:.3e} (tol {LOOP_SAMPLE_ATOL})")
+    check(ycard.shape == ycpu.shape == (RDS_CHECK_STEPS * n_carrier,)
+          and rel <= LOOP_SAMPLE_ATOL, "CostasLoop card vs CPU")
+    del g, g2
+    lap("a rds_receiver")
+
+    # (b) the capstone at its own sizes: stereo + RDS from one FM carrier
+    g, kl, kr, dec, n = build_capstone()
+    ck.reset_launch_counts()
+    t0 = time.perf_counter()
+    sched = gt.Scheduler(g, block_len=CAP_BLOCK_LEN, sample_rate=CAP_FS, device=dev)
+    sched.run_and_wait()
+    wall = time.perf_counter() - t0
+    counts = ck.launch_counts()
+    yl, yr = kl.data(), kr.data()
+
+    def tone(y, f0):
+        seg = y[65536:65536 + 131072] * np.hanning(131072)
+        spec = np.abs(np.fft.rfft(seg))
+        return spec[np.argmin(np.abs(np.fft.rfftfreq(131072, 1 / 228000.0) - f0))]
+    sep_l = 20 * np.log10(tone(yl, 800) / (tone(yl, 1400) + 1e-12))
+    sep_r = 20 * np.log10(tone(yr, 1400) / (tone(yr, 800) + 1e-12))
+    steps = sched._step
+    print(f"[24b FM stereo + RDS capstone] {n} IF samples, {steps} steps of "
+          f"{CAP_BLOCK_LEN} in {wall:.2f} s wall; separation L {sep_l:.1f} dB, "
+          f"R {sep_r:.1f} dB; PI {dec.pi:#06x}, PS {dec.ps!r}, {len(dec.groups)} "
+          f"groups; hand-kernel launches {counts}")
+    check(sep_l > 40 and sep_r > 40 and dec.pi == 0x52A1 and dec.ps == "GR4-TPU!"
+          and len(dec.groups) >= 12, "capstone on the card")
+    # fir_banded: the ÷2 FirFilter, FmStereoDecoder's four FIRs, the RDS
+    # channel filter; nco_mix: the RDS channel filter's mixer
+    check(counts["nco_mix"] == steps and counts["fir_banded"] == 6 * steps,
+          "capstone: expected one nco_mix and six fir_banded launches per step")
+    for k in ("nco_mix", "fir_banded"):
+        results[k]["launches"] += counts[k]
+    # each of those six FIRs' shape and designed taps, as the run used them
+    by_type = {type(b).__name__: b for b in g.blocks}
+    in_len = lambda b: sched.compiled.in_len[b.unique_name]
+    lp, st, xl = (by_type[k] for k in ("FirFilter", "FmStereoDecoder", "FreqXlatingFir"))
+    lp15, bp19c, bp38 = st._filters(st._flt_fs)
+    t_lp, t_st = in_len(lp), in_len(st)
+    fir_shapes += [("the capstone's ÷2 FirFilter", False, lp._taps_array(),
+                    int(lp.settings.get("decim")), t_lp, None),
+                   ("FmStereoDecoder's L+R/L−R low-pass", False, lp15, 1, t_st, None),
+                   ("FmStereoDecoder's 38 kHz band-pass", False, bp38, 1, t_st, None),
+                   ("FmStereoDecoder's analytic pilot filter", True, bp19c, 1, t_st, None),
+                   ("the capstone's RDS channel filter", True, xl._taps_array(),
+                    int(xl.settings.get("decim")), in_len(xl), xlat_dphi(xl))]
+    del sched, g
+    g, _, _, _, _ = build_capstone(repeat=True)
+    sched = gt.Scheduler(g, block_len=CAP_BLOCK_LEN, sample_rate=CAP_FS, device=dev,
+                         profiler=Profiler())
+    sched.init()
+    sched.fsm.transition_to(gt.State.RUNNING)
+    for _ in range(2):
+        sched._pump_once()
+    torch.cuda.synchronize()
+    ms, windows, host_ms, split = drive_windows(sched, CAP_STEPS, windows=3)
+    kernels, ops = count_ops(sched._pump_once)
+    dev_ms, top = profile_device(sched._pump_once)
+    finish(sched)
+    del sched, g
+    busy = ("not measured (the profiler saw no device activity)"
+            if dev_ms is None else f"{dev_ms:.4f} ms, {dev_ms / ms:.1%} of the step")
+    print(f"  {ms:.4f} ms/step (median of 3 windows of {CAP_STEPS} steps, CUDA "
+          f"events; (events ms, wall ms) {fmt_windows(windows)}); host {host_ms:.4f} "
+          f"ms/step in the pump ({fmt_split(split)}); {kernels} kernel launches, "
+          f"{ops} torch ops per step (torch.profiler); device busy {busy}; top "
+          f"kernels {[(round(a, 4), k[:60]) for a, k in top[:4]]}")
+    paths.append({"name": "phase 24 capstone", "ms_per_step": ms,
+                  "host_ms_per_step": host_ms, "kernels_per_step": kernels,
+                  "torch_ops_per_step": ops,
+                  "device_busy_share": None if dev_ms is None else dev_ms / ms,
+                  "separation_db": [sep_l, sep_r], "groups": len(dec.groups)})
+    lap("b capstone")
+
+    # (c) examples/spectrum_analyzer.yaml, the scope muted; then the CLI's
+    # run --draw on a non-TTY stdout
+    text = (ROOT / "examples" / "spectrum_analyzer.yaml").read_text()
+    muted = text.replace("{window: 2048, refresh_every: 4}",
+                         "{window: 2048, refresh_every: 4, stream: none}")
+    check(muted != text, "spectrum_analyzer.yaml: no scope settings to mute")
+    s = gt.run_grc(muted, n_steps=SPECTRUM_STEPS, scheduler_kwargs={"device": dev})
+    mon = {b.name: b for b in s.graph.blocks}["scope"]
+    frame = mon._hist.view()[-2048:][:1024]
+    k1, k2 = round(100e3 / 1e6 * 2048), round(230e3 / 1e6 * 2048)
+    p1 = int(np.argmax(frame))
+    p2 = int(np.argmax(np.where(np.abs(np.arange(1024) - k1) > 8, frame, -1e9)))
+    ddb = float(frame[k1] - frame[k2])
+    print(f"[24c spectrum_analyzer.yaml] {SPECTRUM_STEPS} steps on {s.device}: "
+          f"{mon._renders} renders; peaks at bins {p1}, {p2} (expected {k1}, {k2}), "
+          f"{ddb:.3f} dB apart (20·log10(4) = {20 * np.log10(4.0):.3f})")
+    check(str(s.device).startswith("cuda") and mon._renders >= 1 and p1 == k1
+          and p2 == k2 and abs(ddb - 20 * np.log10(4.0)) < 0.5,
+          "spectrum_analyzer.yaml on the card")
+    del s, mon
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "gnuradio4_tpu_torch", "run",
+                        "examples/spectrum_analyzer.yaml", "--steps",
+                        str(SPECTRUM_STEPS), "--draw"], capture_output=True,
+                       text=True, timeout=300, cwd=str(ROOT), env=env)
+    tail = r.stdout[r.stdout.rfind("── scope "):] if "── scope " in r.stdout else ""
+    print(f"  python -m gnuradio4_tpu_torch run examples/spectrum_analyzer.yaml "
+          f"--steps {SPECTRUM_STEPS} --draw: rc {r.returncode} in "
+          f"{time.perf_counter() - t0:.1f} s wall, {r.stdout.count('── scope ')} frames; "
+          f"last line {tail.rstrip().splitlines()[-1] if tail else None!r}; "
+          f"{r.stderr.strip().splitlines()[-1] if r.stderr.strip() else ''}")
+    check(r.returncode == 0 and tail.rstrip().endswith(f"[STOPPED] step {SPECTRUM_STEPS}")
+          and any("\u2800" < ch <= "\u28ff" for ch in tail)
+          and "device=cuda" in r.stderr,
+          f"run --draw on the card: rc {r.returncode}: {r.stderr[-2000:]}")
+    lap("c spectrum analyzer")
+
+    # (d) each new device block's cost per step, at its JAX test's size
+    gen = torch.Generator(device=dev).manual_seed(SEED + 24)
+    cx = lambda n: torch.randn(n, dtype=torch.complex64, device=dev, generator=gen)
+    rx = lambda n: torch.randn(n, dtype=torch.float32, device=dev, generator=gen)
+    for btype, settings, ins in (
+            ("CostasLoop", {"order": 2, "loop_bw": 0.05}, {"in": cx(4096)}),
+            ("CostasLoop", {"order": 4, "loop_bw": 0.05}, {"in": cx(4096)}),
+            ("PllCarrierTracking", {"loop_bw": 0.02}, {"in": cx(16384)}),
+            ("FllBandEdge", {"loop_bw": 0.05}, {"in": cx(8192)}),
+            ("GoertzelDetector", {"frequency": 941.0, "chunk": 1024,
+                                  "sample_rate_in": 8000.0}, {"in": rx(2048)}),
+            ("CtcssSquelch", {"frequency": 88.5, "sample_rate_in": 48000.0},
+             {"in": rx(4096)}),
+            ("SnrEstimator", {"chunk": 512, "alpha": 0.9}, {"in": cx(2048)}),
+            ("FarrowResampler", {"rate": 0.75}, {"in": rx(8000)}),
+            ("PowerSquelch", {"threshold_db": -20.0, "alpha": 0.01}, {"in": cx(4096)}),
+            ("CoarseFrequencyCorrector", {"order": 4}, {"in": cx(8192)}),
+            ("IqImbalanceCorrector", {"alpha": 0.4}, {"in": cx(8192)})):
+        kernels, ops, ms = block_step_cost(dev, btype, settings, ins)
+        n_in = next(iter(ins.values())).shape[-1]
+        label = btype + (f" order {settings['order']}" if "order" in settings else "")
+        print(f"[24d step cost] {label} on {n_in} samples: {kernels} kernel launches "
+              f"({(kernels or 0) / n_in:.2f} per sample), {ops} torch ops, "
+              f"{ms:.3f} ms per step")
+        paths.append({"name": f"phase 24 {label}", "samples": n_in,
+                      "kernels_per_step": kernels, "torch_ops_per_step": ops,
+                      "ms_per_step": ms})
+    lap("d step costs")
+
+    # (e) fir_banded at every shape (a) and (b) launched it with, on the taps
+    # the blocks designed; where the block is the RDS channel filter, nco_mix
+    # first at its increment, and the FIR on the mixed stream
+    for label, x_cx, taps_np, decim, t_len, dphi in fir_shapes:
+        taps = torch.from_numpy(np.ascontiguousarray(taps_np)).to(dev)
+        k = taps.shape[0]
+        x = cx(t_len) if x_cx else rx(t_len)
+        hist = cx(k - 1) if x_cx else rx(k - 1)
+        if dphi is not None:
+            y, ph = ck.nco_mix(x, 12345, dphi)
+            y_ref, ph_ref = ck.nco_mix_ref(x, 12345, dphi)
+            err = float((y - y_ref).abs().max())
+            k_ms, p_ms = kernel_vs_plain_ms(lambda: ck.nco_mix(x, 12345, dphi),
+                                            lambda: ck.nco_mix_ref(x, 12345, dphi))
+            b_ms, b_by = bound_ms(6.0 * t_len, 16.0 * t_len)
+            print(f"[24e nco_mix, {label}] c64 T {t_len}: max|Δ| {err:.3e} (tol "
+                  f"{NCO_ATOL}); kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound "
+                  f"{b_ms:.5f} ms ({b_by}), {b_ms / k_ms:.1%} of it")
+            check(err <= NCO_ATOL and ph == ph_ref, f"nco_mix, {label}: {err}")
+            results["nco_mix"]["max_abs_err"] = max(results["nco_mix"]["max_abs_err"], err)
+            paths.append({"name": f"phase 24 nco_mix {label} T {t_len}", "ms": k_ms,
+                          "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+                          "library_ms": None})
+            x = y
+        yf = ck.fir_banded(x, hist, taps, decim)
+        err = float((yf - ck.fir_banded_ref(x, hist, taps, decim)).abs().max())
+        k_ms, p_ms = kernel_vs_plain_ms(lambda: ck.fir_banded(x, hist, taps, decim),
+                                        lambda: ck.fir_banded_ref(x, hist, taps, decim))
+        b_ms, b_by = bound_ms(*fir_work((t_len,), x_cx, taps.is_complex(), k, decim))
+        lib = conv1d_ms(x, hist, taps, decim)
+        kind = f"{'c64' if x_cx else 'f32'} × {'c64' if taps.is_complex() else 'f32'}"
+        print(f"[24e fir_banded, {label}] {kind} K {k} ÷{decim} T {t_len}: max|Δ| "
+              f"{err:.3e} (tol {FIR_ATOL}); kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
+              f"bound {b_ms:.5f} ms ({b_by}), {b_ms / k_ms:.1%} of it; F.conv1d "
+              f"(TF32 off) {lib:.4f} ms")
+        check(err <= FIR_ATOL, f"fir_banded, {label}: {err}")
+        results["fir_banded"]["max_abs_err"] = max(results["fir_banded"]["max_abs_err"], err)
+        paths.append({"name": f"phase 24 fir_banded {label} {kind} K {k} ÷{decim} "
+                              f"T {t_len}", "ms": k_ms, "plain_ms": p_ms,
+                      "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib})
+    lap("e kernels")
+    print(f"[24 seconds] wall s by sub-phase {({k: round(v, 2) for k, v in secs.items()})}"
+          f"; phase 24 {sum(secs.values()):.1f} s")
+    paths.append({"name": "phase 24 seconds", "seconds": sum(secs.values()),
+                  "by_sub_phase": secs})
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2942,6 +3275,7 @@ def main() -> int:
     del phase45
     loop_phases(dev, paths)
     modem_phases(dev, paths, results)
+    carrier_phases(dev, paths, results)
 
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "share_of_bound", "library_ms")

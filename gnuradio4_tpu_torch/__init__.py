@@ -12,7 +12,7 @@ This package imports torch and NumPy and never JAX or PyYAML.
 """
 
 from .core.block import (Block, BlockCtx, HostCtx, Port, PortRef, SinkBlock,
-                         SourceBlock)
+                         SourceBlock, UICategory)
 from .core.compiler import CompiledGraph, compile_graph, default_device
 from .core.errors import Error, GrError
 from .core.graph import Edge, Graph
@@ -42,7 +42,8 @@ __version__ = "0.1.0"
 
 __all__ = [
     "Block", "BlockCtx", "HostCtx", "Port", "PortRef", "SinkBlock",
-    "SourceBlock", "CompiledGraph", "compile_graph", "default_device", "Error",
+    "SourceBlock", "UICategory", "CompiledGraph", "compile_graph",
+    "default_device", "Error",
     "GrError", "Edge", "Graph", "State", "Command", "Message", "MessageBus",
     "Property", "NullProfiler", "Profiler", "BlockRegistry", "global_registry",
     "global_scheduler_registry", "register_block", "register_scheduler",

@@ -2,14 +2,16 @@
 
 Commands (the app surface of the framework — ≈ running a GRC flowgraph):
   run <flow.yaml> [--steps N] [--block-len N] [--sample-rate FS] [--cpu]
-                  [--profile TRACE]
+                  [--profile TRACE] [--draw [--draw-interval S]]
   blocks                      list registered block types
   describe <BlockType>        show a block type's settings/ports
   inspect <flow.yaml>         parse + validate + print the resolved graph
 
 ``run`` takes the CUDA card unless ``--cpu`` is given; without a card it
-fails. The JAX package's ``run --draw``, ``new-block`` and ``bench`` and the
-drawing ``inspect`` prints above its table are not ported yet: each raises.
+fails. ``run --draw`` redraws the graph's Drawable blocks (ImChartMonitor,
+WaterfallMonitor) while the scheduler runs. The JAX package's ``new-block``
+and ``bench`` and the drawing ``inspect`` prints above its table are not
+ported yet: each raises.
 """
 
 from __future__ import annotations
@@ -20,7 +22,56 @@ import sys
 from .core.errors import GrError
 
 _NOT_PORTED = ("is not ported to gnuradio4_tpu_torch yet (it comes with the "
-               "port's terminal drawing and benchmark)")
+               "port's scaffolding and benchmark)")
+
+
+def _run_with_dashboard(sched, graph, n_steps, interval: float) -> None:
+    """Run the scheduler in the background; refresh Drawable blocks in-place
+    (ANSI alternate screen) until the graph finishes or Ctrl-C."""
+    import time
+
+    drawables = [b for b in graph.flatten().blocks if b.is_drawable]
+    if not drawables:
+        print("--draw: no drawable blocks in this flowgraph (add e.g. "
+              "ImChartMonitor); running headless", file=sys.stderr)
+        sched.run_and_wait(n_steps)
+        return
+    sched.start(n_steps)
+    use_altscreen = sys.stdout.isatty()
+    if use_altscreen:
+        sys.stdout.write("\x1b[?1049h")  # alternate screen
+    try:
+        from .core.lifecycle import State
+        while sched.state not in (State.STOPPED, State.ERROR):
+            frame = []
+            for b in drawables:
+                out = b.draw()
+                if out:
+                    frame.append(f"── {b.name} " + "─" * 24)
+                    frame.append(out.rstrip("\n"))
+            frame.append(f"[{sched.state.value}] step {sched._step}   "
+                         f"(Ctrl-C to stop)")
+            if use_altscreen:
+                sys.stdout.write("\x1b[H\x1b[2J" + "\n".join(frame) + "\n")
+            else:
+                sys.stdout.write("\n".join(frame) + "\n\n")
+            sys.stdout.flush()
+            time.sleep(interval)
+    except KeyboardInterrupt:
+        sched.request_stop()
+    finally:
+        if use_altscreen:
+            sys.stdout.write("\x1b[?1049l")
+            sys.stdout.flush()
+        sched.wait_done()
+        # final frame on the main screen so a fast run still shows its charts
+        for b in drawables:
+            out = b.draw()
+            if out:
+                sys.stdout.write(f"── {b.name} " + "─" * 24 + "\n"
+                                 + out.rstrip("\n") + "\n")
+        sys.stdout.write(f"[{sched.state.value}] step {sched._step}\n")
+        sys.stdout.flush()
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -37,7 +88,8 @@ def main(argv: list[str] | None = None) -> int:
     run_p.add_argument("--profile", metavar="TRACE_JSON", default=None,
                        help="write a chrome://tracing profile")
     run_p.add_argument("--draw", action="store_true",
-                       help="live terminal dashboard (not ported yet)")
+                       help="live terminal dashboard from Drawable blocks "
+                            "(ImChartMonitor etc.)")
     run_p.add_argument("--draw-interval", type=float, default=0.5,
                        metavar="S", help="dashboard refresh period")
 
@@ -61,8 +113,6 @@ def main(argv: list[str] | None = None) -> int:
 
     if args.cmd in ("bench", "new-block"):
         raise GrError(f"`{args.cmd}` {_NOT_PORTED}")
-    if getattr(args, "draw", False):
-        raise GrError(f"`run --draw` {_NOT_PORTED}")
 
     from . import blocks  # noqa: F401  (populates the registry)
     from .core.registry import global_registry
@@ -135,7 +185,10 @@ def main(argv: list[str] | None = None) -> int:
         raise GrError("`run` takes the CUDA card and found none; pass --cpu "
                       "to run on the CPU") from e
     try:
-        sched.run_and_wait(args.steps)
+        if args.draw:
+            _run_with_dashboard(sched, g, args.steps, args.draw_interval)
+        else:
+            sched.run_and_wait(args.steps)
     except KeyboardInterrupt:
         sched.request_stop()
     if profiler is not None:

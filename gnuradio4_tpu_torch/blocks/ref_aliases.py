@@ -76,3 +76,6 @@ _alias("builtin_counter", "Copy")
 
 # FilterTool-designed filter prototype name (BasicFilterProto)
 _alias("BasicFilterProto", "BasicFilter")
+
+# ImChartMonitor.hpp:19 registers the chart-less variant as ConsoleDebugSink
+_alias("ConsoleDebugSink", "ImChartMonitor")

@@ -23,6 +23,7 @@ the compiled graph's device.
 from __future__ import annotations
 
 import dataclasses
+import enum
 import itertools
 from fractions import Fraction
 from typing import Any, ClassVar
@@ -86,6 +87,18 @@ class BlockCtx:
         if d is None:
             return np.dtype(default if default is not None else np.float32)
         return np.dtype(d)
+
+
+class UICategory(enum.Enum):
+    """Semantic UI placement intent (≈ gr::UICategory, Drawable annotation —
+    reference docs/USER_API_Drawable_UI.md). The framework records what a block
+    wants to display; a UI application decides how/where to render it."""
+
+    NONE = "None"
+    TOOLBAR = "Toolbar"
+    MENU = "Menu"
+    CONTENT = "ChartPane"
+    STATUS_BAR = "StatusBar"
 
 
 class Block:
@@ -244,6 +257,19 @@ class Block:
         truncation). Return None to pass through; returning ≤ 0 plus
         ``terminate_graph_when_done=True`` winds the whole graph down."""
         return None
+
+    # -- Drawable protocol (≈ gr::Drawable<UICategory, toolkit>) --------------
+    UI_CATEGORY: ClassVar["UICategory"] = None  # set to a UICategory to opt in
+
+    def draw(self, config: dict | None = None) -> str | None:
+        """Render this block's UI contribution (host side, called by a UI loop
+        or the CLI). Text-toolkit blocks return an ANSI/braille string."""
+        return None
+
+    @property
+    def is_drawable(self) -> bool:
+        return self.UI_CATEGORY is not None and \
+            self.UI_CATEGORY is not UICategory.NONE
 
     # lifecycle hooks (≈ start/stop/pause/resume/reset user methods)
     def start(self) -> None: ...

@@ -2,8 +2,15 @@
 
 from __future__ import annotations
 
+from typing import Callable
+
 import numpy as np
 import torch
+
+from .iir import _f32
+
+_PI = _f32(np.pi)
+_TWO_PI = _f32(2.0 * np.pi)
 
 
 def quadrature_demod(x: torch.Tensor, last: torch.Tensor, *,
@@ -44,3 +51,61 @@ def fm_deemphasis_coeffs(sample_rate: float, tau: float = 75e-6
     b = np.array([b0, -z1 * b0])
     a = np.array([1.0, -p1])
     return b, a
+
+
+def pll_gains(loop_bw: float) -> tuple[float, float]:
+    """(α, β) of the 2nd-order loop at damping 1/√2, computed in float64 and
+    rounded to float32 as the JAX package casts them."""
+    damp = np.sqrt(2.0) / 2.0
+    denom = 1.0 + 2.0 * damp * loop_bw + loop_bw * loop_bw
+    return _f32(4.0 * damp * loop_bw / denom), _f32(4.0 * loop_bw * loop_bw / denom)
+
+
+def carrier_loop(x: torch.Tensor, phase: torch.Tensor, freq: torch.Tensor, *,
+                 alpha: float, beta: float,
+                 detector: Callable[[torch.Tensor], torch.Tensor],
+                 max_freq: float | None = None
+                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The 2nd-order carrier loop shared by the PLLs and the Costas loop:
+    y[n] = x[n]·e^{−jφ[n]}, e = detector(y[n]), f ← clip(f + β·e),
+    φ ← mod(φ + f + α·e + π, 2π) − π (floor modulo, as ``jnp.mod``).
+
+    The feedback is per sample, so this is a loop over samples: ten launches
+    each on the card (nine and the detector's), none reading back to the host.
+    The loop carries ν = −φ, so e^{−jφ} is one ``polar`` and the wrap's
+    φ = r − π is ν = π − r, both exact. x: [T] or [C, T] complex64; phase,
+    freq: [] or [C] float32. ``max_freq`` None leaves f unclamped. Returns
+    (y, e, φ, f)."""
+    fr = freq.to(torch.float32)
+    nph = -phase.to(torch.float32)
+    one = torch.ones_like(nph)
+    pi = torch.full_like(nph, _PI)
+    two_pi = torch.full_like(nph, _TWO_PI)
+    ys, errs = [], []
+    for xn in x.unbind(-1):
+        yn = xn * torch.polar(one, nph)
+        err = detector(yn)
+        fr = torch.add(fr, err, alpha=beta)
+        if max_freq is not None:
+            fr = torch.clamp(fr, -max_freq, max_freq)
+        nph = pi - torch.remainder(torch.add(fr - nph, err, alpha=alpha) + pi,
+                                   two_pi)
+        ys.append(yn)
+        errs.append(err)
+    if not ys:
+        return x.clone(), x.real.clone(), -nph, fr
+    return torch.stack(ys, dim=-1), torch.stack(errs, dim=-1), -nph, fr
+
+
+def polar_discriminator_pll(x: torch.Tensor, phase: torch.Tensor,
+                            freq: torch.Tensor, *, loop_bw: float, fs: float
+                            ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Carrier-tracking PLL: returns (phase error stream, phase, freq).
+
+    2nd-order loop, damping 1/√2; used for coherent AM/PSK paths.
+    """
+    alpha, beta = pll_gains(loop_bw)
+    _, errs, phase, freq = carrier_loop(
+        x, phase, freq, alpha=alpha, beta=beta,
+        detector=lambda y: torch.atan2(y.imag, y.real))
+    return errs.to(torch.float32), phase, freq

@@ -129,3 +129,37 @@ def test_noise_key_advances_at_zero_voltage():
     _, st = _run(gt, "ChannelModel", {}, "ones")
     np.testing.assert_array_equal(st["key"].numpy(), np.asarray(
         jax.random.key_data(sj["key"])).astype(np.int64))
+
+
+def _bpsk_through_channel(pkg, x):
+    g = pkg.Graph()
+    reg = pkg.global_registry
+    snk = reg.create("VectorSink")
+    g.connect_chain(reg.create("VectorSource", data=x),
+                    reg.create("ChannelModel", frequency_offset=0.002,
+                               noise_voltage=0.05),
+                    reg.create("CostasLoop", order=2, loop_bw=0.02), snk)
+    kw = {"device": "cpu"} if pkg is gt else {}
+    pkg.Scheduler(g, block_len=4096, sample_rate=1e6, **kw).run_and_wait()
+    return np.asarray(snk.data())
+
+
+def test_costas_survives_channel_model():
+    """tests/test_channels.py's BPSK through CFO + AWGN recovered by
+    CostasLoop(order=2): the port's hard decisions after lock match the
+    symbols up to a global sign (> 95%, the JAX test's bound), and its output
+    follows the JAX package's per sample within 1e-4 · max(1, |y|) (the
+    channel's draws differ by RTOL, the loop carries that)."""
+    rng = np.random.default_rng(5)
+    bits = rng.integers(0, 2, 4096)
+    sym = (1.0 - 2.0 * bits).astype(np.complex64)
+    x = np.repeat(sym, 4).astype(np.complex64)
+    y = _bpsk_through_channel(gt, x)
+    yj = _bpsk_through_channel(gr, x)
+    assert y.shape == yj.shape and y.dtype == yj.dtype
+    d = np.abs(y.astype(np.complex128) - yj)
+    assert np.all(d <= 1e-4 * np.maximum(1.0, np.abs(yj))), float(d.max())
+    tail = y[len(y) // 4:]
+    ref = x[len(y) // 4: len(y) // 4 + len(tail)]
+    agree = np.mean(np.sign(tail.real) == np.sign(ref.real))
+    assert max(agree, 1 - agree) > 0.95

@@ -2,6 +2,7 @@
 noise graph (NoiseSource and SignalGenerator's GaussianNoise, both threefry)
 and a modem graph (a ChannelModel into an OFDM demodulator and
 pilot equalizer, whose states hold a threefry key, a uint32 phase and a bool)
+and a carrier graph (every stateful block of the carrier-recovery slice)
 run 2 steps, are saved, and resume for 2 more — JAX → port, port → JAX and
 port → port — against steps 3–4 of an uninterrupted run; and a checkpoint
 whose state tree differs from the block's is refused, naming the key.
@@ -9,7 +10,9 @@ whose state tree differs from the block's is refused, naming the key.
 Tolerances: port → port bitwise; across packages the chain's spectra within
 1e-5 of the peak and its audio within 1e-4 (``tests/test_torch_chain.py``'s),
 the uniform noise bit for bit, the Gaussian noise within 1e-5 of max(1, |x|)
-(torch's erfinv against XLA's), and the restored threefry keys equal."""
+(torch's erfinv against XLA's), the carrier graph's sinks within
+``CARRIER_ATOL`` (each block's parity tolerance) with the squelch's gate
+exact, and the restored threefry keys equal."""
 
 import json
 from importlib import import_module
@@ -80,12 +83,53 @@ def _modem(pkg):
     return g
 
 
-BUILDERS = {"chain": _chain, "noise": _noise, "modem": _modem}
+def _carrier(pkg):
+    """A complex tone (30 kHz at 20 MHz) plus uniform threefry noise (bit for
+    bit in both packages) into every stateful block of the carrier-recovery
+    slice, each to its own sink: CostasLoop and PllCarrierTracking (phase,
+    freq), FllBandEdge, IqImbalanceCorrector (gain, phase), FarrowResampler
+    (history, float32 μ0), SnrEstimator with its EMA (m2, m4 and a bool
+    ``warm``) and PowerSquelch (the envelope, its threshold inside the
+    envelope's swing so the gate opens and closes)."""
+    g = pkg.Graph(name="carrier")
+    reg = pkg.global_registry
+    iq = reg.create("RealImagToComplex", name="iq")
+    g.connect(reg.create("NoiseSource", noise="uniform", std=0.3, seed=1, name="nr"),
+              iq["real"])
+    g.connect(reg.create("NoiseSource", noise="uniform", std=0.3, seed=2, name="ni"),
+              iq["imag"])
+    add = reg.create("Add", n_inputs=2, name="add")
+    g.connect(reg.create("ComplexToneSource", frequency=30e3, name="tone"), add["in0"])
+    g.connect(iq["out"], add["in1"])
+    for btype, kw in (("CostasLoop", {"order": 2, "loop_bw": 0.05}),
+                      ("PllCarrierTracking", {"loop_bw": 0.02}),
+                      ("FllBandEdge", {"loop_bw": 0.05}),
+                      ("IqImbalanceCorrector", {"alpha": 0.3}),
+                      ("FarrowResampler", {"rate": 0.75}),
+                      ("SnrEstimator", {"chunk": 256, "alpha": 0.5}),
+                      ("PowerSquelch", {"threshold_db": 0.25, "alpha": 0.01})):
+        g.connect_chain(add, reg.create(btype, name=btype, **kw),
+                        reg.create("VectorSink", name=f"{btype}_out"))
+    return g
+
+
+GRAPHS = {"chain": _chain, "noise": _noise, "modem": _modem, "carrier": _carrier}
+CARRIER_BLOCK_LEN = 1024
+# the carrier slice's sinks across packages: the tolerances of
+# tests/test_torch_dsp_extras.py and tests/test_torch_squelch.py, but for the
+# FLL, which here sees no band edges (a tone in white noise): its error is
+# noise, its frequency a random walk, and the walk integrates the packages'
+# float32 rounding into the phase (5.1e-4 measured after 4096 samples)
+CARRIER_ATOL = {"CostasLoop_out": 1e-5, "PllCarrierTracking_out": 1e-5,
+                "FllBandEdge_out": 2e-3, "IqImbalanceCorrector_out": 1e-6,
+                "FarrowResampler_out": 1e-6, "SnrEstimator_out": 1e-3,
+                "PowerSquelch_out": 1e-6}
 
 
 def _sched(pkg, g):
     kw = {"device": "cpu"} if pkg is gt else {}
-    return pkg.Scheduler(g, block_len=BLOCK_LEN, sample_rate=FS, **kw)
+    block_len = CARRIER_BLOCK_LEN if g.name == "carrier" else BLOCK_LEN
+    return pkg.Scheduler(g, block_len=block_len, sample_rate=FS, **kw)
 
 
 def _sinks(sched):
@@ -94,13 +138,13 @@ def _sinks(sched):
 
 
 def _uninterrupted(pkg, name):
-    s = _sched(pkg, BUILDERS[name](pkg))
+    s = _sched(pkg, GRAPHS[name](pkg))
     s.run_and_wait(4)
     return {k: v[..., v.shape[-1] // 2:] for k, v in _sinks(s).items()}
 
 
 def _save_after_two(pkg, name, path):
-    s = _sched(pkg, BUILDERS[name](pkg))
+    s = _sched(pkg, GRAPHS[name](pkg))
     s.run_and_wait(2)
     pkg.save_checkpoint(s, path)
 
@@ -125,17 +169,24 @@ def _agree(got, want, exact=False):
             assert np.max(np.abs(g_ - w)) <= SPEC_RTOL * np.max(np.abs(w))
         elif k == "audio":
             assert np.max(np.abs(g_ - w)) <= AUDIO_ATOL
+        elif k in CARRIER_ATOL:
+            if k == "PowerSquelch_out":
+                np.testing.assert_array_equal(g_ == 0, w == 0)
+            d = np.abs(g_.astype(np.complex128) - w)
+            assert np.all(d <= CARRIER_ATOL[k] * np.maximum(1.0, np.abs(w))), \
+                (k, float(d.max()))
         else:
             assert np.max(np.abs(g_ - w) / np.maximum(2.0, np.abs(w))) <= NORMAL_RTOL
 
 
-@pytest.mark.parametrize("name", sorted(BUILDERS))
+@pytest.mark.parametrize("name", sorted(GRAPHS))
 @pytest.mark.parametrize("writer, reader", [(gr, gt), (gt, gr), (gt, gt)],
                          ids=["jax_to_port", "port_to_jax", "port_to_port"])
 def test_checkpoint_resumes(tmp_path, name, writer, reader):
     _save_after_two(writer, name, tmp_path)
     meta = json.loads((tmp_path / "meta.json").read_text())
-    assert meta["step"] == 2 and meta["block_len"] == BLOCK_LEN
+    assert meta["step"] == 2 and meta["block_len"] == (
+        CARRIER_BLOCK_LEN if name == "carrier" else BLOCK_LEN)
     got = _resume(reader, tmp_path)
     want = _uninterrupted(writer if reader is gt and writer is gt else gr, name)
     _agree(got, want, exact=writer is reader)
@@ -143,6 +194,16 @@ def test_checkpoint_resumes(tmp_path, name, writer, reader):
         blob = np.load(tmp_path / "states.npz")
         assert blob["chan['phase']"].dtype == np.uint32
         assert blob["eq['warm']"].dtype == np.bool_ and blob["eq['warm']"]
+    if name == "carrier":
+        blob = np.load(tmp_path / "states.npz")
+        assert blob["SnrEstimator['warm']"].dtype == np.bool_
+        assert blob["SnrEstimator['warm']"]
+        assert blob["FarrowResampler['mu0']"].dtype == np.float32
+        if reader is gt:
+            fresh = gt.load_checkpoint(tmp_path, device="cpu")
+            uname = {b.name: b.unique_name for b in fresh.compiled.order}
+            warm = fresh._states[uname["SnrEstimator"]]["warm"]
+            assert warm.dtype == torch.bool and bool(warm)
     if name == "noise" and reader is gt:
         # the restored threefry keys are the saved uint32 words
         blob = np.load(tmp_path / "states.npz")

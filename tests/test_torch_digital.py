@@ -562,3 +562,70 @@ def test_alias_to_a_missing_target_raises():
     with pytest.raises(GrError, match="unknown block type 'NoSuchBlock'"):
         ref_aliases._alias("Nope", "NoSuchBlock")
     assert not gt.global_registry.contains("Nope")
+
+
+# -- the receiver front half with carrier recovery ----------------------------------
+
+def _impaired_qpsk_link(pkg, rx):
+    g = pkg.Graph()
+    reg = pkg.global_registry
+    snk, fll_snk = reg.create("VectorSink"), reg.create("VectorSink")
+    fll = reg.create("FllBandEdge", samples_per_symbol=4, rolloff=0.35, loop_bw=0.01)
+    g.connect_chain(reg.create("VectorSource", data=rx), fll,
+                    reg.create("PfbClockSync", sps=4, rolloff=0.35),
+                    reg.create("CostasLoop", order=4, loop_bw=0.06), snk)
+    g.connect(fll, fll_snk)
+    kw = {"device": "cpu"} if pkg is gt else {}
+    pkg.Scheduler(g, block_len=8192, sample_rate=1e6, **kw).run_and_wait()
+    return np.asarray(fll_snk.data()), np.asarray(snk.data())
+
+
+def test_full_receiver_chain_all_impairments():
+    """tests/test_digital.py's FLL → PfbClockSync → Costas through CFO 0.03
+    rad/sample, a 0.6-sample delay, 15 ppm clock drift and 20 dB SNR, in both
+    packages from the same input: the port recovers the symbols (> 99.9%,
+    the JAX test's bound) and its decisions after lock equal the JAX
+    package's. The FLL's outputs (tapped) agree within 2e-4·max(1, |y|) per
+    sample, tests/test_torch_dsp_extras.py's FLL_ATOL: the FLL's phase
+    integrates its float32 rounding (3.9e-5 measured over these 65536
+    samples). PfbClockSync picks a discrete polyphase arm, and that difference
+    moves its choice at some symbol (the first at symbol 2080 here), after
+    which the two outputs differ by an arm's step (up to 0.1). So the chain's
+    outputs are held within 1e-3 up to the first such flip, which must come
+    after the first 1024 symbols, and by their decisions after it."""
+    sps, alpha = 4, 0.35
+    rng = np.random.default_rng(3)
+    nsym = 16384
+    syms = np.exp(1j * (np.pi / 4 + np.pi / 2 * rng.integers(0, 4, nsym))
+                  ).astype(np.complex64)
+    ups = np.zeros(nsym * sps, complex)
+    ups[::sps] = syms
+    shaped = np.convolve(ups, tops.rrc_taps(sps, 11 * sps + 1, beta=alpha))[: nsym * sps]
+    fr = np.fft.fftfreq(len(shaped))
+    rx = np.fft.ifft(np.fft.fft(shaped) * np.exp(-2j * np.pi * fr * 0.6))
+    t = np.arange(len(rx)) * (1.0 + 1.5e-5)
+    rx = (np.interp(t, np.arange(len(rx)), rx.real)
+          + 1j * np.interp(t, np.arange(len(rx)), rx.imag))
+    rx = rx * np.exp(1j * 0.03 * np.arange(len(rx)))
+    rx = (rx + (rng.standard_normal(len(rx)) + 1j * rng.standard_normal(len(rx)))
+          * np.sqrt(0.005)).astype(np.complex64)
+    f, y = _impaired_qpsk_link(gt, rx)
+    fj, yj = _impaired_qpsk_link(gr, rx)
+    assert f.shape == fj.shape == rx.shape and f.dtype == fj.dtype
+    np.testing.assert_array_less(np.abs(f - fj), 2e-4 * np.maximum(1.0, np.abs(fj)))
+    assert y.shape == yj.shape and y.dtype == yj.dtype
+    apart = np.nonzero(np.abs(y - yj) > 1e-3)[0]
+    first = apart[0] if len(apart) else len(y)
+    assert first >= 1024, first
+    lo = len(y) - 2000
+    w = y[lo:lo + 1024]
+    best = max((abs(np.vdot(syms[k:k + 1024], w)), k) for k in range(lo - 48, lo + 48))
+    ref = syms[best[1]:best[1] + 1024]
+    rot = np.vdot(ref, w)
+    rot /= abs(rot)
+
+    def quad(z):
+        return np.round(np.angle(z * np.exp(-1j * np.pi / 4)) / (np.pi / 2)) % 4
+    dec = quad(w * np.conj(rot))
+    assert np.mean(dec == quad(ref)) > 0.999
+    np.testing.assert_array_equal(quad(y[first:]), quad(yj[first:]))

@@ -31,7 +31,8 @@ torch.set_num_threads(2)
 ROOT = Path(__file__).resolve().parent.parent
 EXAMPLES = sorted((ROOT / "examples").glob("*.yaml"))
 # the examples whose every block type the port registers
-PORTED_EXAMPLES = ("agc_loop", "channelizer", "coded_link", "fm_receiver")
+PORTED_EXAMPLES = ("agc_loop", "channelizer", "coded_link", "fm_receiver",
+                   "rds_receiver", "spectrum_analyzer")
 
 # every document tests/test_yaml_pmt_golden.py loads
 GOLDEN = {
