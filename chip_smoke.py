@@ -152,6 +152,22 @@ result line:
     shapes (c64 T 65568 and 24000, 241 f32 taps ÷24) against their plain
     versions, with bound and ``F.conv1d``.
 
+25. trigger-driven acquisition: (a) qa_TriggerBlocks' timeline
+    (tests/test_trigger_blocks_golden.py) at 41.94 MS/s, 20 steps of 2^22
+    (two 1 s cycles): ClockSource → FunctionGenerator(clk_in) →
+    SavitzkyGolayFilter(31, 3) → SchmittTrigger (edge tags) →
+    {StreamToDataSet ; TriggerGate → DataSink}: the edges at 0.25 and 0.65 s
+    of each cycle (least-squares interpolation), two DataSets of 0.4 s, the
+    gate's ten windows, one ``fir_banded`` launch a step (before it, the qa's
+    own 1 kHz timeline with each interpolation, the card's edges equal to
+    the CPU's); the same chain timed (Msps, ms and host ms
+    per step, the delivery's share, launches and torch ops per step, the
+    device-busy share); and at 655 360 S/s on the card against the CPU; (b)
+    each other new block at its JAX test's step, card against CPU, and its
+    launches, torch ops and ms per step; (c) SvdDenoiser's two engines at 2^20
+    samples a step; (d) ``fir_banded`` against its plain version at every
+    shape (a) and (b) launched it with, with bound and ``F.conv1d``.
+
 Phases 13–17 each print the card against the CPU on a short run of the same
 graph, Msps (coded Mbit/s for 7 and 7k), ms per step by CUDA events over 5
 windows, host ms per step, the device-busy share of one profiled step, peak
@@ -316,6 +332,31 @@ CAP_FS = 456000.0
 CAP_BLOCK_LEN = 48000
 CAP_STEPS = 3
 SPECTRUM_STEPS = 20
+# phase 25: qa_TriggerBlocks' timeline (tests/test_trigger_blocks_golden.py)
+# at a 42 MS/s digitizer: a step of 2^22 samples is 0.1 s, so every segment
+# starts on a step boundary, and two 1 s cycles are 20 steps
+ACQ_FS = 41943040.0
+ACQ_BLOCK_LEN = 1 << 22
+ACQ_STEPS = 20
+ACQ_CTX = [f"FAIR.SELECTOR.C=1:S=1:P={i}" for i in range(5)]
+ACQ_TAG_TIMES = (0.0, 0.1, 0.4, 0.5, 0.8)
+# the same chain at 2^16 a step, on the card and on the CPU
+ACQ_CHECK_FS = 655360.0
+ACQ_CHECK_BLOCK_LEN = 1 << 16
+# the 31-tap Savitzky-Golay filter's group delay, and the edges' tolerance
+# around (k + 0.25) s and (k + 0.65) s plus that delay
+SG_DELAY = 15
+EDGE_SAMPLES = 2
+# a DataSet spans the rising to the falling edge: 0.4 s ± this many samples
+DS_SAMPLES = 3
+# SvdDenoiser's engines timed at a step of 2^20 samples (chunk 256, window 16)
+SVD_BLOCK_LEN = 1 << 20
+# SVD reconstructions, card against CPU: of the signal's peak
+# (tests/test_torch_misc_blocks.py's SVD_ATOL)
+SVD_ATOL = 1e-4
+# float32 blocks, card against CPU, of max(1, |y|)
+# (tests/test_torch_misc_blocks.py's F32_ATOL)
+F32_ATOL = 1e-5
 KERNELS = {
     "fir_banded": {
         "source": "gnuradio4_tpu_torch/csrc/fir_banded.cu",
@@ -1794,22 +1835,10 @@ def loop_phases(dev, paths: list) -> None:
 
 def block_step_cost(dev, btype: str, settings: dict, ins: dict):
     """(kernel launches, torch ops, ms) of one ``apply`` of a fresh block of
-    ``btype`` on the CUDA tensors ``ins`` from its initial state: launches
-    and ops by :func:`count_ops`, ms by CUDA events (median of 2 calls)."""
-    import numpy as np
+    ``btype`` on the CUDA tensors ``ins`` from its initial state
+    (:func:`block_cost`)."""
     import gnuradio4_tpu_torch as gt
-    blk = gt.global_registry.create(btype, **settings)
-    ctx = gt.BlockCtx(in_len={k: v.shape[-1] for k, v in ins.items()},
-                      out_len={}, sample_rate=1e6, params={},
-                      channels={k: 0 for k in ins},
-                      dtypes={k: np.dtype(str(v.dtype).split(".")[-1])
-                              for k, v in ins.items()}, device=dev)
-    state = blk.init_state(ctx)
-    step = lambda: blk.apply(state, ins, ctx)
-    step()
-    kernels, ops = count_ops(step)
-    ms, _ = events_ms_per_step(step, 1, windows=2)
-    return kernels, ops, ms
+    return block_cost(dev, gt.global_registry.create(btype, **settings), ins)[:3]
 
 
 def modem_phases(dev, paths: list, results: dict) -> None:
@@ -2488,6 +2517,664 @@ def carrier_phases(dev, paths: list, results: dict) -> None:
     print(f"[24 seconds] wall s by sub-phase {({k: round(v, 2) for k, v in secs.items()})}"
           f"; phase 24 {sum(secs.values()):.1f} s")
     paths.append({"name": "phase 24 seconds", "seconds": sum(secs.values()),
+                  "by_sub_phase": secs})
+
+
+def acquisition_chain(fs: float, cycles: int, interpolation: str, *,
+                      n_samples: int, gate_sink: str, tap: bool = False,
+                      savgol: bool = True):
+    """qa_TriggerBlocks' timeline (tests/test_trigger_blocks_golden.py:23) as
+    an acquisition chain: ClockSource (CMD_BP_START at k + {0, 0.1, 0.4, 0.5,
+    0.8} s, contexts P=0..4, per cycle k) → FunctionGenerator(clk_in) with the
+    qa's five per-context segments → SavitzkyGolayFilter(31, 3) →
+    SchmittTrigger(0.6 ± 0.1, pass, MY_RISING_EDGE / MY_FALLING_EDGE tags) →
+    {StreamToDataSet([MY_RISING_EDGE, MY_FALLING_EDGE]) ; TriggerGate(
+    CMD_BP_START, n_post fs/20) → DataSink(``gate_sink``) ; a sink recording
+    the edge tags' positions, and with ``tap`` a VectorSink of the Schmitt
+    block's output}; without ``savgol`` the generator feeds the Schmitt
+    block, as in the qa. Returns (graph, blocks by role)."""
+    import gnuradio4_tpu_torch as gt
+    from gnuradio4_tpu_torch.blocks.misc import (ClockSource, FunctionGenerator,
+                                                 SchmittTrigger)
+    from gnuradio4_tpu_torch.core.block import Port, SinkBlock
+    from gnuradio4_tpu_torch.core.settings import SettingsCtx
+    from gnuradio4_tpu_torch.core.tags import Keys
+
+    class EdgeTagSink(SinkBlock):
+        """The edge tags' absolute positions (index + offset·fs), without
+        the samples (no device→host copy)."""
+        IN = (Port("in"),)
+        WANTS_HOST_DATA = False
+        CONSUME_IGNORES_DATA = True
+
+        def __init__(self):
+            super().__init__(name="edges")
+            self.edges: list[tuple[str, float]] = []
+
+        def consume(self, arrays, tags, n_valid, abs_index):
+            for t in tags.get("in", []):
+                name = t.map.get(Keys.TRIGGER_NAME)
+                if name in ("MY_RISING_EDGE", "MY_FALLING_EDGE"):
+                    self.edges.append((name, abs_index + t.index
+                                       + t.map[Keys.TRIGGER_OFFSET] * fs))
+
+    reg = gt.global_registry
+    g = gt.Graph()
+    times = [k + dt for k in range(cycles) for dt in ACQ_TAG_TIMES]
+    clock = ClockSource(sample_rate=fs, n_samples=n_samples, tag_times=times,
+                        tag_values=[{Keys.TRIGGER_NAME: "CMD_BP_START",
+                                     Keys.CONTEXT: c} for c in ACQ_CTX * cycles])
+    fg = FunctionGenerator(sample_rate=fs, start_value=0.1)
+    for c, seg in zip(ACQ_CTX, (
+            {"signal_type": "Const", "start_value": 0.1},
+            {"signal_type": "ParabolicRamp", "start_value": 0.1,
+             "final_value": 1.1, "duration": 0.3, "round_off_time": 0.02},
+            {"signal_type": "Const", "start_value": 1.1},
+            {"signal_type": "ParabolicRamp", "start_value": 1.1,
+             "final_value": 0.1, "duration": 0.3, "round_off_time": 0.02},
+            {"signal_type": "Const", "start_value": 0.1})):
+        fg.settings.set(seg, ctx=SettingsCtx(context=c))
+    blk = {"sg": reg.create("SavitzkyGolayFilter", window=31, poly_order=3),
+           "schmitt": SchmittTrigger(
+               threshold=0.1, offset=0.6, output="pass",
+               trigger_name_rising_edge="MY_RISING_EDGE",
+               trigger_name_falling_edge="MY_FALLING_EDGE",
+               interpolation=interpolation),
+           "s2d": reg.create("StreamToDataSet",
+                             filter="[MY_RISING_EDGE, MY_FALLING_EDGE]",
+                             sample_rate_hint=fs),
+           "gate": reg.create("TriggerGate", filter="CMD_BP_START",
+                              n_post=int(fs / 20)),
+           "gated": reg.create("DataSink", signal_name=gate_sink),
+           "edges": EdgeTagSink()}
+    g.connect(clock, fg, dst_port="clk_in")
+    if savgol:
+        g.connect_chain(fg, blk["sg"], blk["schmitt"], blk["s2d"])
+    else:
+        g.connect_chain(fg, blk["schmitt"], blk["s2d"])
+    g.connect_chain(blk["schmitt"], blk["gate"], blk["gated"])
+    g.connect(blk["schmitt"], blk["edges"])
+    if tap:
+        blk["tap"] = reg.create("VectorSink")
+        g.connect(blk["schmitt"], blk["tap"])
+    return g, blk
+
+
+def gate_mask(fs: float, cycles: int, n: int):
+    """True on the fs/20 samples after each CMD_BP_START tag of the chain."""
+    import numpy as np
+    mask = np.zeros(n, bool)
+    for k in range(cycles):
+        for t in ACQ_TAG_TIMES:
+            i = int(round((k + t) * fs))
+            mask[i:i + int(fs / 20)] = True
+    return mask
+
+
+def drain_poller(poller):
+    """Every chunk a StreamingPoller holds, joined."""
+    import queue
+    import numpy as np
+    parts = []
+    while True:
+        try:
+            parts.append(np.asarray(poller.q.get_nowait().data))
+        except queue.Empty:
+            return np.concatenate(parts) if parts else np.zeros(0, np.float32)
+
+
+def check_acquisition(label: str, blk, gated, fs: float, cycles: int,
+                      delay: int = SG_DELAY):
+    """The chain's edges (one rising and one falling per cycle, at 0.25 s
+    and 0.65 s plus the S-G delay, each within EDGE_SAMPLES), its DataSets
+    (one per cycle, 0.4 s ± DS_SAMPLES) and its gate (the fs/20 samples after
+    each CMD_BP_START tag pass, every other sample is zero). Returns (edges,
+    DataSets)."""
+    import numpy as np
+    edges = blk["edges"].edges
+    want = [(name, (k + t) * fs + delay) for k in range(cycles)
+            for name, t in (("MY_RISING_EDGE", 0.25), ("MY_FALLING_EDGE", 0.65))]
+    err = [p - w for (_, p), (_, w) in zip(edges, want)]
+    dsets = blk["s2d"].read_all()
+    lens = [ds.values.shape[-1] for ds in dsets]
+    mask = gate_mask(fs, cycles, gated.shape[-1])
+    gate_ok = gated.shape[-1] == cycles * int(round(fs)) and \
+        np.array_equal(gated != 0, mask)
+    print(f"  {label}: edges {[(n[3:-5].lower(), round(p, 3)) for n, p in edges]} "
+          f"(want ± {EDGE_SAMPLES}: off by {[round(e, 3) for e in err]} samples); "
+          f"DataSets of {lens} samples (want {0.4 * fs:.0f} ± {DS_SAMPLES}); gate "
+          f"{int(np.count_nonzero(gated))} of {gated.shape[-1]} samples nonzero, "
+          f"the pattern of the {len(ACQ_TAG_TIMES) * cycles} windows: {gate_ok}")
+    check([n for n, _ in edges] == [n for n, _ in want]
+          and all(abs(e) <= EDGE_SAMPLES for e in err), f"{label}: edges {edges}")
+    check(len(dsets) == cycles and all(abs(n - 0.4 * fs) <= DS_SAMPLES for n in lens),
+          f"{label}: DataSets {lens}")
+    check(gate_ok, f"{label}: gate pattern")
+    return edges, dsets
+
+
+def block_cost(dev, blk, ins: dict, n_out: int | None = None,
+               sample_rate: float = 1e6):
+    """(kernel launches seen by torch.profiler, torch ops, ms, hand-kernel
+    launches by their wrappers' counts) of one ``apply`` of ``blk`` on the
+    CUDA tensors ``ins`` from its initial state: its params from
+    ``prepare_params``, each 2-D input's leading axis as its channels,
+    ``n_out`` samples out of a source. Launches and ops by
+    :func:`count_ops`, ms by CUDA events (median of 2 calls)."""
+    import numpy as np
+    import gnuradio4_tpu_torch as gt
+    from gnuradio4_tpu_torch.ops import cuda_kernels as ck
+    n = n_out if n_out is not None else next(iter(ins.values())).shape[-1]
+    ctx = gt.BlockCtx(in_len={k: v.shape[-1] for k, v in ins.items()},
+                      out_len={p.name: n for p in blk.out_ports},
+                      sample_rate=sample_rate, params={},
+                      channels={k: v.shape[0] if v.ndim == 2 else 0
+                                for k, v in ins.items()},
+                      dtypes={k: np.dtype(str(v.dtype).split(".")[-1])
+                              for k, v in ins.items()}, device=dev)
+    ctx.params = blk.prepare_params(blk.settings.dynamic_params())
+    state = blk.init_state(ctx)
+    step = lambda: blk.apply(state, ins, ctx)
+    step()
+    ck.reset_launch_counts()
+    kernels, ops = count_ops(step)
+    hand = sum(ck.launch_counts().values())
+    ms, _ = events_ms_per_step(step, 1, windows=2)
+    return kernels, ops, ms, hand
+
+
+def acquisition_phases(dev, card: str, paths: list, results: dict) -> None:
+    """Phase 25: trigger-driven acquisition on the card."""
+    import numpy as np
+    import torch
+    import gnuradio4_tpu_torch as gt
+    from gnuradio4_tpu_torch.core.profiler import Profiler
+    from gnuradio4_tpu_torch.ops import cuda_kernels as ck
+
+    secs = {}
+    t_sub = time.perf_counter()
+
+    def lap(name: str) -> None:
+        nonlocal t_sub
+        now = time.perf_counter()
+        secs[name] = now - t_sub
+        t_sub = now
+
+    # (a) qa_TriggerBlocks' own timeline at 1 kHz (no S-G filter), in steps
+    # of 100, with each interpolation: the card's edge tags equal the CPU's
+    # (the generator's ramps are bit for bit), and sit where the qa puts them
+    for method in ("none", "basic_linear", "regression", "polynomial"):
+        got = {}
+        for key, device in (("card", dev), ("cpu", "cpu")):
+            g, blk = acquisition_chain(1000.0, 1, method, n_samples=1000,
+                                       gate_sink=f"acq_qa_{method}_{key}",
+                                       savgol=False)
+            gt.Scheduler(g, block_len=100, sample_rate=1000.0,
+                         device=device).run_and_wait()
+            got[key] = blk["edges"].edges
+        want = (278.0, 678.0) if method == "none" else (250.0, 650.0)
+        print(f"[25a qa timeline, {method}] edges on the card {got['card']}, equal "
+              f"to the CPU's: {got['card'] == got['cpu']} (qa: {want} ± 2)")
+        check(got["card"] == got["cpu"] and len(got["card"]) == 2
+              and all(abs(p - w) <= 2 for (_, p), w in zip(got["card"], want)),
+              f"qa timeline {method}: {got}")
+    lap("a qa timeline")
+
+    # the chain at full width: 20 steps of 2^22 at 41.94 MS/s. The edges
+    # interpolate by least squares over the band (regression): at this rate
+    # the ramp moves ~8.5e-8 a sample, over float32's ulp at 0.6 (6.0e-8),
+    # so basic_linear's two-sample extrapolation from the band's edge to its
+    # middle (0.1 away, ~1.2e6 samples) is off by up to ~6e5 samples
+    n_total = ACQ_STEPS * ACQ_BLOCK_LEN
+    g, blk = acquisition_chain(ACQ_FS, 2, "regression", n_samples=n_total,
+                               gate_sink="acq_gate_full")
+    poller = gt.global_data_sink_registry.get_streaming_poller(
+        "acq_gate_full", max_chunks=4 * ACQ_STEPS)
+    ck.reset_launch_counts()
+    t0 = time.perf_counter()
+    sched = gt.Scheduler(g, block_len=ACQ_BLOCK_LEN, sample_rate=ACQ_FS, device=dev)
+    sched.run_and_wait()
+    wall = time.perf_counter() - t0
+    counts = ck.launch_counts()
+    steps = sched._step
+    print(f"[25a acquisition chain] ClockSource → FunctionGenerator → "
+          f"SavitzkyGolayFilter(31, 3) → SchmittTrigger(regression) → "
+          f"{{StreamToDataSet, TriggerGate → DataSink}} at {ACQ_FS / 1e6:.4f} MS/s, "
+          f"{steps} steps of {ACQ_BLOCK_LEN} on {sched.device} in {wall:.2f} s wall; "
+          f"hand-kernel launches {counts}")
+    gated = drain_poller(poller)
+    check_acquisition("full width", blk, gated, ACQ_FS, 2)
+    check(counts["fir_banded"] == steps >= ACQ_STEPS,
+          "acquisition chain: one fir_banded launch (the S-G filter) per step")
+    for k in KERNELS:
+        results[k]["launches"] += counts[k]
+    sg_taps, sg_launches = blk["sg"]._taps(), counts["fir_banded"]
+    del sched, g, blk, gated
+    lap("a chain")
+
+    # the same chain, timed: windows of 4 steps by CUDA events after 2 warm-up
+    # steps (three cycles of tags cover the 24 steps it runs)
+    g, blk = acquisition_chain(ACQ_FS, 3, "regression", n_samples=0,
+                               gate_sink="acq_gate_timed")
+    sched = gt.Scheduler(g, block_len=ACQ_BLOCK_LEN, sample_rate=ACQ_FS,
+                         device=dev, profiler=Profiler())
+    sched.init()
+    sched.fsm.transition_to(gt.State.RUNNING)
+    for _ in range(2):
+        sched._pump_once()
+    torch.cuda.synchronize()
+    ms, windows, host_ms, split = drive_windows(sched, 4, windows=5)
+    kernels, ops = count_ops(sched._pump_once)
+    dev_ms, top = profile_device(sched._pump_once)
+    finish(sched)
+    del sched, g, blk
+    msps = ACQ_BLOCK_LEN / (ms * 1e-3) / 1e6
+    deliver = split.get("scheduler.deliver", 0.0)
+    print(f"  {card}: {msps:.2f} Msps, {ms:.4f} ms per step (median of 5 windows of 4 "
+          f"steps, CUDA events; (events ms, wall ms) {fmt_windows(windows)}); host "
+          f"{host_ms:.4f} ms/step in the pump ({fmt_split(split)}), "
+          f"scheduler.deliver {deliver / host_ms:.1%} of it; {kernels} kernel "
+          f"launches and {ops} torch ops per step")
+    if dev_ms is None:
+        print("  torch.profiler: no device activity recorded (not measured)")
+        busy = None
+    else:
+        busy = dev_ms / ms
+        print(f"  torch.profiler, one step: device busy {dev_ms:.4f} ms, {busy:.1%} "
+              f"of the step; top kernels (ms) {[(round(t, 4), k) for t, k in top]}")
+    paths.append({"name": "phase 25 acquisition chain", "msps": msps,
+                  "ms_per_step": ms, "host_ms_per_step": host_ms,
+                  "deliver_ms_per_step": deliver, "kernels_per_step": kernels,
+                  "torch_ops_per_step": ops, "busy": busy})
+    lap("a timed")
+
+    # the chain at 2^16 a step on the card and on the CPU (regression edges:
+    # at this rate basic_linear's extrapolation moves an edge by up to ~190
+    # samples for one ulp): the Schmitt block's input (tapped) within
+    # FIR_ATOL, the edge positions within that difference over the input's
+    # slope per sample, the DataSets within FIR_ATOL where their spans
+    # overlap, the gate's pattern equal and its samples within FIR_ATOL
+    n_check = ACQ_STEPS * ACQ_CHECK_BLOCK_LEN
+    out = {}
+    for key, device in (("card", dev), ("cpu", "cpu")):
+        g, blk = acquisition_chain(ACQ_CHECK_FS, 2, "regression",
+                                   n_samples=n_check, gate_sink=f"acq_gate_{key}",
+                                   tap=True)
+        poller = gt.global_data_sink_registry.get_streaming_poller(
+            f"acq_gate_{key}", max_chunks=4 * ACQ_STEPS)
+        ck.reset_launch_counts()
+        sched = gt.Scheduler(g, block_len=ACQ_CHECK_BLOCK_LEN,
+                             sample_rate=ACQ_CHECK_FS, device=device)
+        sched.run_and_wait()
+        if key == "card":
+            sg_check = (blk["sg"]._taps(), ck.launch_counts()["fir_banded"],
+                        sched._step)
+        gated = drain_poller(poller)
+        edges, dsets = check_acquisition(f"{ACQ_CHECK_FS / 1e3:.2f} kS/s on the {key}",
+                                         blk, gated, ACQ_CHECK_FS, 2)
+        out[key] = (np.asarray(blk["tap"].data()), edges, dsets, gated)
+        del sched, g, blk
+    (xc, ec, dc, gc), (xp, ep, dp, gp) = out["card"], out["cpu"]
+    dx = float(np.max(np.abs(xc.astype(np.float64) - xp)))
+    slope = min(abs(float(xp[int(p) + 1]) - float(xp[int(p)])) for _, p in ep)
+    pos_tol = dx / slope + 1e-6
+    dpos = max(abs(a - b) for (_, a), (_, b) in zip(ec, ep))
+    same_index = [int(a) == int(b) for (_, a), (_, b) in zip(ec, ep)]
+    ds_err = 0.0
+    for a, b, (_, pa), (_, pb) in zip(dc, dp, ec[::2], ep[::2]):
+        ra, rb = int(pa), int(pb)
+        lo, hi = max(ra, rb), min(ra + a.values.shape[-1], rb + b.values.shape[-1])
+        ds_err = max(ds_err, float(np.max(np.abs(
+            a.values[0, lo - ra:hi - ra].astype(np.float64)
+            - b.values[0, lo - rb:hi - rb]))))
+    gate_err = float(np.max(np.abs(gc.astype(np.float64) - gp)))
+    print(f"  card against the CPU: the Schmitt input max|Δ| {dx:.3e} (tol {FIR_ATOL}); "
+          f"edge positions max|Δ| {dpos:.3e} samples (tol {pos_tol:.3e}: that Δ over "
+          f"the slope {slope:.3e} per sample), "
+          f"equal in index {same_index}; DataSets max|Δ| {ds_err:.3e}; gate "
+          f"pattern equal {np.array_equal(gc != 0, gp != 0)}, max|Δ| {gate_err:.3e}")
+    check(dx <= FIR_ATOL and dpos <= pos_tol and ds_err <= FIR_ATOL
+          and np.array_equal(gc != 0, gp != 0) and gate_err <= FIR_ATOL,
+          "acquisition chain: card against the CPU")
+    check(sg_check[1] == sg_check[2] >= ACQ_STEPS,
+          "2^16 chain: one fir_banded launch per step")
+    results["fir_banded"]["launches"] += sg_check[1]
+    paths.append({"name": "phase 25 chain card vs CPU", "schmitt_in_err": dx,
+                  "edge_pos_err": dpos, "edge_pos_tol": pos_tol,
+                  "dataset_err": ds_err, "gate_err": gate_err})
+    del out, xc, xp, gc, gp
+    lap("a card vs CPU")
+
+    # (b) each other new block at its JAX test's step, card against CPU, and
+    # its launches, torch ops and ms per step
+    b_results = {}
+
+    def versus(label, build, block_len, fs=1.0, steps=None, tol=None, exact=False):
+        """Run ``build()`` → (graph, {name: reader}) on the card and on the
+        CPU; every reader's arrays equal (``exact``) or within ``tol`` of
+        max(1, |y|) (a callable of the CPU's array, or a number)."""
+        got = {}
+        for key, device in (("card", dev), ("cpu", "cpu")):
+            g, readers = build()
+            sched = gt.Scheduler(g, block_len=block_len, sample_rate=fs,
+                                 device=device)
+            sched.run_and_wait(steps)
+            got[key] = {n: np.asarray(r()) for n, r in readers.items()}
+            got[key + "_steps"] = sched._step
+        worst = 0.0
+        for n, want in got["cpu"].items():
+            have = got["card"][n]
+            check(have.shape == want.shape, f"{label} {n}: shape {have.shape} vs {want.shape}")
+            if exact:
+                check(np.array_equal(have, want), f"{label} {n}: not bit-equal")
+                continue
+            lim = tol(want) if callable(tol) else tol
+            d = np.abs(have.astype(np.complex128) - want)
+            rel = float(np.max(d / np.maximum(1.0, np.abs(want)))) if d.size else 0.0
+            worst = max(worst, rel)
+            check(rel <= lim, f"{label} {n}: {rel:.3e} > {lim:.3e}")
+        b_results[label] = "bit-equal" if exact else worst
+        return got
+
+    reg = gt.global_registry
+    rng = np.random.default_rng(SEED + 25)
+
+    def source_chain(btype, settings, x=None, tags=(), n_out=1):
+        def build():
+            g = gt.Graph()
+            b = reg.create(btype, **settings)
+            sinks = [reg.create("VectorSink") for _ in range(n_out)]
+            if x is not None:
+                g.connect(reg.create("VectorSource", data=x, tags=[
+                    gt.Tag(i, {"trigger_name": nm}) for i, nm in tags]), b)
+            for i, snk in enumerate(sinks):
+                g.connect(b if n_out == 1 else b[f"out{i}"], snk)
+            return g, {f"out{i}": snk.data for i, snk in enumerate(sinks)}
+        return build
+
+    for mode in ("Const", "LinearRamp", "CubicSpline", "ParabolicRamp",
+                 "ImpulseResponse", "Sin", "Cos", "FastSin", "FastCos",
+                 "UniformNoise", "TriangularNoise", "GaussianNoise"):
+        settings = dict(signal_type=mode, start_value=0.5, final_value=2.0,
+                        duration=1.0, round_off_time=0.2, impulse_time0=0.2,
+                        impulse_time1=0.3, frequency=50.0, seed=1,
+                        n_samples=2000, sample_rate=1000.0)
+        tone = mode in ("Sin", "Cos", "FastSin", "FastCos")
+        exact = mode not in ("GaussianNoise",) and not tone
+        # a tone's sines differ by up to one ulp of its float32 phase
+        # (2π·50·2 s ≈ 628 rad), times the amplitude 2
+        tol = (F32_ATOL + 2.0 * float(np.spacing(np.float32(2 * np.pi * 100.0)))
+               if tone else NOISE_RTOL)
+        versus(f"FunctionGenerator {mode}", source_chain("FunctionGenerator", settings),
+               500, fs=1000.0, exact=exact, tol=tol)
+    fs_fe = 10000.0
+    t = np.arange(8192)
+    real_tone = np.sin(2 * np.pi * 1234.0 * t / fs_fe).astype(np.float32)
+    cx_tone = (np.exp(2j * np.pi * -1875.25 * t / fs_fe)
+               + 0.01 * (rng.standard_normal(8192) + 1j * rng.standard_normal(8192))
+               ).astype(np.complex64)
+    for method in ("fft", "zero_crossing", "period"):
+        for name, x in (("real", real_tone), ("complex", cx_tone)):
+            versus(f"FrequencyEstimator {method} {name}",
+                   source_chain("FrequencyEstimator", {"chunk": 1024, "method": method},
+                                x), 2048, fs=fs_fe, tol=F32_ATOL)
+    noisy = (np.sin(2 * np.pi * 4 * np.arange(1024) / 256.0)
+             + 0.2 * rng.standard_normal(1024)).astype(np.float32)
+    for engine in ("xla", "jacobi"):
+        versus(f"SvdDenoiser {engine}", source_chain(
+            "SvdDenoiser", {"chunk": 256, "window": 24, "rank": 2, "engine": engine},
+            noisy), 512, tol=SVD_ATOL * float(np.abs(noisy).max()))
+    ones = np.ones(2048, np.complex64) * (1 + 0.5j)
+    versus("BurstTaper", source_chain(
+        "BurstTaper", {"ramp_len": 32}, ones,
+        tags=[(100, "burst_start"), (500, "burst_stop"), (1000, "burst_start"),
+              (1030, "burst_stop")]), 1024, tol=F32_ATOL)
+    noise_c = (rng.standard_normal(3072) + 1j * rng.standard_normal(3072)).astype(np.complex64)
+    versus("StreamFilter", source_chain(
+        "StreamFilter", {"filter": "A", "filter_stop": "B"}, noise_c,
+        tags=[(10, "A"), (300, "B"), (900, "A"), (1800, "B"), (2100, "A")]),
+        1024, exact=True)
+
+    def sync_block():
+        g = gt.Graph()
+        base = np.arange(2048, dtype=np.float32)
+        a = reg.create("VectorSource", data=base, tags=[gt.Tag(100, {"trigger_name": "s"})])
+        b = reg.create("VectorSource", data=np.concatenate([np.zeros(7, np.float32),
+                                                            base[:-7]]),
+                       tags=[gt.Tag(107, {"trigger_name": "s"})])
+        sync = reg.create("SyncBlock", n_inputs=2, max_skew=64)
+        s0, s1 = reg.create("VectorSink"), reg.create("VectorSink")
+        g.connect(a, sync["in0"])
+        g.connect(b, sync["in1"])
+        g.connect(sync["out0"], s0)
+        g.connect(sync["out1"], s1)
+        return g, {"out0": s0.data, "out1": s1.data}
+    versus("SyncBlock", sync_block, 512, exact=True)
+
+    def sync_sink():
+        g = gt.Graph()
+        snk = reg.create("SyncSink", n_ports=2, tolerance=3)
+        vals = [[1, 0, 1, 2, 3, 0, 1, 2, 3, 4, 0, 1],
+                [1, 2, 0, 1, 2, 3, 4, 0, 1, 2, 3, 0, 1, 2]]
+        times = [[(1, 100), (5, 200), (10, 300)], [(2, 101), (7, 199), (11, 302)]]
+        for p in range(2):
+            g.connect(reg.create("VectorSource", data=np.asarray(vals[p], np.float32),
+                                 tags=[gt.Tag(i, {"trigger_name": "T", "trigger_time": tt})
+                                       for i, tt in times[p]]), snk[f"in{p}"])
+        return g, {"p0": lambda: snk.data(0), "p1": lambda: snk.data(1)}
+    versus("SyncSink", sync_sink, 5, exact=True)
+    ramp = np.arange(50, dtype=np.float32)
+    qa = [(5, "A"), (10, "B"), (15, "A"), (20, "B")]
+
+    def host_sink(btype, settings, x, tags, reader):
+        def build():
+            g = gt.Graph()
+            snk = reg.create(btype, **settings)
+            g.connect(reg.create("VectorSource", data=x, tags=[
+                gt.Tag(i, {"trigger_name": nm}) for i, nm in tags]), snk)
+            return g, {"out": lambda: reader(snk)}
+        return build
+    versus("StreamFilterSink", host_sink("StreamFilterSink", {"filter": "[A, B]"},
+                                         ramp, qa, lambda s: s.data()), 16, exact=True)
+    xs = rng.standard_normal(4096).astype(np.float32)
+    versus("DataSetSink", host_sink("DataSetSink", {"n_length": 1000}, xs, (),
+                                    lambda s: np.stack([d.values for d in s.read_all()])),
+           700, exact=True)
+    versus("SavitzkyGolayDataSetFilter", host_sink(
+        "SavitzkyGolayDataSetFilter", {"n_length": 1000, "window_size": 21,
+                                       "poly_order": 3}, xs, (),
+        lambda s: np.stack([d.values for d in s.read_all()])), 700, exact=True)
+
+    uv_taps = (np.hanning(15) / 7.0).astype(np.float32)
+
+    def uncertain(n, op_chain):
+        v = rng.standard_normal(n).astype(np.float32)
+        sigma = rng.uniform(0.1, 1, n).astype(np.float32)
+
+        def build():
+            g = gt.Graph()
+            sv = reg.create("VectorSource", data=v)
+            ss = reg.create("VectorSource", data=sigma)
+            tu, fu = reg.create("ToUncertain"), reg.create("FromUncertain")
+            g.connect(sv, tu, dst_port="in")
+            g.connect(ss, tu, dst_port="sigma")
+            g.connect_chain(tu, *op_chain(), fu)
+            kv, ks = reg.create("VectorSink"), reg.create("VectorSink")
+            g.connect(fu["value"], kv)
+            g.connect(fu["sigma"], ks)
+            return g, {"value": kv.data, "sigma": ks.data}
+        return build
+    ck.reset_launch_counts()
+    got = versus("uncertain FirFilter → MultiplyConst", uncertain(4096, lambda: (
+        reg.create("FirFilter", taps=tuple(uv_taps), uncertain=True),
+        reg.create("MultiplyConst", value=2.0, value_sigma=0.1, uncertain=True))),
+        1024, tol=FIR_ATOL)
+    unc_counts = ck.launch_counts()["fir_banded"]
+    check(unc_counts == 2 * got["card_steps"] >= 8,
+          f"uncertain FirFilter: two fir_banded launches per step, not {unc_counts} "
+          f"in {got['card_steps']} steps")
+    versus("uncertain IirFilter", uncertain(512, lambda: (
+        reg.create("IirFilter", b=(0.2,), a=(1.0, -0.8), uncertain=True),)),
+        256, tol=F32_ATOL)
+    fs_pm, n_pm, d_pm = 10000.0, 20000, 2000
+    tt = np.arange(n_pm) / fs_pm
+    u_ = (325.0 * np.sin(2 * np.pi * 50 * tt)).astype(np.float32)
+    i_ = (14.1 * np.sin(2 * np.pi * 50 * tt - 0.2)).astype(np.float32)
+
+    def electrical():
+        g = gt.Graph()
+        pm, pf = reg.create("PowerMetrics", decim=d_pm), reg.create("PowerFactor")
+        for port, data in (("u", u_), ("i", i_), ("u_sigma", np.full(n_pm, 3.25, np.float32)),
+                           ("i_sigma", np.full(n_pm, 0.141, np.float32))):
+            g.connect(reg.create("VectorSource", data=data), pm[port])
+        for port in ("p", "s", "p_sigma", "s_sigma"):
+            g.connect(pm[port], pf[port])
+        readers = {}
+        for blk_, port in ((pm, "p"), (pm, "q"), (pm, "u_rms_sigma"),
+                           (pf, "power_factor"), (pf, "power_factor_sigma")):
+            snk = reg.create("VectorSink")
+            g.connect(blk_[port], snk)
+            readers[port] = snk.data
+        return g, readers
+    versus("PowerMetrics → PowerFactor", electrical, 2 * d_pm, fs=fs_pm, tol=F32_ATOL)
+    three = {k: (v + rng.uniform(-1, 1, (3, 64))).astype(np.float32)
+             for k, v in (("u_rms", 230.0), ("i_rms", 10.0), ("p", 2300.0))}
+
+    def unbalance():
+        g = gt.Graph()
+        su = reg.create("SystemUnbalance")
+        for port, data in three.items():
+            g.connect(reg.create("VectorSource", data=data), su[port])
+        readers = {}
+        for port in ("u_unbalance", "i_unbalance", "p_total"):
+            snk = reg.create("VectorSink")
+            g.connect(su[port], snk)
+            readers[port] = snk.data
+        return g, readers
+    # a deviation from the mean is a few of the mean's ulps, in percent
+    versus("SystemUnbalance", unbalance, 32, tol=F32_ATOL + 100 * 4 * 2.0 ** -23)
+    print("[25b card against the CPU] " + "; ".join(
+        f"{k} {v if isinstance(v, str) else f'{v:.2e}'}" for k, v in b_results.items()))
+    lap("b card vs CPU")
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 25)
+    rx = lambda *shape: torch.randn(*shape, dtype=torch.float32, device=dev, generator=gen)
+    cx = lambda *shape: torch.randn(*shape, dtype=torch.complex64, device=dev, generator=gen)
+    costs = (
+        ("FunctionGenerator ParabolicRamp", reg.create(
+            "FunctionGenerator", signal_type="ParabolicRamp", final_value=1.0,
+            round_off_time=0.2), {}, 2000),
+        ("FunctionGenerator GaussianNoise", reg.create(
+            "FunctionGenerator", signal_type="GaussianNoise"), {}, 5000),
+        ("FrequencyEstimator fft", reg.create("FrequencyEstimator", chunk=1024),
+         {"in": rx(8192)}, None),
+        ("FrequencyEstimator period", reg.create("FrequencyEstimator", chunk=1024,
+                                                 method="period"), {"in": rx(8192)}, None),
+        ("SchmittTrigger", reg.create("SchmittTrigger", low=-0.3, high=0.3),
+         {"in": rx(2000)}, None),
+        ("SavitzkyGolayFilter", reg.create("SavitzkyGolayFilter", window=31,
+                                           poly_order=3), {"in": rx(2048)}, None),
+        ("SvdDenoiser xla", reg.create("SvdDenoiser", chunk=256, window=24,
+                                       engine="xla"), {"in": rx(1024)}, None),
+        ("SvdDenoiser jacobi", reg.create("SvdDenoiser", chunk=256, window=24,
+                                          engine="jacobi"), {"in": rx(1024)}, None),
+        ("BurstTaper", reg.create("BurstTaper", ramp_len=32), {"in": cx(1024)}, None),
+        ("StreamFilter", reg.create("StreamFilter", filter="A"), {"in": cx(1024)}, None),
+        ("SyncBlock", reg.create("SyncBlock", n_inputs=2, max_skew=64),
+         {"in0": rx(512), "in1": rx(512)}, None),
+        ("TriggerGate", reg.create("TriggerGate", n_post=700), {"in": rx(1024)}, None),
+        ("ToUncertain", reg.create("ToUncertain"), {"in": rx(1024), "sigma": rx(1024)}, None),
+        ("FirFilter uncertain", reg.create("FirFilter", taps=tuple(uv_taps),
+                                           uncertain=True), {"in": rx(2, 1024)}, None),
+        ("MultiplyConst uncertain", reg.create("MultiplyConst", value=2.0,
+                                               value_sigma=0.1, uncertain=True),
+         {"in": rx(2, 1024)}, None),
+        ("IirFilter uncertain", reg.create("IirFilter", b=(0.2,), a=(1.0, -0.8),
+                                           uncertain=True), {"in": rx(2, 256)}, None),
+        ("PowerMetrics", reg.create("PowerMetrics", decim=2000),
+         {"u": rx(4000), "i": rx(4000), "u_sigma": rx(4000), "i_sigma": rx(4000)}, None),
+        ("PowerFactor", reg.create("PowerFactor"),
+         {"p": rx(2), "s": rx(2), "p_sigma": rx(2), "s_sigma": rx(2)}, None),
+        ("SystemUnbalance", reg.create("SystemUnbalance"),
+         {"u_rms": rx(3, 32), "i_rms": rx(3, 32), "p": rx(3, 32)}, None))
+    for label, b, ins, n_src in costs:
+        kernels, ops, ms_b, hand = block_cost(dev, b, ins, n_out=n_src)
+        n_in = n_src if n_src is not None else next(iter(ins.values())).shape[-1]
+        print(f"[25b step cost] {label} on {n_in} samples: {kernels} kernel launches "
+              f"seen by torch.profiler ({hand} hand-kernel launches by their "
+              f"wrappers' counts), {ops} torch ops, {ms_b:.3f} ms per step")
+        paths.append({"name": f"phase 25 {label}", "samples": n_in,
+                      "kernels_per_step": kernels, "hand_kernel_launches": hand,
+                      "torch_ops_per_step": ops, "ms_per_step": ms_b})
+    lap("b step costs")
+
+    # (c) SvdDenoiser's engines at 2^20 samples a step (chunk 256, window 16)
+    # on a tone in noise (two singular values well above the rest, so that
+    # both engines keep the same rank-2 subspace): the choice behind engine
+    # 'auto' on CUDA
+    x_svd = (torch.sin(torch.arange(SVD_BLOCK_LEN, device=dev) * (2 * math.pi / 64))
+             + 0.2 * rx(SVD_BLOCK_LEN))
+    svd_ms, svd_out = {}, {}
+    for engine in ("jacobi", "xla"):
+        b = reg.create("SvdDenoiser", chunk=256, window=16, rank=2, engine=engine)
+        ctx = gt.BlockCtx(in_len={"in": SVD_BLOCK_LEN}, out_len={"out": SVD_BLOCK_LEN},
+                          sample_rate=1.0, params={}, device=dev)
+        step = lambda: b.apply((), {"in": x_svd}, ctx)[1]["out"]
+        svd_out[engine] = step()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        first = (time.perf_counter() - t0) * 1e3
+        svd_ms[engine], _ = events_ms_per_step(step, 1, windows=3 if first < 2e3 else 1)
+    d_svd = float((svd_out["xla"] - svd_out["jacobi"]).abs().max()) / float(x_svd.abs().max())
+    faster = min(svd_ms, key=svd_ms.get)
+    print(f"[25c SvdDenoiser, 2^20 samples a step, chunk 256, window 16] xla "
+          f"(torch.linalg.svd) {svd_ms['xla']:.3f} ms, jacobi {svd_ms['jacobi']:.3f} ms "
+          f"per step (CUDA events); the engines agree within {d_svd:.2e} of the peak "
+          f"(tol {SVD_ATOL}); engine 'auto' on CUDA takes "
+          f"{gt.global_registry.get('SvdDenoiser')._CUDA_AUTO!r}, {faster!r} read faster")
+    check(d_svd <= SVD_ATOL, "SvdDenoiser: engines disagree at 2^20")
+    paths.append({"name": "phase 25 SvdDenoiser 2^20", "xla_ms": svd_ms["xla"],
+                  "jacobi_ms": svd_ms["jacobi"]})
+    del x_svd, svd_out
+    lap("c svd")
+
+    # (d) fir_banded against its plain version at every shape (a) and (b)
+    # launched it with, on the taps the blocks designed
+    fir_shapes = [("the S-G filter of (a)", sg_taps, ACQ_BLOCK_LEN, sg_launches),
+                  ("the S-G filter at 2^16 a step", sg_check[0], ACQ_CHECK_BLOCK_LEN,
+                   sg_check[1]),
+                  ("the uncertain FirFilter's value plane", uv_taps, 1024,
+                   unc_counts // 2),
+                  ("the uncertain FirFilter's sigma² plane", uv_taps * uv_taps, 1024,
+                   unc_counts // 2)]
+    rows = results["fir_banded"].setdefault("timed_shapes", [])
+    for label, taps_np, t_len, launches in fir_shapes:
+        taps = torch.from_numpy(np.ascontiguousarray(taps_np)).to(dev)
+        k = taps.shape[0]
+        x, hist = rx(t_len), rx(k - 1)
+        err = float((ck.fir_banded(x, hist, taps, 1)
+                     - ck.fir_banded_ref(x, hist, taps, 1)).abs().max())
+        k_ms, p_ms = kernel_vs_plain_ms(lambda: ck.fir_banded(x, hist, taps, 1),
+                                        lambda: ck.fir_banded_ref(x, hist, taps, 1))
+        b_ms, b_by = bound_ms(*fir_work((t_len,), False, False, k, 1))
+        lib = conv1d_ms(x, hist, taps, 1)
+        print(f"[25d fir_banded, {label}] f32 × f32 K {k} ÷1 T {t_len}: max|Δ| "
+              f"{err:.3e} (tol {FIR_ATOL}); kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
+              f"bound {b_ms:.5f} ms ({b_by}), {b_ms / k_ms:.1%} of it; F.conv1d "
+              f"(TF32 off) {lib:.4f} ms; {launches} launches")
+        check(err <= FIR_ATOL, f"fir_banded, {label}: {err}")
+        results["fir_banded"]["max_abs_err"] = max(results["fir_banded"]["max_abs_err"], err)
+        row = {"case": f"phase 25 {label}: f32 × f32 K {k} ÷1 T {t_len}",
+               "launches": launches, "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
+               "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib}
+        rows.append(row)
+        paths.append({"name": f"phase 25 fir_banded {row['case']}", **row})
+    lap("d kernels")
+    print(f"[25 seconds] wall s by sub-phase {({k: round(v, 2) for k, v in secs.items()})}"
+          f"; phase 25 {sum(secs.values()):.1f} s")
+    paths.append({"name": "phase 25 seconds", "seconds": sum(secs.values()),
                   "by_sub_phase": secs})
 
 
@@ -3276,6 +3963,7 @@ def main() -> int:
     loop_phases(dev, paths)
     modem_phases(dev, paths, results)
     carrier_phases(dev, paths, results)
+    acquisition_phases(dev, card, paths, results)
 
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "share_of_bound", "library_ms")

@@ -30,6 +30,7 @@ from ..ops.fir import PRECISIONS, fir_apply, fir_init_state, freq_xlating_taps
 from ..ops.resample import RationalResamplerKernel
 from ..ops.signal import complex_exp_ramp, phase_increment
 from .basic import phase_state
+from .uncertain import check_uncertain_channels
 
 
 @register_block("FirFilter")
@@ -53,8 +54,12 @@ class FirFilter(Block):
                                     "pass, int8 = int8 × int8 (ops/"
                                     "precision.py)")
     uncertain = Setting(default=False, kind="static",
-                        description="input is a 2-plane (value, sigma) stream "
-                                    "(not ported to this package yet; raises)")
+                        description="input is a 2-plane (value, sigma) stream; "
+                                    "sigma propagates as sqrt(fir(sigma^2, "
+                                    "taps^2)) — the uncorrelated first-order "
+                                    "rule of the reference's "
+                                    "fir_filter<UncertainValue<T>> "
+                                    "(time_domain_filter.hpp:213)")
 
     def __init__(self, name=None, taps: Any = None, **settings):
         if taps is not None:
@@ -86,13 +91,7 @@ class FirFilter(Block):
             return np.dtype(np.complex64)
         return up
 
-    def _check_ported(self):
-        if self.settings.get("uncertain"):
-            raise GrError(f"{self.name}: uncertain mode is not ported to this "
-                          f"package yet", block=self.name)
-
     def init_state(self, ctx):
-        self._check_ported()
         t = self._taps_array()
         # history follows the STREAM dtype — a real stream with complex taps
         # stays real (ops/fir.py keeps the real rail)
@@ -100,8 +99,25 @@ class FirFilter(Block):
         return fir_init_state(ch, len(t), ctx.dtype("in"), ctx.device)
 
     def apply(self, state, ins, ctx):
-        y, new_state = fir_apply(ins["in"], self._taps_array(), state,
-                                 decim=int(self.settings.get("decim")),
+        x = ins["in"]
+        d = int(self.settings.get("decim"))
+        if self.settings.get("uncertain"):
+            check_uncertain_channels(ctx, "in", self.name)
+            t = self._taps_array()
+            if np.iscomplexobj(t):
+                raise GrError(f"{self.name}: uncertain mode needs real taps")
+            # state holds the raw input planes (value, sigma) — the plain
+            # path's layout, so checkpoints are unchanged. Two FIR calls: the
+            # value plane, and sigma² through the squared taps.
+            yv, hv = fir_apply(x[..., 0, :], t, state[..., 0, :], decim=d,
+                               precision=self._prec())
+            s2, hs = fir_apply(x[..., 1, :].square(), t * t,
+                               state[..., 1, :].square(), decim=d,
+                               precision=self._prec())
+            y = torch.stack([yv, s2.clamp_min(0.0).sqrt()], dim=-2)
+            new_state = torch.stack([hv, hs.clamp_min(0.0).sqrt()], dim=-2)
+            return new_state, {"out": y}
+        y, new_state = fir_apply(x, self._taps_array(), state, decim=d,
                                  precision=self._prec())
         return new_state, {"out": y}
 
@@ -145,7 +161,6 @@ class FreqXlatingFir(FirFilter):
         return freq_xlating_taps(base, float(self.settings.get("center_freq")), fs)
 
     def init_state(self, ctx):
-        self._check_ported()
         self._fs_cached = ctx.sample_rate     # design rate for f_cut mode
         ntaps = len(self._taps_array())
         ch = ctx.channels.get("in", 0)
@@ -248,8 +263,12 @@ class IirFilter(Block):
                                  "the biquad-cascade kernel (a chunked scan "
                                  "across time)")
     uncertain = Setting(default=False, kind="static",
-                        description="input is a 2-plane (value, sigma) stream "
-                                    "(not ported to this package yet; raises)")
+                        description="input is a 2-plane (value, sigma) stream; "
+                                    "sigma^2 runs the per-op uncorrelated "
+                                    "recursion sy2[n] = Σb^2·sx2[n-k] + "
+                                    "Σa^2·sy2[n-j] (≈ iir_filter<Uncertain"
+                                    "Value<T>>, time_domain_filter.hpp:64); "
+                                    "forces the scan engine")
 
     def __init__(self, name=None, b: Any = None, a: Any = None, **settings):
         if b is not None:
@@ -271,8 +290,11 @@ class IirFilter(Block):
 
     def init_state(self, ctx):
         if self.settings.get("uncertain"):
-            raise GrError(f"{self.name}: uncertain mode is not ported to this "
-                          f"package yet", block=self.name)
+            nb = len(self.settings.get("b"))
+            na = len(self.settings.get("a"))
+            # per-plane scalar loop states (value path + variance path)
+            return {"v": iir_ops.iir_init_state(0, nb, na, ctx.device),
+                    "s2": iir_ops.iir_init_state(0, nb, na, ctx.device)}
         ch = ctx.channels.get("in", 0)
         eng = self._engine(ctx.device)
         if eng == "parallel":
@@ -285,6 +307,18 @@ class IirFilter(Block):
 
     def apply(self, state, ins, ctx):
         x = ins["in"]
+        if self.settings.get("uncertain"):
+            check_uncertain_channels(ctx, "in", self.name)
+            b = np.asarray(self.settings.get("b"), dtype=np.float64)
+            a = np.asarray(self.settings.get("a"), dtype=np.float64)
+            bn, an = b / a[0], a / a[0]
+            yv, sv = iir_ops.iir_apply(x[..., 0, :], bn, an, state["v"])
+            # variance recursion: sy2 = Σ bn² sx2 − Σ (−an²) sy2
+            av = np.concatenate([[1.0], -np.square(an[1:])])
+            s2, ss = iir_ops.iir_apply(x[..., 1, :].square(), np.square(bn),
+                                       av, state["s2"])
+            y = torch.stack([yv, s2.clamp_min(0.0).sqrt()], dim=-2)
+            return {"v": sv, "s2": ss}, {"out": y}
         eng = self._engine(ctx.device)
         if eng == "parallel":
             y, new_state = iir_ops.sos_parallel_apply(x, self._sos(), state)

@@ -18,23 +18,23 @@ from ..core.registry import register_block
 from ..core.settings import Setting
 from ..ops.cuda_kernels import nco_mix
 from ..ops.signal import (MASK32, complex_exp, phase_increment, phase_to_frac)
+from ..utils.uncertain import UncertainValue
 from .basic import phase_state
-
-
-def _refuse_uncertain(block: Block) -> None:
-    if block.settings.get("uncertain"):
-        raise GrError(f"{block.name}: uncertain=True is not ported to this "
-                      f"package yet", block=block.name)
+from .uncertain import check_uncertain_channels, uv_join, uv_split
 
 
 class _NAry(Block):
-    """N-input elementwise reducer; inputs in0..in{N-1} (≈ multi-port Add etc.)."""
+    """N-input elementwise reducer; inputs in0..in{N-1} (≈ multi-port Add etc.).
+
+    ``uncertain=True`` runs the reducer on 2-plane (value, sigma) streams with
+    first-order Gaussian propagation — the sample type is UncertainValue, as in
+    the reference's ``Add<gr::UncertainValue<float>>`` registrations
+    (Math.hpp:68-71)."""
 
     OUT = (Port("out"),)
     n_inputs = Setting(default=2, kind="static", limits=(1, 64))
     uncertain = Setting(default=False, kind="static",
-                        description="inputs are 2-plane (value, sigma) streams "
-                                    "(not ported to this package yet; raises)")
+                        description="inputs are 2-plane (value, sigma) streams")
 
     def __init__(self, name=None, **settings):
         super().__init__(name=name, **settings)
@@ -45,11 +45,16 @@ class _NAry(Block):
         raise NotImplementedError
 
     def apply(self, state, ins, ctx):
-        _refuse_uncertain(self)
-        out = ins[self.in_ports[0].name]
-        for p in self.in_ports[1:]:
-            out = self._op(out, ins[p.name])
-        return state, {"out": out}
+        uncertain = self.settings.get("uncertain")
+        if uncertain:
+            for p in self.in_ports:
+                check_uncertain_channels(ctx, p.name, self.name)
+        vals = [uv_split(ins[p.name]) if uncertain else ins[p.name]
+                for p in self.in_ports]
+        out = vals[0]
+        for v in vals[1:]:
+            out = self._op(out, v)
+        return state, {"out": uv_join(out) if uncertain else out}
 
 
 @register_block("Add")
@@ -79,15 +84,18 @@ class Divide(_NAry):
 class _ConstOp(Block):
     """Elementwise op against a constant. ``value`` is SAMPLE_ACCURATE: a tag
     carrying it switches the constant at the tag's exact sample (a per-sample
-    float32 ramp for that step)."""
+    float32 ramp for that step). With ``uncertain=True`` the stream is a
+    2-plane (value, sigma) pair and the constant itself may carry an
+    uncertainty (``value_sigma``) — ≈ the reference's
+    ``AddConst<gr::UncertainValue<T>>`` (Math.hpp:25-28), whose constant is an
+    UncertainValue."""
 
     IN = (Port("in"),)
     OUT = (Port("out"),)
     SAMPLE_ACCURATE = frozenset({"value"})   # tag-driven changes hit at index k
     value = Setting(default=1.0, description="constant operand")
     uncertain = Setting(default=False, kind="static",
-                        description="stream is a 2-plane (value, sigma) pair "
-                                    "(not ported to this package yet; raises)")
+                        description="stream is a 2-plane (value, sigma) pair")
     value_sigma = Setting(default=0.0, limits=(0.0, None),
                           description="1-sigma uncertainty of the constant "
                                       "(uncertain mode)")
@@ -96,9 +104,15 @@ class _ConstOp(Block):
         raise NotImplementedError
 
     def apply(self, state, ins, ctx):
-        _refuse_uncertain(self)
         x = ins["in"]
         v = ctx.p("value", 1.0)
+        if self.settings.get("uncertain"):
+            check_uncertain_channels(ctx, "in", self.name)
+
+            def f32(a):
+                return torch.from_numpy(np.asarray(a, np.float32)).to(x.device)
+            c = UncertainValue(f32(v), f32(ctx.p("value_sigma", 0.0)))
+            return state, {"out": uv_join(self._op(uv_split(x), c))}
         if np.ndim(v):     # per-sample ramp (tag-accurate value switch)
             c = torch.from_numpy(np.asarray(v, np.float32)).to(x.device).to(x.dtype)
         else:              # the constant rounded to the stream's type
@@ -127,7 +141,7 @@ class MultiplyConst(_ConstOp):
 @register_block("DivideConst")
 class DivideConst(_ConstOp):
     def _op(self, x, c):
-        if not torch.is_tensor(c) and x.is_cuda:
+        if not torch.is_tensor(c) and torch.is_tensor(x) and x.is_cuda:
             # CUDA divides by a host scalar as a multiply by its reciprocal;
             # a device scalar keeps the true quotient, as on the CPU
             c = self._divisor(c, x)

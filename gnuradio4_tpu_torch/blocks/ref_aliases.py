@@ -79,3 +79,29 @@ _alias("BasicFilterProto", "BasicFilter")
 
 # ImChartMonitor.hpp:19 registers the chart-less variant as ConsoleDebugSink
 _alias("ConsoleDebugSink", "ImChartMonitor")
+
+# electrical — PowerEstimators.hpp registers per-phase-count instantiations;
+# here the phase count is the input's channel dimension
+_alias("SinglePhasePowerMetrics", "PowerMetrics")
+_alias("ThreePhasePowerMetrics", "PowerMetrics")
+_alias("SinglePhasePowerFactorCalculator", "PowerFactor")
+_alias("ThreePhasePowerFactorCalculator", "PowerFactor")
+_alias("TwoPhaseSystemUnbalanceCalculator", "SystemUnbalance")
+_alias("ThreePhaseSystemUnbalanceCalculator", "SystemUnbalance")
+
+# filter — FrequencyEstimator.hpp time/frequency-domain (+decimating) variants;
+# ours estimates per chunk (inherently decimating) with a method switch
+_alias("FrequencyEstimatorTimeDomain", "FrequencyEstimator",
+       method="zero_crossing")
+_alias("FrequencyEstimatorTimeDomainDecimating", "FrequencyEstimator",
+       method="zero_crossing")
+_alias("FrequencyEstimatorFrequencyDomain", "FrequencyEstimator", method="fft")
+_alias("FrequencyEstimatorFrequencyDomainDecimating", "FrequencyEstimator",
+       method="fft")
+
+# Trigger.hpp SchmittTrigger interpolation-method variants
+_alias("SchmittTriggerBasic", "SchmittTrigger", interpolation="basic_linear")
+_alias("SchmittTriggerNoInterpolation", "SchmittTrigger",
+       interpolation="none")
+_alias("SchmittTriggerPolynomial", "SchmittTrigger",
+       interpolation="polynomial")

@@ -154,7 +154,9 @@ class CompiledGraph:
         """Static per-block tag-walk plan: (block, uname, [(src_key,
         dst_port)], fast, is_sink, out_port_names, is_source). ``fast`` marks
         blocks with stock propagation and no host tag emission — with no
-        incoming tags they can be skipped wholesale each step."""
+        incoming tags they can be skipped wholesale each step. A
+        WANTS_TAG_ARRAYS block is never fast: a step without tags must still
+        clear the tags it received the step before."""
         if self._tag_plan is None:
             plan = []
             for b in self.order:
@@ -162,7 +164,8 @@ class CompiledGraph:
                 in_keys = [((e.src.unique_name, e.src_port), e.dst_port)
                            for e in self.in_edges[uname]]
                 fast = (type(b).emit_tags is Block.emit_tags
-                        and type(b).process_tags is Block.process_tags)
+                        and type(b).process_tags is Block.process_tags
+                        and not getattr(b, "WANTS_TAG_ARRAYS", False))
                 plan.append((b, uname, in_keys, fast, uname in self.sink_names,
                              [p.name for p in b.out_ports],
                              not self.in_edges[uname]))

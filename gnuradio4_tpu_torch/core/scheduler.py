@@ -87,7 +87,8 @@ class Scheduler:
                  device: torch.device | str | None = None, mesh: Any = None,
                  pipeline_depth: int = 2, profiler: Any = None,
                  watchdog_timeout: float | None = None,
-                 watchdog_action: str = "notify", name: str = "scheduler",
+                 watchdog_action: str = "notify",
+                 max_tags_per_step: int = 64, name: str = "scheduler",
                  on_block_error: str = "shutdown",
                  async_delivery: bool = False, batch_steps: int = 1):
         if mesh is not None:
@@ -113,6 +114,8 @@ class Scheduler:
         if watchdog_action not in ("notify", "stop", "error"):
             raise GrError("watchdog_action must be 'notify', 'stop' or 'error'")
         self.watchdog_action = watchdog_action
+        # capacity of the TagArrays a WANTS_TAG_ARRAYS block receives per step
+        self.max_tags_per_step = max_tags_per_step
         # 'shutdown' (default): any block failure stops the whole graph;
         # 'prune': failed blocks go zombie — they and their dependent branch
         # are removed, the rest of the graph recompiles and keeps streaming
@@ -1056,6 +1059,13 @@ class Scheduler:
             if events:
                 # sort by index only (stable: arrival order for ties)
                 self._tag_ramps[uname] = sorted(events, key=lambda e: e[0])
+            # device-visible tag path: blocks that gate on tags on the device
+            # (WANTS_TAG_ARRAYS) receive this step's input tags; their
+            # prepare_params packs them into fixed-capacity TagArrays
+            # (capacity = max_tags_per_step)
+            if getattr(b, "WANTS_TAG_ARRAYS", False):
+                b._step_in_tags = [t for ts in in_tags.values() for t in ts]
+                b._tag_capacity = self.max_tags_per_step
             out_tags = b.process_tags(in_tags, hc)
             # source-emitted tags (host hook, e.g. TagSource)
             for t in b.emit_tags(hc):

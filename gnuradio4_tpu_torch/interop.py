@@ -44,7 +44,10 @@ def states_from_numpy(tree: Mapping[str, Any], device: torch.device | str,
     counters: SignalGenerator, FreqXlatingFir and IQDemodulator's ``phase``,
     Rotator's state) become int64 host scalars; uint32 arrays (the noise key)
     int64 device tensors; float32 and complex64 histories (FIR, PFB rows,
-    RationalResampler's polyphase history) keep their dtype."""
+    RationalResampler's polyphase history, SyncBlock's per-port histories,
+    the uncertain FIR's two planes) keep their dtype, as do the bool and int32
+    leaves (SchmittTrigger's and StreamFilter's state, TriggerGate's carry),
+    which the blocks read as host numbers wherever they lie."""
     names = names or {}
     return {names.get(k, k): _state_leaf(v, device) for k, v in tree.items()}
 

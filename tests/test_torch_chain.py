@@ -241,9 +241,11 @@ def _cx_chunks(rng, k, n):
 
 
 def test_unported_options_raise():
-    """FirFilter's uncertain mode still raises. Its bf16 rung and the FFT's
-    bf16 matmul engine are ported now (tests/test_torch_precision.py): they
-    run, and agree with the JAX package."""
+    """FirFilter's uncertain mode raises on a stream that is not the 2-plane
+    (value, sigma) pair, as in the JAX package (the mode itself is ported:
+    tests/test_torch_uncertain.py). Its bf16 rung and the FFT's bf16 matmul
+    engine are ported now (tests/test_torch_precision.py): they run, and
+    agree with the JAX package."""
     g = gt.Graph()
     g.connect_chain(g.emplace("ComplexToneSource", frequency=1e3),
                     g.emplace("FirFilter", taps=(0.5, 0.5), uncertain=True),

@@ -3,6 +3,7 @@ noise graph (NoiseSource and SignalGenerator's GaussianNoise, both threefry)
 and a modem graph (a ChannelModel into an OFDM demodulator and
 pilot equalizer, whose states hold a threefry key, a uint32 phase and a bool)
 and a carrier graph (every stateful block of the carrier-recovery slice)
+and an acquisition graph (every stateful block of the acquisition slice)
 run 2 steps, are saved, and resume for 2 more — JAX → port, port → JAX and
 port → port — against steps 3–4 of an uninterrupted run; and a checkpoint
 whose state tree differs from the block's is refused, naming the key.
@@ -113,7 +114,64 @@ def _carrier(pkg):
     return g
 
 
-GRAPHS = {"chain": _chain, "noise": _noise, "modem": _modem, "carrier": _carrier}
+def _acquisition(pkg):
+    """Every stateful block of the acquisition slice, each into a sink: a
+    ClockSource's "T" tags into FunctionGenerator's clock input (uniform
+    threefry noise: a key), a FunctionGenerator tone (a uint32 segment
+    counter) → SavitzkyGolayFilter (a history) → SchmittTrigger (a bool);
+    the noise into TriggerGate (an int32 carry) and StreamFilter (a bool);
+    noise and tone into SyncBlock (two histories); and the noise as an
+    uncertain stream through FirFilter and IirFilter in uncertain mode (the
+    two-plane history, and the {"v", "s2"} loop states).
+
+    ClockSource's tag timeline is a constructor argument that graph.yaml does
+    not carry (in either package), so every tag falls before the save: the
+    gate's window and the open StreamFilter carry across it. SchmittTrigger
+    takes its band as offset ± threshold: a band given as low/high does not
+    survive save_grc/load_grc in either package (ROADMAP queue 3)."""
+    g = pkg.Graph(name="acquisition")
+    reg = pkg.global_registry
+    misc = import_module(pkg.__name__ + ".blocks.misc")
+    clock = misc.ClockSource(sample_rate=FS, name="clock", tag_times=[
+        i / FS for i in (100, 5000, 9000, 12000, 15000)],
+        tag_values=[{"trigger_name": "T"}] * 5)
+    nz = reg.create("FunctionGenerator", signal_type="UniformNoise",
+                    start_value=2.0, seed=9, name="fg_noise")
+    tone = reg.create("FunctionGenerator", signal_type="Sin", final_value=1.0,
+                      frequency=3e4, name="fg_tone")
+    g.connect(clock, nz, dst_port="clk_in")
+    g.connect_chain(tone, reg.create("SavitzkyGolayFilter", window=31,
+                                     poly_order=3, name="sg"),
+                    reg.create("SchmittTrigger", offset=0.0, threshold=0.3,
+                               name="st"),
+                    reg.create("VectorSink", name="schmitt"))
+    g.connect_chain(nz, reg.create("TriggerGate", filter="T", n_post=7000,
+                                   name="gate"),
+                    reg.create("VectorSink", name="gated"))
+    g.connect_chain(nz, reg.create("StreamFilter", filter="T", name="sf"),
+                    reg.create("VectorSink", name="filtered"))
+    sync = reg.create("SyncBlock", n_inputs=2, max_skew=16, name="sync")
+    g.connect(nz, sync["in0"])
+    g.connect(tone, sync["in1"])
+    for i in range(2):
+        g.connect(sync[f"out{i}"], reg.create("VectorSink", name=f"sync{i}"))
+    tu = reg.create("ToUncertain", sigma_const=0.1, name="tu")
+    fu = reg.create("FromUncertain", name="fu")
+    g.connect(nz, tu, dst_port="in")
+    g.connect_chain(tu, reg.create("FirFilter", taps=(0.5, 0.3, 0.2),
+                                   uncertain=True, name="ufir"),
+                    reg.create("IirFilter", b=(0.2,), a=(1.0, -0.8),
+                               uncertain=True, name="uiir"), fu)
+    g.connect(fu["value"], reg.create("VectorSink", name="u_value"))
+    g.connect(fu["sigma"], reg.create("VectorSink", name="u_sigma"))
+    return g
+
+
+GRAPHS = {"chain": _chain, "noise": _noise, "modem": _modem, "carrier": _carrier,
+          "acquisition": _acquisition}
+# the acquisition slice's sinks that copy or gate the bit-exact uniform noise,
+# and the Schmitt gate: equal across packages
+ACQ_EXACT = ("gated", "filtered", "sync0", "schmitt")
 CARRIER_BLOCK_LEN = 1024
 # the carrier slice's sinks across packages: the tolerances of
 # tests/test_torch_dsp_extras.py and tests/test_torch_squelch.py, but for the
@@ -124,6 +182,12 @@ CARRIER_ATOL = {"CostasLoop_out": 1e-5, "PllCarrierTracking_out": 1e-5,
                 "FllBandEdge_out": 2e-3, "IqImbalanceCorrector_out": 1e-6,
                 "FarrowResampler_out": 1e-6, "SnrEstimator_out": 1e-3,
                 "PowerSquelch_out": 1e-6}
+
+# the tone through SyncBlock: the two sines differ by up to one ulp of their
+# float32 phase, 2π·30 kHz·t ≈ 309 rad at the run's end (tests/
+# test_torch_misc_blocks.py's tone_atol)
+CARRIER_ATOL["sync1"] = 1e-5 + float(np.spacing(np.float32(
+    2 * np.pi * 3e4 * 4 * BLOCK_LEN / FS)))
 
 
 def _sched(pkg, g):
@@ -163,7 +227,7 @@ def _agree(got, want, exact=False):
     for k in want:
         g_, w = got[k], want[k]
         assert g_.shape == w.shape and g_.dtype == w.dtype, k
-        if exact or k == "uniform":
+        if exact or k == "uniform" or k in ACQ_EXACT:
             np.testing.assert_array_equal(g_, w, err_msg=k)
         elif k == "spec":
             assert np.max(np.abs(g_ - w)) <= SPEC_RTOL * np.max(np.abs(w))
@@ -204,6 +268,22 @@ def test_checkpoint_resumes(tmp_path, name, writer, reader):
             uname = {b.name: b.unique_name for b in fresh.compiled.order}
             warm = fresh._states[uname["SnrEstimator"]]["warm"]
             assert warm.dtype == torch.bool and bool(warm)
+    if name == "acquisition":
+        blob = np.load(tmp_path / "states.npz")
+        assert blob["gate"].dtype == np.int32 and blob["sf"].dtype == np.bool_
+        assert int(blob["gate"]) == 15000 + 7000 - 2 * BLOCK_LEN and blob["sf"]
+        assert blob["st"].dtype == np.bool_ and blob["fg_tone"].dtype == np.uint32
+        assert int(blob["fg_tone"]) == 2 * BLOCK_LEN
+        assert blob["fg_noise"].dtype == np.uint32 and blob["fg_noise"].shape == (2,)
+        assert blob["ufir"].shape == (2, 2) and blob["sg"].shape == (30,)
+        assert blob["sync['h0']"].shape == (16,)
+        assert blob["uiir['v']"].dtype == blob["uiir['s2']"].dtype == np.float32
+        if reader is gt:
+            fresh = gt.load_checkpoint(tmp_path, device="cpu")
+            uname = {b.name: b.unique_name for b in fresh.compiled.order}
+            gate = fresh._states[uname["gate"]]
+            assert gate.dtype == torch.int32 and int(gate) == int(blob["gate"])
+            assert fresh._states[uname["fg_tone"]].dtype == torch.int64
     if name == "noise" and reader is gt:
         # the restored threefry keys are the saved uint32 words
         blob = np.load(tmp_path / "states.npz")
@@ -258,3 +338,108 @@ def test_checkpoint_without_card_needs_cpu(tmp_path):
         pytest.skip("a CUDA card is present: the default device is the card")
     with pytest.raises(GrError, match="device=\"cpu\""):
         gt.load_checkpoint(tmp_path)
+
+
+def _acquisition_devices(pkg):
+    """The device blocks of ``_acquisition`` without the host-fed clock: a
+    FunctionGenerator tone → SavitzkyGolayFilter → SchmittTrigger, the noise
+    → TriggerGate and StreamFilter, both into SyncBlock, and the noise as an
+    uncertain stream through FirFilter and IirFilter in uncertain mode."""
+    g = pkg.Graph(name="acq_devices")
+    reg = pkg.global_registry
+    nz = reg.create("FunctionGenerator", signal_type="UniformNoise",
+                    start_value=2.0, seed=9, name="fg_noise")
+    tone = reg.create("FunctionGenerator", signal_type="Sin", final_value=1.0,
+                      frequency=3e4, name="fg_tone")
+    g.connect_chain(tone, reg.create("SavitzkyGolayFilter", window=31,
+                                     poly_order=3, name="sg"),
+                    reg.create("SchmittTrigger", offset=0.0, threshold=0.3,
+                               name="st"),
+                    reg.create("VectorSink", name="schmitt"))
+    for btype in ("TriggerGate", "StreamFilter"):
+        g.connect_chain(nz, reg.create(btype, name=btype),
+                        reg.create("VectorSink", name=f"{btype}_out"))
+    sync = reg.create("SyncBlock", n_inputs=2, max_skew=16, name="sync")
+    g.connect(nz, sync["in0"])
+    g.connect(tone, sync["in1"])
+    g.connect(sync["out1"], reg.create("VectorSink", name="sync1"))
+    tu = reg.create("ToUncertain", sigma_const=0.1, name="tu")
+    g.connect(nz, tu, dst_port="in")
+    g.connect_chain(tu, reg.create("FirFilter", taps=(0.5, 0.3, 0.2),
+                                   uncertain=True, name="ufir"),
+                    reg.create("IirFilter", b=(0.2,), a=(1.0, -0.8),
+                               uncertain=True, name="uiir"),
+                    reg.create("VectorSink", name="uncertain"))
+    return g
+
+
+def test_acquisition_states_continue_from_jax_by_interop():
+    """Two compiled steps in JAX, the states handed across with
+    ``interop.states_from_numpy`` (the counter and the threefry key, the
+    histories, the Schmitt bool, the gate's int32 carry, the StreamFilter
+    bool, the uncertain loop states), then two steps in both packages: the
+    same state tree and leaf dtypes as the port's own, and every sink input
+    within the tolerances of ``_agree`` (the tone's sines within
+    ``CARRIER_ATOL['sync1']``)."""
+    import jax
+    from gnuradio4_tpu_torch.interop import states_from_numpy
+    bl = 4096
+    cj = gr.compile_graph(_acquisition_devices(gr), block_len=bl, sample_rate=FS)
+    ct = gt.compile_graph(_acquisition_devices(gt), block_len=bl, sample_rate=FS,
+                          device="cpu")
+    names = {bj.unique_name: bt.unique_name for bj, bt in zip(cj.order, ct.order)}
+    st_j = cj.init_states()
+    for _ in range(2):
+        st_j, _ = cj.step(st_j, cj.gather_params(), {})
+    def host(a):        # a PRNG key leaf as its key data, as the docstring asks
+        if jax.dtypes.issubdtype(a.dtype, jax.dtypes.prng_key):
+            a = jax.random.key_data(a)
+        return np.asarray(a)
+    st_t = states_from_numpy(jax.tree_util.tree_map(host, st_j), "cpu", names)
+    own = ct.init_states()
+    assert sorted(st_t) == sorted(own)
+    for k, v in own.items():
+        if isinstance(v, dict):
+            assert {kk: vv.dtype for kk, vv in st_t[k].items()} == \
+                {kk: vv.dtype for kk, vv in v.items()}, k
+        elif torch.is_tensor(v):
+            assert st_t[k].dtype == v.dtype and st_t[k].shape == v.shape, k
+    by_name = {b.unique_name: b.name for b in ct.order}
+    uname = {v: k for k, v in by_name.items()}
+    assert int(st_t[uname["fg_tone"]]) == 2 * bl
+    for _ in range(2):
+        st_j, out_j = cj.step(st_j, cj.gather_params(), {})
+        st_t, out_t = ct.step(st_t, ct.gather_params())
+    for uj, ut in names.items():
+        if uj not in out_j:
+            continue
+        got = out_t[ut]["in"].numpy()
+        want = np.asarray(out_j[uj]["in"])
+        name = by_name[ut]
+        if name == "sync1":
+            d = np.abs(got - want)
+            assert np.all(d <= CARRIER_ATOL["sync1"] * np.maximum(1, np.abs(want)))
+        elif name in ("schmitt", "TriggerGate_out", "StreamFilter_out"):
+            np.testing.assert_array_equal(got, want, err_msg=name)
+        else:
+            np.testing.assert_allclose(got, want, rtol=NORMAL_RTOL, atol=NORMAL_RTOL,
+                                       err_msg=name)
+
+
+@pytest.mark.parametrize("name", sorted(GRAPHS))
+def test_checkpoint_round_trip_jax_port_jax(tmp_path, name):
+    """JAX → port → JAX: a JAX checkpoint after 2 steps, loaded by the port
+    and saved again unrun, holds the same leaves bit for bit (dtypes too:
+    the port's int64 words go back to uint32), and the JAX package resumes
+    from it to the same steps 3–4 as an uninterrupted run."""
+    _save_after_two(gr, name, tmp_path / "jax")
+    sched = gt.load_checkpoint(tmp_path / "jax", device="cpu")
+    gt.save_checkpoint(sched, tmp_path / "port")
+    with np.load(tmp_path / "jax" / "states.npz") as a, \
+            np.load(tmp_path / "port" / "states.npz") as b:
+        assert sorted(a.files) == sorted(b.files)
+        for k in a.files:
+            assert a[k].dtype == b[k].dtype, k
+            np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+    got = _resume(gr, tmp_path / "port")
+    _agree(got, _uninterrupted(gr, name), exact=True)

@@ -347,11 +347,17 @@ def test_iir_filter_pallas_engine_on_cpu_counts_no_launch(rng):
 
 
 def test_iir_filter_uncertain_is_not_ported():
+    """The uncertain mode is ported now (tests/test_torch_uncertain.py): its
+    state is the JAX package's pair of scalar loop states {"v", "s2"}, and a
+    stream that is not the 2-plane (value, sigma) pair is refused, naming the
+    mode."""
     blk = TIirFilter(b=(1.0,), a=(1.0, -0.5), uncertain=True)
     ctx = TBlockCtx(in_len={"in": 8}, out_len={"out": 8}, sample_rate=1.0,
                     params={}, channels={"in": 0, "out": 0})
+    state = blk.init_state(ctx)
+    assert sorted(state) == ["s2", "v"] and state["v"].shape == (1,)
     with pytest.raises(GrError, match="uncertain"):
-        blk.init_state(ctx)
+        blk.apply(state, {"in": torch.zeros(8)}, ctx)
 
 
 @pytest.mark.parametrize("ch", [0, 4])

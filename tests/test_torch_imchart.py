@@ -271,12 +271,14 @@ def _monitor_run(pkg, btype, x, block_len=512, **settings):
 
 
 def test_drawable_protocol():
+    # named: an unnamed block's title is its unique name, whose counter
+    # depends on how many blocks each package built before in the process
     x = np.sin(np.linspace(0, 10, 2048)).astype(np.float32)
-    mon = _monitor_run(gt, "ImChartMonitor", x, stream="none")
+    mon = _monitor_run(gt, "ImChartMonitor", x, stream="none", name="scope")
     assert mon.is_drawable and mon.UI_CATEGORY is gt.UICategory.CONTENT
     art = mon.draw({"color": False})
     assert art and len(art.split("\n")) > 5
-    want = _monitor_run(gr, "ImChartMonitor", x, stream="none")
+    want = _monitor_run(gr, "ImChartMonitor", x, stream="none", name="scope")
     assert art == want.draw({"color": False})
     assert mon.draw() == want.draw()                      # colour, the default
     assert not gt.global_registry.create("MultiplyConst").is_drawable
