@@ -168,6 +168,21 @@ result line:
     samples a step; (d) ``fir_banded`` against its plain version at every
     shape (a) and (b) launched it with, with bound and ``F.conv1d``.
 
+26. the convolutional-FEC layer and the five remaining example flows: (a)
+    ``examples/lora_link.yaml``, ``wifi_link.yaml``, ``ble_scanner.yaml``,
+    ``ais_receiver.yaml`` and ``rtty_teletype.yaml`` by ``run_grc`` at their
+    ``meta:`` block_len and sample_rate, on the card and on the CPU: each
+    decoder's result as ``tests/test_examples.py`` asserts it, the card's
+    equal to the CPU's (floats within ``FLOW_RTOL``); ms per step by CUDA
+    events over the run, host ms per step from the profiler's spans, kernel
+    launches and torch ops per step (torch.profiler); (b) ConvEncoder →
+    ViterbiDecoder on 32 768 random bits in steps of 4096 coded bits, clean
+    (exact after the traceback) and at 5% flips (residual < 1%), and soft
+    decisions: the card's bits equal the CPU's; (c) Scrambler → Descrambler,
+    Golay and Hamming with injected flips, CssDemod at SF 7–9 in noise: the
+    card equal to the CPU and to what was sent; each new device block's
+    launches, torch ops and ms per step at 4096 samples.
+
 Phases 13–17 each print the card against the CPU on a short run of the same
 graph, Msps (coded Mbit/s for 7 and 7k), ms per step by CUDA events over 5
 windows, host ms per step, the device-busy share of one profiled step, peak
@@ -357,6 +372,20 @@ SVD_ATOL = 1e-4
 # float32 blocks, card against CPU, of max(1, |y|)
 # (tests/test_torch_misc_blocks.py's F32_ATOL)
 F32_ATOL = 1e-5
+# phase 26: the five example flows whose receivers the FEC slice ported, each
+# with its decoder, the attribute read, and the result tests/test_examples.py
+# asserts for the JAX package
+FLOWS = ("lora_link", "wifi_link", "ble_scanner", "ais_receiver", "rtty_teletype")
+# float fields of the decoded results (the Wi-Fi frame's CFO estimate),
+# card against CPU: of |x| (the estimate reads float32 samples that the two
+# devices round differently; 1.6e-8 apart between the packages on the CPU)
+FLOW_RTOL = 1e-5
+# ConvEncoder → ViterbiDecoder: bits, coded bits a step, traceback
+VIT_BITS = 32768
+VIT_BLOCK_LEN = 4096
+VIT_TB = 64
+VIT_FLIP = 0.05
+VIT_RESIDUAL_MAX = 0.01
 KERNELS = {
     "fir_banded": {
         "source": "gnuradio4_tpu_torch/csrc/fir_banded.cu",
@@ -3178,6 +3207,267 @@ def acquisition_phases(dev, card: str, paths: list, results: dict) -> None:
                   "by_sub_phase": secs})
 
 
+def same_result(a, b, rtol: float, where: str = "") -> float:
+    """Compare two decoded results (lists, tuples, dicts, bytes, strings,
+    numbers, arrays): everything exact but floats, which must agree within
+    ``rtol`` of |b|. Returns the largest relative float difference."""
+    import numpy as np
+    if isinstance(b, dict):
+        check(isinstance(a, dict) and sorted(a) == sorted(b), f"{where}: keys differ")
+        return max([same_result(a[k], b[k], rtol, f"{where}/{k}") for k in b],
+                   default=0.0)
+    if isinstance(b, (list, tuple)):
+        check(type(a) is type(b) and len(a) == len(b), f"{where}: lengths differ")
+        return max([same_result(x, y, rtol, where) for x, y in zip(a, b)],
+                   default=0.0)
+    if isinstance(b, np.ndarray):
+        check(isinstance(a, np.ndarray) and a.dtype == b.dtype
+              and np.array_equal(a, b), f"{where}: arrays differ")
+        return 0.0
+    if isinstance(b, float):
+        d = abs(a - b) / max(abs(b), 1e-30)
+        check(d <= rtol, f"{where}: {a} against {b}")
+        return d
+    check(type(a) is type(b) and a == b, f"{where}: {a!r} against {b!r}")
+    return 0.0
+
+
+def fec_flow_phases(dev, card: str, paths: list, results: dict) -> None:
+    """Phase 26: the five example flows of the FEC slice, the convolutional
+    code and the other new device blocks on the card."""
+    import numpy as np
+    import torch
+    import gnuradio4_tpu_torch as gt
+    from gnuradio4_tpu_torch.blocks import fec, lora
+    from gnuradio4_tpu_torch.core import yaml_pmt
+    from gnuradio4_tpu_torch.core.profiler import Profiler
+    from gnuradio4_tpu_torch.ops import cuda_kernels as ck
+
+    secs = {}
+    t_sub = time.perf_counter()
+
+    def lap(name: str) -> None:
+        nonlocal t_sub
+        now = time.perf_counter()
+        secs[name] = now - t_sub
+        t_sub = now
+
+    # (a) the five flows as written (their meta: block_len and sample_rate),
+    # on the card and on the CPU
+    readers = {
+        "lora_link": ("rx", lambda b: b.frames),
+        "wifi_link": ("rx", lambda b: b.frames),
+        "ble_scanner": ("scan", lambda b: (b.devices, b.packets)),
+        "ais_receiver": ("tracker", lambda b: (b.vessels, b.packets)),
+        "rtty_teletype": ("printer", lambda b: b.text),
+    }
+
+    def expected(stem, r) -> bool:
+        if stem == "lora_link":
+            return r == [b"LoRa over TPU"]
+        if stem == "wifi_link":
+            return (len(r) == 1 and r[0]["rate_mbps"] == 24 and r[0]["fcs_ok"]
+                    and r[0]["psdu"][:-4] == b"Hello from the 802.11a OFDM PHY")
+        if stem == "ble_scanner":
+            return (set(r[0]) == {"BC:9A:78:56:34:12", "05:04:03:02:01:00"}
+                    and r[0]["BC:9A:78:56:34:12"]["name"] == "GR4-TPU")
+        if stem == "ais_receiver":
+            return (set(r[0]) == {477553000, 211234560}
+                    and r[0][477553000]["nav_status"] == 5)
+        return r == "CQ CQ CQ DE GR4TPU GR4TPU K"
+
+    for stem in FLOWS:
+        text = (ROOT / "examples" / f"{stem}.yaml").read_text()
+        meta = yaml_pmt.load(text)["meta"]
+        kw = {"block_len": int(meta["block_len"]),
+              "sample_rate": float(meta["sample_rate"])}
+        name, read = readers[stem]
+        got = {}
+        for key, device in (("card", dev), ("cpu", "cpu")):
+            if key == "card":
+                ck.reset_launch_counts()
+            sched = gt.run_grc(text, scheduler_kwargs={"device": device, **kw})
+            if key == "card":
+                counts = ck.launch_counts()
+                check(sched.device.type == "cuda", f"{stem}: ran on {sched.device}")
+            got[key] = read({b.name: b for b in sched.graph.blocks}[name])
+            check(expected(stem, got[key]), f"{stem} on the {key}: {got[key]!r:.300}")
+        diff = same_result(got["card"], got["cpu"], FLOW_RTOL, stem)
+        for k in KERNELS:
+            results[k]["launches"] += counts[k]
+        # timed: CUDA events over the whole run, host spans by the profiler
+        prof = Profiler()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        sched = gt.run_grc(text, scheduler_kwargs={"device": dev, "profiler": prof,
+                                                    **kw})
+        end.record()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        steps = sched._step
+        spans: dict[str, float] = {}
+        for ev in prof.events():
+            spans[ev["name"]] = spans.get(ev["name"], 0.0) + ev["dur"] / 1e3
+        ms = start.elapsed_time(end) / steps
+        host = spans.get("scheduler.step", 0.0) / steps
+        deliver = spans.get("scheduler.deliver", 0.0) / steps
+        kernels, ops = count_ops(lambda: gt.run_grc(
+            text, scheduler_kwargs={"device": dev, **kw}))
+        per = (lambda v: None if v is None else v / steps)
+        print(f"[26a {stem}] block_len {kw['block_len']}, {steps} steps on "
+              f"{sched.device}: {got['card']!r:.160} — as tests/test_examples.py "
+              f"asserts; card equal to the CPU (floats within {diff:.2e} of |x|, "
+              f"tol {FLOW_RTOL}); {ms:.4f} ms per step (CUDA events over the run, "
+              f"{wall / steps:.4f} wall), host {host:.4f} ms per step in the pump, "
+              f"delivery {deliver:.4f}; {per(kernels)} kernel launches and "
+              f"{per(ops)} torch ops per step (torch.profiler); hand-kernel "
+              f"launches {counts} {card}")
+        paths.append({"name": f"phase 26 {stem}", "steps": steps,
+                      "block_len": kw["block_len"], "ms_per_step": ms,
+                      "wall_ms_per_step": wall / steps, "host_ms_per_step": host,
+                      "deliver_ms_per_step": deliver,
+                      "kernels_per_step": per(kernels),
+                      "torch_ops_per_step": per(ops), "float_rel_diff": diff})
+        lap(f"a {stem}")
+
+    # (b) ConvEncoder → ViterbiDecoder on VIT_BITS random bits, clean and at
+    # VIT_FLIP flips, on the card and on the CPU: bit for bit
+    rng = np.random.default_rng(SEED)
+    bits = rng.integers(0, 2, VIT_BITS).astype(np.int32)
+
+    def through(device, data, btype, **settings):
+        g = gt.Graph()
+        snk = gt.global_registry.create("VectorSink")
+        g.connect_chain(gt.global_registry.create("VectorSource", data=data),
+                        gt.global_registry.create(btype, **settings), snk)
+        gt.Scheduler(g, block_len=VIT_BLOCK_LEN, sample_rate=1e6,
+                     device=device).run_and_wait()
+        return np.asarray(snk.data())
+
+    enc_out, _ = fec._tables(7, (0o171, 0o133))
+    ref, s_reg = np.empty((VIT_BITS, 2), np.int32), 0
+    for i, b in enumerate(bits):
+        ref[i] = enc_out[s_reg, b]
+        s_reg = ((s_reg << 1) | int(b)) & 0x3F
+    coded = through(dev, bits, "ConvEncoder")[:2 * VIT_BITS]
+    check(np.array_equal(coded, ref.reshape(-1))
+          and np.array_equal(coded, through("cpu", bits, "ConvEncoder")[:2 * VIT_BITS]),
+          "ConvEncoder: the card against the bitwise encoder and the CPU")
+    for flip in (0.0, VIT_FLIP):
+        rx = coded ^ (rng.random(coded.size) < flip).astype(np.int32)
+        dec_card = through(dev, rx, "ViterbiDecoder", traceback=VIT_TB)
+        dec_cpu = through("cpu", rx, "ViterbiDecoder", traceback=VIT_TB)
+        residual = float(np.mean(dec_card[VIT_TB:VIT_BITS] != bits[:VIT_BITS - VIT_TB]))
+        print(f"[26b ConvEncoder → ViterbiDecoder] {VIT_BITS} bits, steps of "
+              f"{VIT_BLOCK_LEN} coded bits, flips {flip}: residual {residual:.5f} "
+              f"after the {VIT_TB}-bit traceback (clean: exact; flipped: < "
+              f"{VIT_RESIDUAL_MAX}); card equal to the CPU bit for bit: "
+              f"{np.array_equal(dec_card, dec_cpu)}")
+        check(np.array_equal(dec_card, dec_cpu), f"Viterbi at {flip}: card against CPU")
+        check(residual == 0.0 if flip == 0.0 else residual < VIT_RESIDUAL_MAX,
+              f"Viterbi at {flip}: residual {residual}")
+        paths.append({"name": f"phase 26 Viterbi flips {flip}", "residual": residual})
+    soft = np.clip(coded[:16384] + rng.normal(0, 0.45, 16384), 0, 1).astype(np.float32)
+    s_card = through(dev, soft, "ViterbiDecoder", soft=True, traceback=VIT_TB)
+    check(np.array_equal(s_card, through("cpu", soft, "ViterbiDecoder", soft=True,
+                                         traceback=VIT_TB)),
+          "soft Viterbi: card against CPU")
+    print(f"  soft decisions (σ 0.45, 8192 bits): card equal to the CPU bit for bit; "
+          f"residual {float(np.mean(s_card[VIT_TB:8192] != bits[:8192 - VIT_TB])):.5f}")
+    lap("b viterbi")
+
+    # (c) the scramblers, Golay, Hamming and CssDemod: card against CPU, and
+    # against what was sent
+    scr = {d: through(d, bits, "Scrambler") for d in (dev, "cpu")}
+    desc = {d: through(d, scr[d], "Descrambler") for d in (dev, "cpu")}
+    check(np.array_equal(scr[dev], scr["cpu"]) and np.array_equal(desc[dev], desc["cpu"])
+          and np.array_equal(desc[dev], bits), "Scrambler → Descrambler round trip")
+    msg = rng.integers(0, 2, 12 * 1024).astype(np.float32)
+    code = {}
+    for name, enc, dec, unit, flips, settings in (
+            ("Golay", "GolayEncoder", "GolayDecoder", 24, 3, {}),
+            ("Hamming(7,4)", "HammingEncoder", "HammingDecoder", 7, 1, {"m": 3}),
+            ("Hamming(15,11)", "HammingEncoder", "HammingDecoder", 15, 1, {"m": 4})):
+        k = {24: 12, 7: 4, 15: 11}[unit]
+        m_in = msg[:len(msg) // k * k]
+        cw = {d: through(d, m_in, enc, **settings) for d in (dev, "cpu")}
+        frames = cw[dev][:len(m_in) // k * unit].reshape(-1, unit).copy()
+        for row in frames:
+            pos = rng.choice(unit, flips, replace=False)
+            row[pos] = 1.0 - row[pos]
+        out = {d: through(d, frames.reshape(-1), dec, **settings) for d in (dev, "cpu")}
+        ok = (np.array_equal(cw[dev], cw["cpu"]) and np.array_equal(out[dev], out["cpu"])
+              and np.array_equal(out[dev][:len(m_in)], m_in))
+        code[name] = ok
+        check(ok, f"{name}: {flips} flips a frame, card against CPU and the message")
+    css = {}
+    for sf in (7, 8, 9):
+        syms = lora.encode_payload(b"CSS ON THE CARD", sf, 4)
+        x = np.concatenate([lora.css_symbol(int(v), sf) for v in syms])
+        x = np.concatenate([x, np.zeros((-len(x)) % (16 << sf), np.complex64)])
+        x = (x + 0.3 * (rng.standard_normal(len(x)) + 1j * rng.standard_normal(len(x)))
+             ).astype(np.complex64)
+        g_out = {}
+        for d in (dev, "cpu"):
+            g = gt.Graph()
+            snk = gt.global_registry.create("VectorSink")
+            g.connect_chain(gt.global_registry.create("VectorSource", data=x),
+                            gt.global_registry.create("CssDemod", sf=sf), snk)
+            gt.Scheduler(g, block_len=4 << sf, sample_rate=1e6, device=d).run_and_wait()
+            g_out[d] = np.asarray(snk.data())
+        css[sf] = (np.array_equal(g_out[dev], g_out["cpu"])
+                   and np.array_equal(g_out[dev][:len(syms)], syms))
+        check(css[sf], f"CssDemod SF {sf}: card against CPU and the sent symbols")
+    print(f"[26c] Scrambler → Descrambler: {VIT_BITS} bits back, card equal to the "
+          f"CPU; codes with injected flips decode to the message, card equal to the "
+          f"CPU: {code}; CssDemod symbols at 0.3 noise equal to the CPU's and to the "
+          f"sent ones: {css}")
+    lap("c blocks")
+
+    # each new device block's launches, torch ops and ms per step at 4096
+    # samples (CssDemod: 16 frames of SF 8)
+    def ints(n):
+        return torch.from_numpy(rng.integers(0, 2, n).astype(np.int32)).to(dev)
+
+    def f01(n):
+        return ints(n).to(torch.float32)
+
+    reg = gt.global_registry
+    x_css = torch.from_numpy(np.concatenate([lora.css_symbol(int(v), 8)
+                                             for v in range(16)])).to(dev)
+    costs = (("ConvEncoder", reg.create("ConvEncoder"), {"in": ints(VIT_BLOCK_LEN)}),
+             ("ViterbiDecoder", reg.create("ViterbiDecoder", traceback=VIT_TB),
+              {"in": ints(VIT_BLOCK_LEN)}),
+             ("ViterbiDecoder soft", reg.create("ViterbiDecoder", soft=True,
+                                                traceback=VIT_TB),
+              {"in": f01(VIT_BLOCK_LEN)}),
+             ("Scrambler", reg.create("Scrambler"), {"in": ints(VIT_BLOCK_LEN)}),
+             ("Descrambler", reg.create("Descrambler"), {"in": ints(VIT_BLOCK_LEN)}),
+             ("GolayEncoder", reg.create("GolayEncoder"), {"in": f01(4092)}),
+             ("GolayDecoder", reg.create("GolayDecoder"), {"in": f01(4104)}),
+             ("HammingEncoder", reg.create("HammingEncoder"), {"in": f01(4096)}),
+             ("HammingDecoder", reg.create("HammingDecoder"), {"in": f01(4095)}),
+             ("CssDemod", reg.create("CssDemod", sf=8), {"in": x_css}))
+    for label, b, ins in costs:
+        kernels, ops, ms_b, hand = block_cost(dev, b, ins)
+        n_in = next(iter(ins.values())).shape[-1]
+        per_launch = "" if not kernels else f" ({ms_b / kernels * 1e3:.2f} µs a launch)"
+        print(f"[26 step cost] {label} on {n_in} samples: {kernels} kernel launches "
+              f"seen by torch.profiler ({hand} hand-kernel launches), {ops} torch "
+              f"ops, {ms_b:.3f} ms per step{per_launch}")
+        paths.append({"name": f"phase 26 {label}", "samples": n_in,
+                      "kernels_per_step": kernels, "hand_kernel_launches": hand,
+                      "torch_ops_per_step": ops, "ms_per_step": ms_b})
+    lap("step costs")
+    print(f"[26 seconds] wall s by sub-phase {({k: round(v, 2) for k, v in secs.items()})}"
+          f"; phase 26 {sum(secs.values()):.1f} s")
+    paths.append({"name": "phase 26 seconds", "seconds": sum(secs.values()),
+                  "by_sub_phase": secs})
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3964,6 +4254,7 @@ def main() -> int:
     modem_phases(dev, paths, results)
     carrier_phases(dev, paths, results)
     acquisition_phases(dev, card, paths, results)
+    fec_flow_phases(dev, card, paths, results)
 
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "share_of_bound", "library_ms")

@@ -4,6 +4,7 @@ and a modem graph (a ChannelModel into an OFDM demodulator and
 pilot equalizer, whose states hold a threefry key, a uint32 phase and a bool)
 and a carrier graph (every stateful block of the carrier-recovery slice)
 and an acquisition graph (every stateful block of the acquisition slice)
+and a FEC graph (ConvEncoder → soft ViterbiDecoder, Scrambler → Descrambler)
 run 2 steps, are saved, and resume for 2 more — JAX → port, port → JAX and
 port → port — against steps 3–4 of an uninterrupted run; and a checkpoint
 whose state tree differs from the block's is refused, naming the key.
@@ -13,7 +14,8 @@ Tolerances: port → port bitwise; across packages the chain's spectra within
 the uniform noise bit for bit, the Gaussian noise within 1e-5 of max(1, |x|)
 (torch's erfinv against XLA's), the carrier graph's sinks within
 ``CARRIER_ATOL`` (each block's parity tolerance) with the squelch's gate
-exact, and the restored threefry keys equal."""
+exact, the FEC graph's bits bit for bit, and the restored threefry keys
+equal."""
 
 import json
 from importlib import import_module
@@ -167,8 +169,39 @@ def _acquisition(pkg):
     return g
 
 
+def _fec(pkg):
+    """Uniform threefry noise (bit for bit in both packages) thresholded to
+    int32 bits → ConvEncoder → the coded bits as floats plus uniform noise →
+    ViterbiDecoder(soft=True) (float32 metrics and an int32 decision tail);
+    the bits → Scrambler → Descrambler (int32 registers)."""
+    g = pkg.Graph(name="fec")
+    reg = pkg.global_registry
+    bits = reg.create("Convert", to="int32", name="bits")
+    g.connect_chain(reg.create("NoiseSource", noise="uniform", seed=11, name="nb"),
+                    reg.create("Threshold", level=0.0, name="thr"), bits)
+    enc = reg.create("ConvEncoder", name="enc")
+    add = reg.create("Add", n_inputs=2, name="noisy")
+    g.connect(bits, enc)
+    g.connect(enc, reg.create("VectorSink", name="coded"))
+    cf = reg.create("Convert", to="float32", name="cf")
+    g.connect(enc, cf)
+    g.connect(cf, add["in0"])
+    g.connect(reg.create("NoiseSource", noise="uniform", std=0.3, seed=12,
+                         name="nc"), add["in1"])
+    g.connect_chain(add, reg.create("ViterbiDecoder", soft=True, name="vit"),
+                    reg.create("VectorSink", name="decoded"))
+    scr = reg.create("Scrambler", name="scr")
+    g.connect(bits, scr)
+    g.connect(scr, reg.create("VectorSink", name="scrambled"))
+    g.connect_chain(scr, reg.create("Descrambler", seed=0x15, name="dscr"),
+                    reg.create("VectorSink", name="descrambled"))
+    return g
+
+
 GRAPHS = {"chain": _chain, "noise": _noise, "modem": _modem, "carrier": _carrier,
-          "acquisition": _acquisition}
+          "acquisition": _acquisition, "fec": _fec}
+# the FEC graph's sinks: bits, equal across packages
+FEC_EXACT = ("coded", "decoded", "scrambled", "descrambled")
 # the acquisition slice's sinks that copy or gate the bit-exact uniform noise,
 # and the Schmitt gate: equal across packages
 ACQ_EXACT = ("gated", "filtered", "sync0", "schmitt")
@@ -190,10 +223,13 @@ CARRIER_ATOL["sync1"] = 1e-5 + float(np.spacing(np.float32(
     2 * np.pi * 3e4 * 4 * BLOCK_LEN / FS)))
 
 
+def _block_len(name):
+    return CARRIER_BLOCK_LEN if name in ("carrier", "fec") else BLOCK_LEN
+
+
 def _sched(pkg, g):
     kw = {"device": "cpu"} if pkg is gt else {}
-    block_len = CARRIER_BLOCK_LEN if g.name == "carrier" else BLOCK_LEN
-    return pkg.Scheduler(g, block_len=block_len, sample_rate=FS, **kw)
+    return pkg.Scheduler(g, block_len=_block_len(g.name), sample_rate=FS, **kw)
 
 
 def _sinks(sched):
@@ -227,7 +263,7 @@ def _agree(got, want, exact=False):
     for k in want:
         g_, w = got[k], want[k]
         assert g_.shape == w.shape and g_.dtype == w.dtype, k
-        if exact or k == "uniform" or k in ACQ_EXACT:
+        if exact or k == "uniform" or k in ACQ_EXACT or k in FEC_EXACT:
             np.testing.assert_array_equal(g_, w, err_msg=k)
         elif k == "spec":
             assert np.max(np.abs(g_ - w)) <= SPEC_RTOL * np.max(np.abs(w))
@@ -249,8 +285,7 @@ def _agree(got, want, exact=False):
 def test_checkpoint_resumes(tmp_path, name, writer, reader):
     _save_after_two(writer, name, tmp_path)
     meta = json.loads((tmp_path / "meta.json").read_text())
-    assert meta["step"] == 2 and meta["block_len"] == (
-        CARRIER_BLOCK_LEN if name == "carrier" else BLOCK_LEN)
+    assert meta["step"] == 2 and meta["block_len"] == _block_len(name)
     got = _resume(reader, tmp_path)
     want = _uninterrupted(writer if reader is gt and writer is gt else gr, name)
     _agree(got, want, exact=writer is reader)
@@ -443,3 +478,53 @@ def test_checkpoint_round_trip_jax_port_jax(tmp_path, name):
             np.testing.assert_array_equal(a[k], b[k], err_msg=k)
     got = _resume(gr, tmp_path / "port")
     _agree(got, _uninterrupted(gr, name), exact=True)
+
+
+def test_fec_states_continue_from_jax_by_interop():
+    """Two compiled steps of ``_fec`` in JAX, the states handed across with
+    ``interop.states_from_numpy``: the decoder's float32 ``metrics`` and
+    int32 ``tail_dec``, the encoder's and scramblers' int32 registers and the
+    noise keys arrive with the port's own dtypes and shapes and equal
+    values; then two steps in both packages give the same bits."""
+    import jax
+    from gnuradio4_tpu_torch.interop import states_from_numpy
+    bl = 1024
+    cj = gr.compile_graph(_fec(gr), block_len=bl, sample_rate=FS)
+    ct = gt.compile_graph(_fec(gt), block_len=bl, sample_rate=FS, device="cpu")
+    names = {bj.unique_name: bt.unique_name for bj, bt in zip(cj.order, ct.order)}
+    st_j = cj.init_states()
+    for _ in range(2):
+        st_j, _ = cj.step(st_j, cj.gather_params(), {})
+
+    def host(a):
+        if jax.dtypes.issubdtype(a.dtype, jax.dtypes.prng_key):
+            a = jax.random.key_data(a)
+        return np.asarray(a)
+    np_j = jax.tree_util.tree_map(host, st_j)
+    st_t = states_from_numpy(np_j, "cpu", names)
+    own = ct.init_states()
+    uname = {b.name: b.unique_name for b in ct.order}
+    jname = {b.name: b.unique_name for b in cj.order}
+    vit = st_t[uname["vit"]]
+    assert sorted(vit) == sorted(own[uname["vit"]]) == ["metrics", "tail_dec"]
+    for leaf, dt, shape in (("metrics", torch.float32, (64,)),
+                            ("tail_dec", torch.int32, (64, 64))):
+        assert vit[leaf].dtype == own[uname["vit"]][leaf].dtype == dt
+        assert tuple(vit[leaf].shape) == shape
+        np.testing.assert_array_equal(vit[leaf].numpy(), np_j[jname["vit"]][leaf])
+    assert vit["tail_dec"].any() and float(vit["metrics"].min()) == 0.0
+    for blk in ("enc", "scr", "dscr"):
+        assert st_t[uname[blk]].dtype == own[uname[blk]].dtype == torch.int32
+        assert int(st_t[uname[blk]]) == int(np_j[jname[blk]])
+    for _ in range(2):
+        st_j, out_j = cj.step(st_j, cj.gather_params(), {})
+        st_t, out_t = ct.step(st_t, ct.gather_params())
+    by_name = {b.unique_name: b.name for b in ct.order}
+    seen = set()
+    for uj, ut in names.items():
+        if uj in out_j:
+            got, want = out_t[ut]["in"].numpy(), np.asarray(out_j[uj]["in"])
+            assert got.dtype == want.dtype
+            np.testing.assert_array_equal(got, want, err_msg=by_name[ut])
+            seen.add(by_name[ut])
+    assert seen == set(FEC_EXACT)

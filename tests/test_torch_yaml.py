@@ -30,9 +30,10 @@ torch.set_num_threads(2)
 
 ROOT = Path(__file__).resolve().parent.parent
 EXAMPLES = sorted((ROOT / "examples").glob("*.yaml"))
-# the examples whose every block type the port registers
-PORTED_EXAMPLES = ("agc_loop", "channelizer", "coded_link", "fm_receiver",
-                   "rds_receiver", "spectrum_analyzer")
+# the examples whose every block type the port registers: all of them
+PORTED_EXAMPLES = ("agc_loop", "ais_receiver", "ble_scanner", "channelizer",
+                   "coded_link", "fm_receiver", "lora_link", "rds_receiver",
+                   "rtty_teletype", "spectrum_analyzer", "wifi_link")
 
 # every document tests/test_yaml_pmt_golden.py loads
 GOLDEN = {
@@ -332,16 +333,24 @@ def _graph_summary(g):
 
 @pytest.mark.parametrize("path", EXAMPLES, ids=[p.stem for p in EXAMPLES])
 def test_load_grc_of_the_examples(path):
+    assert path.stem in PORTED_EXAMPLES
     text = path.read_text()
-    if path.stem in PORTED_EXAMPLES:
-        assert _graph_summary(gt.load_grc(text)) == _graph_summary(gr.load_grc(text))
-        return
+    assert _graph_summary(gt.load_grc(text)) == _graph_summary(gr.load_grc(text))
+
+
+@pytest.mark.parametrize("stem", ["lora_link", "rtty_teletype"])
+def test_load_grc_of_an_unregistered_type_raises(stem):
+    """An example with one block's id changed to a type that neither package
+    registers: both refuse it with the registry's message naming the type."""
+    text = (ROOT / "examples" / f"{stem}.yaml").read_text()
     doc = jy.load(text)
-    missing = [b["id"] for b in doc["blocks"]
-               if not gt.global_registry.contains(b["id"])]
-    assert missing
-    with pytest.raises(GrError, match=f"unknown block type {missing[0]!r}"):
+    first = doc["blocks"][0]["id"]
+    text = text.replace(f"id: {first}", "id: NoSuchReceiver", 1)
+    assert not gt.global_registry.contains("NoSuchReceiver")
+    with pytest.raises(GrError, match="unknown block type 'NoSuchReceiver'"):
         gt.load_grc(text)
+    with pytest.raises(JGrError, match="unknown block type 'NoSuchReceiver'"):
+        gr.load_grc(text)
 
 
 def test_feedback_edge_loads_and_compiling_it_raises():
