@@ -183,6 +183,32 @@ result line:
     card equal to the CPU and to what was sent; each new device block's
     launches, torch ops and ms per step at 4096 samples.
 
+27. GNSS acquisition and tracking, the CCSDS link, polar codes, the six host
+    receivers and CVSD: (a) the GPS L1 C/A cold-start sky search at
+    GnssAcquisition's widths (PRNs 1–32, ±5 kHz in 250 Hz bins, 2 blocks of
+    1 ms) on six satellites at σ 2.0 through VectorSource → GnssAcquisition
+    (block_len 2046), card and CPU: exactly those six, each code phase
+    exact and Doppler within one bin, the card equal to the CPU;
+    ``acquire_all`` (the [32, 41, 2, 2046] batch) and the search program
+    alone timed with their bound, and the sink's 32 sequential ``acquire``
+    calls; (b) the six with 50 bps nav bits over 300 ms through
+    ``track_channels``: every channel's bits as tests/test_gnss.py's cycle
+    rule wants, the card's bits equal to the CPU's, ms and launches per
+    1 ms block; (c) the CCSDS concatenated link of tests/test_ccsds.py at
+    interleave 4 (frames == [payload], card equal to the CPU), and RsEncoder
+    → 8 codewords with 16 byte errors and one with 17 → RsDecoder (128
+    corrected, 1 failed), with the host ms of the codec and the ms of its
+    step; (d) polar N 256, K 128 at σ 0.65 on 64 frames: PolarEncoder on the
+    card equal to ``polar_encode``, the decoded bits equal to the sent ones,
+    ms per step and the SC walk's host ms; (e) the six host receivers
+    (802.15.4, ADS-B, POCSAG, APT, DCF77, WEFAX) through their JAX tests'
+    graphs, rates and block lengths on the card and the CPU, each asserting
+    what its JAX test asserts: ms per step against the signal a step
+    carries, host ms, launches; (f) CVSD at 16 kS/s, 4 steps of 4096 samples
+    of band-limited noise: SNR > 10 dB, the card's bits equal to the CPU's,
+    the audio within 1e-6; launches a sample and ms per step against the
+    256 ms of audio a step carries. No hand kernel lies on these paths.
+
 Phases 13–17 each print the card against the CPU on a short run of the same
 graph, Msps (coded Mbit/s for 7 and 7k), ms per step by CUDA events over 5
 windows, host ms per step, the device-busy share of one profiled step, peak
@@ -386,6 +412,48 @@ VIT_BLOCK_LEN = 4096
 VIT_TB = 64
 VIT_FLIP = 0.05
 VIT_RESIDUAL_MAX = 0.01
+# phase 27: the GPS L1 C/A search at GnssAcquisition's widths (PRNs 1–32,
+# ±5 kHz in 250 Hz bins, 2 blocks of 1 ms) on six satellites (PRN, Doppler
+# Hz, code phase) at tests/test_gnss.py:42-51's SNR; detections exact but
+# the Doppler (within one bin) and the metric, card against CPU (a ratio of
+# two float32 surface values: tests/test_torch_gnss.py's METRIC_RTOL)
+GNSS_FS = 2.046e6
+GNSS_SATS = ((3, -3750.0, 100), (7, 1800.0, 300), (11, 2400.0, 42),
+             (22, -3250.0, 1501), (29, -1000.0, 1999), (31, 4250.0, 777))
+GNSS_N_MS = 4
+GNSS_NOISE = 2.0
+GNSS_BLOCK_LEN = 2046
+GNSS_DOPPLER_STEP = 250.0
+GNSS_METRIC_RTOL = 1e-4
+# the tracking bank: NAV1 and NAV2 of tests/test_gnss.py:93-95, alternating
+GNSS_NAV = ((1, 0, 1, 1, 0, 0, 1, 0), (0, 1, 1, 0, 1, 0, 0, 1))
+GNSS_TRACK_MS = 300
+GNSS_TRACK_NOISE = 1.0
+# the CCSDS link of tests/test_ccsds.py:100-127 at interleave 4; RS codewords
+# with t = 16 byte errors each, and one more with 17
+CCSDS_INTERLEAVE = 4
+CCSDS_FLIPS = 0.02
+RS_CODEWORDS = 8
+RS_ERRORS = 16
+# tests/test_polar.py:99-116's code and channel, 64 frames
+POLAR_N = 256
+POLAR_K = 128
+POLAR_SIGMA = 0.65
+POLAR_FRAMES = 64
+# APT images behind a discriminator, card against CPU (tests/
+# test_torch_receivers.py's APT_ATOL)
+APT_ATOL = 1e-4
+# CVSD at 16 kS/s (MIL-STD-188-113's 16 kbit/s), 4 steps of 4096 samples of
+# noise low-passed at CVSD_BAND; the encoder's launches are counted on
+# CVSD_PROFILE samples; audio card against CPU (tests/
+# test_torch_vocoder_tensor.py's AUDIO_ATOL)
+CVSD_FS = 16000.0
+CVSD_BAND = 300.0
+CVSD_STEPS = 4
+CVSD_BLOCK_LEN = 4096
+CVSD_SNR_DB = 10.0
+CVSD_AUDIO_ATOL = 1e-6
+CVSD_PROFILE = 512
 KERNELS = {
     "fir_banded": {
         "source": "gnuradio4_tpu_torch/csrc/fir_banded.cu",
@@ -3468,6 +3536,537 @@ def fec_flow_phases(dev, card: str, paths: list, results: dict) -> None:
                   "by_sub_phase": secs})
 
 
+def bits_match_cycle(bits, nav) -> bool:
+    """tests/test_gnss.py's rule: the recovered bits are (1 − nav) up to the
+    cycle's offset and the Costas loop's polarity."""
+    import numpy as np
+    exp = np.tile(nav, 30)
+    for off in range(len(nav)):
+        for pol in (0, 1):
+            if np.array_equal(exp[off:off + len(bits)] ^ pol, 1 - bits):
+                return True
+    return False
+
+
+def timed_run(dev, run, steps_of):
+    """One call of ``run(device, profiler)`` on the card, timed: (ms per step
+    by CUDA events over the call, host ms per step in the pump's
+    ``scheduler.step`` spans, delivery ms per step, steps, the call's
+    result)."""
+    import torch
+    from gnuradio4_tpu_torch.core.profiler import Profiler
+    prof = Profiler()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = run(dev, prof)
+    end.record()
+    torch.cuda.synchronize()
+    steps = max(1, steps_of(out))
+    spans: dict[str, float] = {}
+    for ev in prof.events():
+        spans[ev["name"]] = spans.get(ev["name"], 0.0) + ev["dur"] / 1e3
+    return (start.elapsed_time(end) / steps, spans.get("scheduler.step", 0.0) / steps,
+            spans.get("scheduler.deliver", 0.0) / steps, steps, out)
+
+
+def gnss_coding_phases(dev, card: str, paths: list, results: dict) -> None:
+    """Phase 27: GPS acquisition and tracking, the CCSDS link with its RS
+    host call, polar codes, the six host receivers and CVSD on the card."""
+    import numpy as np
+    import torch
+    import gnuradio4_tpu_torch as gt
+    from gnuradio4_tpu_torch.blocks import (adsb, apt, dcf77, fec, pocsag,
+                                            reed_solomon, wefax)
+    from gnuradio4_tpu_torch.ops import cuda_kernels as ck
+    from gnuradio4_tpu_torch.ops import gnss, polar
+
+    secs = {}
+    t_sub = time.perf_counter()
+
+    def lap(name: str) -> None:
+        nonlocal t_sub
+        now = time.perf_counter()
+        secs[name] = now - t_sub
+        t_sub = now
+
+    reg = gt.global_registry
+    ck.reset_launch_counts()
+
+    def sched(g, device, block_len, fs, profiler=None):
+        kw = {} if profiler is None else {"profiler": profiler}
+        return gt.Scheduler(g, block_len=block_len, sample_rate=fs, device=device,
+                            **kw)
+
+    # (a) the cold-start sky search at GnssAcquisition's own widths: PRNs
+    # 1–32, ±5 kHz in 250 Hz bins, 2 blocks of 1 ms summed
+    rng = np.random.default_rng(SEED)
+    sig = gnss.synthesize(GNSS_SATS, fs=GNSS_FS, n_ms=GNSS_N_MS,
+                          noise_std=GNSS_NOISE, rng=rng)
+    found = {}
+    for key, device in (("card", dev), ("cpu", "cpu")):
+        g = gt.Graph()
+        acq = reg.create("GnssAcquisition", sample_rate_in=GNSS_FS)
+        g.connect(reg.create("VectorSource", data=sig), acq)
+        sched(g, device, GNSS_BLOCK_LEN, GNSS_FS).run_and_wait()
+        found[key] = acq.detections
+    truth = {p: (d, c) for p, d, c in GNSS_SATS}
+    det = {d["prn"]: d for d in found["card"]}
+    print(f"[27a GPS sky search] {len(truth)} satellites at noise σ {GNSS_NOISE}, "
+          f"{GNSS_N_MS} ms, block_len {GNSS_BLOCK_LEN}: detected "
+          f"{[(d['prn'], d['code_phase'], d['doppler'], round(d['metric'], 2)) for d in found['card']]}"
+          f" (truth {sorted(truth.items())}) {card}")
+    check(sorted(det) == sorted(truth), f"GPS: detected PRNs {sorted(det)}")
+    for prn, (dopp, phase) in truth.items():
+        check(det[prn]["code_phase"] == phase
+              and abs(det[prn]["doppler"] - dopp) <= GNSS_DOPPLER_STEP,
+              f"GPS PRN {prn}: {det[prn]} against ({dopp}, {phase})")
+    check([(d["prn"], d["code_phase"], d["doppler"]) for d in found["card"]]
+          == [(d["prn"], d["code_phase"], d["doppler"]) for d in found["cpu"]]
+          and all(abs(a["metric"] - b["metric"]) <= GNSS_METRIC_RTOL * b["metric"]
+                  for a, b in zip(found["card"], found["cpu"])),
+          f"GPS: card {found['card']} against CPU {found['cpu']}")
+    iq = torch.from_numpy(sig[:2 * GNSS_BLOCK_LEN]).to(dev)
+    sky = gnss.acquire_all(iq, fs=GNSS_FS, device=dev)
+    check([(d["prn"], d["code_phase"], d["doppler"]) for d in sky]
+          == [(d["prn"], d["code_phase"], d["doppler"]) for d in found["card"]],
+          f"GPS: acquire_all {sky} against the sink's {found['card']}")
+    # the search program alone (the [P, D, K, N] batch, no read-back) and
+    # acquire_all with its read-back of [P] numbers, CUDA events
+    dopplers = torch.from_numpy(gnss.doppler_grid(5000.0, GNSS_DOPPLER_STEP)).to(dev)
+    codes = torch.from_numpy(np.stack([gnss.sampled_code(p, GNSS_FS, GNSS_BLOCK_LEN)
+                                       for p in range(1, 33)])).to(dev)
+    prog_ms = cuda_ms(lambda: gnss.acquire_metric(iq, codes, dopplers, fs=GNSS_FS,
+                                                  n_coherent=2))
+    all_ms, _ = events_ms_per_step(
+        lambda: gnss.acquire_all(iq, fs=GNSS_FS, device=dev), 1, windows=10)
+    seq_ms, _ = events_ms_per_step(
+        lambda: [gnss.acquire(iq, p, fs=GNSS_FS, device=dev) for p in range(1, 33)],
+        1, windows=3)
+    n_d, n_bins = dopplers.numel(), 32 * dopplers.numel() * 2 * GNSS_BLOCK_LEN
+    # bound: the IQ read and the [P, D, N] surface written once; the inverse
+    # FFTs' 5·N·log2 N flops each, and the products
+    s_bytes = iq.numel() * 8 + 32 * n_d * GNSS_BLOCK_LEN * 4
+    s_flops = (32 * n_d * 2) * 5 * GNSS_BLOCK_LEN * math.log2(GNSS_BLOCK_LEN) \
+        + n_bins * 6
+    b_ms, b_by = bound_ms(s_flops, s_bytes)
+    print(f"  acquire_all: {all_ms:.4f} ms (CUDA events, median of 10; the [32, "
+          f"{n_d}, 2, {GNSS_BLOCK_LEN}] complex64 batch, {n_bins * 8 / 1e6:.1f} MB an "
+          f"operand, and 32 × 4 numbers read back); the search program alone "
+          f"{prog_ms:.4f} ms (bound {b_ms:.5f} ms by {b_by}: IQ in, surfaces out, "
+          f"the inverse FFTs); the sink's 32 sequential acquire calls "
+          f"{seq_ms:.4f} ms {card}")
+    paths.append({"name": "phase 27 GPS sky search", "acquire_all_ms": all_ms,
+                  "program_ms": prog_ms, "program_bound_ms": b_ms,
+                  "bound_by": b_by, "sequential_acquire_ms": seq_ms,
+                  "detections": [(d["prn"], d["code_phase"], d["doppler"])
+                                 for d in found["card"]]})
+    del iq, codes, sky
+    lap("a sky search")
+
+    # (b) the tracking bank: the six satellites with 50 bps nav bits
+    sats = [s + (GNSS_NAV[i % 2],) for i, s in enumerate(GNSS_SATS)]
+    sig = gnss.synthesize(sats, fs=GNSS_FS, n_ms=GNSS_TRACK_MS,
+                          noise_std=GNSS_TRACK_NOISE, rng=rng)
+    acqs = gnss.acquire_all(sig[:2 * GNSS_BLOCK_LEN], fs=GNSS_FS, device=dev)
+    check([a["prn"] for a in acqs] == [s[0] for s in GNSS_SATS],
+          f"tracking: acquisitions {acqs}")
+    sig_t = torch.from_numpy(sig).to(dev)
+    trk = []
+    for _ in range(2):       # the first call loads the loop's kernels
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        chans = gnss.track_channels(sig_t, acqs, fs=GNSS_FS, device=dev)
+        end.record()
+        torch.cuda.synchronize()
+        trk.append(start.elapsed_time(end) / GNSS_TRACK_MS)
+    trk_cold, trk_ms = trk
+    chans_cpu = gnss.track_channels(sig, acqs, fs=GNSS_FS, device="cpu")
+    kernels, ops = count_ops(lambda: gnss.track_channels(sig_t, acqs, fs=GNSS_FS,
+                                                         device=dev))
+    for c, c_cpu, s in zip(chans, chans_cpu, sats):
+        check(bits_match_cycle(c["bits"], s[3]), f"PRN {c['prn']}: bits {c['bits']}")
+        check(np.array_equal(c["bits"], c_cpu["bits"]),
+              f"PRN {c['prn']}: card bits {c['bits']} against CPU {c_cpu['bits']}")
+    dfreq = max(float(np.max(np.abs(c["doppler"] - d["doppler"])))
+                for c, d in zip(chans, chans_cpu))
+    per = (lambda v: None if v is None else v / GNSS_TRACK_MS)
+    print(f"[27b tracking bank] {len(chans)} channels over {GNSS_TRACK_MS} ms: "
+          f"{[len(c['bits']) for c in chans]} nav bits each, every channel's bits "
+          f"match its cycle, card equal to the CPU (frequencies within {dfreq:.2e} "
+          f"Hz); {trk_ms:.4f} ms per 1 ms block (CUDA events over the second "
+          f"track_channels call; the first, which loads the kernels, {trk_cold:.4f}; "
+          f"real time at < 1), {per(kernels)} kernel launches and {per(ops)} torch "
+          f"ops per block (torch.profiler) {card}")
+    paths.append({"name": "phase 27 tracking bank", "channels": len(chans),
+                  "ms_per_block": trk_ms, "first_call_ms_per_block": trk_cold,
+                  "kernels_per_block": per(kernels),
+                  "torch_ops_per_block": per(ops), "freq_diff_hz": dfreq})
+    del sig_t
+    lap("b tracking")
+
+    # (c) the CCSDS concatenated link at interleave 4, and RS alone
+    payload = bytes(rng.integers(0, 256, 223 * CCSDS_INTERLEAVE).tolist())
+
+    def coded_bits(device):
+        g = gt.Graph()
+        snk = reg.create("VectorSink")
+        g.connect_chain(reg.create("CcsdsFramer", payload=payload,
+                                   interleave=CCSDS_INTERLEAVE),
+                        reg.create("Convert", to="int32"), reg.create("ConvEncoder"),
+                        snk)
+        sched(g, device, 2048, 1e6).run_and_wait()
+        return np.asarray(snk.data()).astype(np.int32)
+
+    coded = coded_bits(dev)
+    check(np.array_equal(coded, coded_bits("cpu")), "CCSDS: coded bits card against CPU")
+    rx = np.concatenate([coded ^ (rng.random(len(coded)) < CCSDS_FLIPS).astype(np.int32),
+                         np.zeros(2 * VIT_TB, np.int32)])
+
+    def deframe(device, profiler=None):
+        g = gt.Graph()
+        dec = reg.create("CcsdsDeframer", interleave=CCSDS_INTERLEAVE)
+        g.connect_chain(reg.create("VectorSource", data=rx),
+                        reg.create("ViterbiDecoder", traceback=VIT_TB),
+                        reg.create("Convert", to="float32"), dec)
+        s = sched(g, device, 2048, 1e6, profiler)
+        s.run_and_wait()
+        return s, dec
+
+    ms_c, host_c, _, steps_c, (_, dec) = timed_run(dev, deframe, lambda o: o[0]._step)
+    _, dec_cpu = deframe("cpu")
+    check(dec.frames == [payload] and dec_cpu.frames == dec.frames
+          and dec.n_corrected == dec_cpu.n_corrected,
+          f"CCSDS: frames {len(dec.frames)} (corrected {dec.n_corrected}) against "
+          f"the CPU's {len(dec_cpu.frames)} ({dec_cpu.n_corrected})")
+    print(f"[27c CCSDS link] {len(payload)} payload bytes, interleave "
+          f"{CCSDS_INTERLEAVE}: framer → ConvEncoder → {CCSDS_FLIPS:.0%} flips → "
+          f"ViterbiDecoder(traceback {VIT_TB}) → deframer: frames == [payload], "
+          f"{dec.n_corrected} RS symbols corrected, card equal to the CPU; "
+          f"{ms_c:.3f} ms per step of 2048 coded bits (host {host_c:.3f}) {card}")
+    # RS: 8 codewords with 16 byte errors each and one with 17
+    data = rng.integers(0, 256, (RS_CODEWORDS + 1) * 223).astype(np.float32)
+    rs_out = {}
+    for key, device in (("card", dev), ("cpu", "cpu")):
+        g = gt.Graph()
+        snk = reg.create("VectorSink")
+        g.connect_chain(reg.create("VectorSource", data=data), reg.create("RsEncoder"),
+                        snk)
+        sched(g, device, (RS_CODEWORDS + 1) * 223, 1e6).run_and_wait()
+        rs_out[key] = np.asarray(snk.data())
+    check(np.array_equal(rs_out["card"], rs_out["cpu"]), "RsEncoder: card against CPU")
+    cws = rs_out["card"].astype(np.int64).reshape(-1, 255)
+    for i, cw in enumerate(cws):
+        ne = RS_ERRORS + (i == RS_CODEWORDS)
+        pos = rng.choice(255, ne, replace=False)
+        cw[pos] ^= rng.integers(1, 256, ne)
+    noisy = cws.reshape(-1).astype(np.float32)
+    got = {}
+    for key, device in (("card", dev), ("cpu", "cpu")):
+        g = gt.Graph()
+        snk = reg.create("VectorSink")
+        rsd = reg.create("RsDecoder")
+        g.connect_chain(reg.create("VectorSource", data=noisy), rsd, snk)
+        sched(g, device, len(noisy), 1e6).run_and_wait()
+        got[key] = (np.asarray(snk.data()), rsd.n_corrected, rsd.n_failed)
+    out, n_corr, n_fail = got["card"]
+    check(n_corr == RS_CODEWORDS * RS_ERRORS and n_fail == 1
+          and np.array_equal(out[:RS_CODEWORDS * 223], data[:RS_CODEWORDS * 223]),
+          f"RsDecoder: n_corrected {n_corr}, n_failed {n_fail}")
+    check(np.array_equal(out, got["cpu"][0]) and got["cpu"][1:] == (n_corr, n_fail),
+          "RsDecoder: card against CPU")
+    rsd = reg.create("RsDecoder")
+    x_rs = torch.from_numpy(noisy).to(dev)
+    host_rs = []
+
+    def timed_decode(a):
+        t0 = time.perf_counter()
+        y = rsd._decode_np(a)
+        host_rs.append((time.perf_counter() - t0) * 1e3)
+        return y
+
+    rs_step_ms, _ = events_ms_per_step(
+        lambda: reed_solomon.host_call(timed_decode, x_rs), 1, windows=5)
+    print(f"  RsEncoder → {RS_CODEWORDS} × {RS_ERRORS} + 1 × {RS_ERRORS + 1} byte errors "
+          f"→ RsDecoder: n_corrected {n_corr}, n_failed {n_fail}, card equal to the "
+          f"CPU; the decoder's step (host call: one copy out, the codec, one copy "
+          f"in) {rs_step_ms:.3f} ms, of it the codec on the host "
+          f"{statistics.median(host_rs):.3f} ms, for {RS_CODEWORDS + 1} codewords {card}")
+    paths.append({"name": "phase 27 CCSDS", "ms_per_step": ms_c, "host_ms_per_step": host_c,
+                  "steps": steps_c, "n_corrected": dec.n_corrected,
+                  "rs_step_ms": rs_step_ms, "rs_host_ms": statistics.median(host_rs)})
+    lap("c ccsds")
+
+    # (d) polar: N 256, K 128 at σ 0.65, 64 frames in steps of 16 frames
+    fr = polar.frozen_mask(POLAR_N, POLAR_K)
+    bits = rng.integers(0, 2, POLAR_FRAMES * POLAR_K).astype(np.float32)
+    bl_enc, bl_dec = 16 * POLAR_K, 16 * POLAR_N
+
+    def through(device, data, btype, block_len, profiler=None):
+        g = gt.Graph()
+        snk = reg.create("VectorSink")
+        g.connect_chain(reg.create("VectorSource", data=data),
+                        reg.create(btype, n=POLAR_N, k=POLAR_K), snk)
+        s = sched(g, device, block_len, 1e6, profiler)
+        s.run_and_wait()
+        return s, np.asarray(snk.data())
+
+    ms_e, host_e, _, _, (_, cw) = timed_run(
+        dev, lambda d, p: through(d, bits, "PolarEncoder", bl_enc, p), lambda o: o[0]._step)
+    check(np.array_equal(cw, polar.polar_encode(bits.astype(np.uint8), fr).astype(np.float32)),
+          "PolarEncoder on the card against polar_encode")
+    y = 1.0 - 2.0 * cw + POLAR_SIGMA * rng.standard_normal(len(cw))
+    llr = (2 * y / POLAR_SIGMA ** 2).astype(np.float32)
+    raw = float(np.mean((y < 0) != cw))
+    ms_d, host_d, _, _, (_, dec_bits) = timed_run(
+        dev, lambda d, p: through(d, llr, "PolarDecoder", bl_dec, p), lambda o: o[0]._step)
+    _, dec_cpu = through("cpu", llr, "PolarDecoder", bl_dec)
+    check(np.array_equal(dec_bits, bits) and np.array_equal(dec_cpu, dec_bits),
+          f"PolarDecoder: {int(np.sum(dec_bits != bits))} bit errors, card equal to "
+          f"the CPU: {np.array_equal(dec_cpu, dec_bits)}")
+    pd = reg.create("PolarDecoder", n=POLAR_N, k=POLAR_K)
+    t0 = time.perf_counter()
+    pd._decode_np(llr[:bl_dec])
+    sc_ms = (time.perf_counter() - t0) * 1e3
+    kernels_e, _ = count_ops(lambda: through(dev, bits, "PolarEncoder", bl_enc))
+    print(f"[27d polar] N {POLAR_N}, K {POLAR_K}, σ {POLAR_SIGMA}, {POLAR_FRAMES} "
+          f"frames (raw BER {raw:.4f}): PolarEncoder on the card equal to "
+          f"polar_encode, the decoded bits equal to the sent ones, card equal to the "
+          f"CPU; PolarEncoder {ms_e:.3f} ms per step of 16 frames (host {host_e:.3f}; "
+          f"{kernels_e} kernel launches over the run), PolarDecoder {ms_d:.3f} ms "
+          f"per step (host {host_d:.3f}), of it the SC walk on the host {sc_ms:.3f} ms "
+          f"for 16 frames {card}")
+    paths.append({"name": "phase 27 polar", "encoder_ms_per_step": ms_e,
+                  "decoder_ms_per_step": ms_d, "sc_host_ms": sc_ms, "raw_ber": raw})
+    lap("d polar")
+
+    # (e) the six host receivers, each through its JAX test's graph, rate and
+    # block_len, on the card and on the CPU
+    def adsb_iq(seed, frames, phase_sd, noise, **kw):
+        r = np.random.default_rng(seed)
+        wave = adsb.modulate(frames, **kw)
+        x = (wave * np.exp(1j * np.cumsum(r.normal(0.0, phase_sd, len(wave))))
+             ).astype(np.complex64)
+        if noise:
+            x += (noise * (r.standard_normal(len(x)) + 1j * r.standard_normal(len(x)))
+                  ).astype(np.complex64)
+        return x
+
+    ac8 = [adsb.make_df17_identification(0xABC000 + k, f"TPU{k:04d}") for k in range(8)]
+    pos3 = [adsb.make_df17_identification(0x40621D, "KLM1023"),
+            adsb.make_df17_airborne_position(0x40621D, 52.2572, 3.91937, 38000, odd=False),
+            adsb.make_df17_airborne_position(0x40621D, 52.2572, 3.91937, 38000, odd=True)]
+    r2 = np.random.default_rng(2)
+    pbits = pocsag.encode_transmission(423133, 3, "CALL THE TPU ROOM")
+    pfs = 1200.0 * 32
+    piq = np.exp(1j * 2 * np.pi * np.cumsum(np.repeat(
+        np.where(pbits == 0, 4500.0, -4500.0), 32)) / pfs).astype(np.complex64)
+    piq += (0.05 * (r2.standard_normal(len(piq)) + 1j * r2.standard_normal(len(piq)))
+            ).astype(np.complex64)
+
+    def apt_image(rows, r=None):
+        r = r or np.random.default_rng(0)
+        xs = np.linspace(0.0, 1.0, 909, dtype=np.float32)
+        img = np.empty((rows, 909), np.float32)
+        for i in range(rows):
+            img[i] = 0.5 * xs + 0.3 * ((xs * (4 + i % 3)) % 1.0 > 0.5)
+        img += r.uniform(0.0, 0.2, img.shape).astype(np.float32)
+        return np.clip(img, 0.0, 1.0)
+
+    img6 = apt_image(6)
+    audio6 = apt.apt_modulate(img6)
+    r3 = np.random.default_rng(3)
+    img5 = apt_image(5, r3)
+    aiq = np.exp(1j * (2 * np.pi * 4000.0 / 20800.0
+                       * np.cumsum(apt.apt_modulate(img5).astype(np.float64)) + 0.7)
+                 ).astype(np.complex64)
+    aiq += (0.01 * (r3.standard_normal(len(aiq)) + 1j * r3.standard_normal(len(aiq)))
+            ).astype(np.complex64)
+    t0_ = dict(minute=34, hour=21, day=17, weekday=1, month=8, year2=26, cest=True)
+    t2_ = dict(minute=59, hour=23, day=31, weekday=7, month=12, year2=99, cest=False)
+    chart = np.zeros((6, 800), np.uint8)
+    chart[:] = np.linspace(0, 255, 800)[None, :]
+    chart[2], chart[4] = 30, 220
+    zb_frames = [{"payload": b"HELLO-PAN", "seq": 1, "src_addr": 0x0001},
+                 {"payload": b"SECOND", "seq": 2, "src_addr": 0x0002, "dst_addr": 0x00FE}]
+
+    def chain(*blocks):
+        g = gt.Graph()
+        made = [reg.create(t, **kw) for t, kw in blocks]
+        g.connect_chain(*made)
+        return g, made[-1]
+
+    def dcf_graph(minutes, noise=0.0, carrier=False):
+        fs, n_total = 1000.0, 60000 * len(minutes)
+        g = gt.Graph()
+        head = src = g.emplace("Dcf77Source", minutes=minutes, sample_rate=fs)
+        if carrier:
+            to_iq = g.emplace("Convert", to="complex64")
+            tone = g.emplace("ComplexToneSource", frequency=77.5, n_samples=n_total)
+            mul = g.emplace("Multiply", n_inputs=2)
+            head = g.emplace("Abs")
+            g.connect(src, to_iq)
+            g.connect(to_iq, mul, dst_port="in0")
+            g.connect(tone, mul, dst_port="in1")
+            g.connect(mul, head)
+        if noise:
+            nz = g.emplace("NoiseSource", std=noise, seed=0, n_samples=n_total)
+            add = g.emplace("Add", n_inputs=2)
+            g.connect(head, add, dst_port="in0")
+            g.connect(nz, add, dst_port="in1")
+            head = add
+        dec = g.emplace("Dcf77Decoder", sample_rate=fs)
+        g.connect(head, dec)
+        return g, dec
+
+    def ok_apt(img, rows, corr):
+        def test(im):
+            return im.shape[0] >= rows and min(
+                np.corrcoef(im[i], img[i])[0, 1] for i in range(im.shape[0])) > corr
+        return test
+
+    zb = (lambda: chain(("Ieee802154Source", {"frames": zb_frames, "sps": 4}),
+                        ("Ieee802154Decoder", {"sps": 4})),
+          lambda b: b.frames,
+          lambda r: ([f["seq"] for f in r] == [1, 2] and r[0]["payload"] == b"HELLO-PAN"
+                     and r[1]["payload"] == b"SECOND" and r[1]["dst_addr"] == 0x00FE
+                     and all(f["fcs_ok"] for f in r)))
+    receivers = (
+        ("802.15.4 two frames", 8192, 8e6, *zb),
+        ("802.15.4 two frames", 3000, 8e6, *zb),
+        ("ADS-B 8 aircraft", 1000, 2e6,
+         lambda: chain(("VectorSource", {"data": adsb_iq(1, ac8, 0.3, 0.02, gap_us=137.5)}),
+                       ("Abs", {}), ("AdsbDecoder", {"threshold": 0.3})),
+         lambda b: (b.frames, b.aircraft),
+         lambda r: (len(r[0]) == 8 and {i: a["callsign"] for i, a in r[1].items()}
+                    == {0xABC000 + k: f"TPU{k:04d}" for k in range(8)})),
+        ("ADS-B position", 700, 2e6,
+         lambda: chain(("VectorSource", {"data": adsb_iq(2, pos3, 0.25, 0.0)}),
+                       ("Abs", {}), ("AdsbDecoder", {})),
+         lambda b: b.aircraft,
+         lambda r: (r[0x40621D]["callsign"] == "KLM1023" and r[0x40621D]["alt_ft"] == 38000
+                    and abs(r[0x40621D]["lat"] - 52.2572) < 1e-3
+                    and abs(r[0x40621D]["lon"] - 3.91937) < 1e-3)),
+        ("POCSAG page", 4800, pfs,
+         lambda: chain(("VectorSource", {"data": piq}),
+                       ("QuadratureDemod", {"gain": pfs / (2 * np.pi * 4500.0)}),
+                       ("PocsagDecoder", {"sps": 32.0, "invert": True})),
+         lambda b: b.pages,
+         lambda r: (len(r) == 1 and r[0]["ric"] == 423133 and r[0]["function"] == 3
+                    and r[0]["message"] == "CALL THE TPU ROOM")),
+        ("APT audio", 7001, 20800.0,
+         lambda: chain(("VectorSource", {"data": audio6}), ("AptDecoder", {})),
+         lambda b: b.image, ok_apt(img6, 5, 0.97)),
+        ("APT FM downlink", 9973, 20800.0,
+         lambda: chain(("VectorSource", {"data": aiq}),
+                       ("QuadratureDemod", {"gain": 20800.0 / (2 * np.pi * 4000.0)}),
+                       ("AptDecoder", {})),
+         lambda b: b.image, ok_apt(img5, 4, 0.93)),
+        ("DCF77 noisy envelope", 8192, 1000.0,
+         lambda: dcf_graph([t0_], noise=0.08),
+         lambda b: b.frames, lambda r: bool(r) and r[0]["minute"] == 34),
+        ("DCF77 AM carrier", 8192, 1000.0,
+         lambda: dcf_graph([t2_], carrier=True),
+         lambda b: b.frames, lambda r: bool(r) and r[0] == t2_),
+        ("WEFAX chart", 8192, 11025.0,
+         lambda: chain(("WefaxSource", {"image": chart}), ("WefaxDecoder", {})),
+         lambda b: b.image,
+         lambda r: r.shape == chart.shape
+         and float(np.abs(r.astype(float) - chart.astype(float)).mean()) < 0.5),
+    )
+    for label, block_len, fs, build, read, ok in receivers:
+        def run(device, profiler=None):
+            g, blk = build()
+            s = sched(g, device, block_len, fs, profiler)
+            s.run_and_wait()
+            return s, read(blk)
+
+        ms_r, host_r, deliver_r, steps, (s_card, r_card) = timed_run(
+            dev, run, lambda o: o[0]._step)
+        check(s_card.device.type == torch.device(dev).type,
+              f"{label}: ran on {s_card.device}")
+        _, r_cpu = run("cpu")
+        check(ok(r_card) and ok(r_cpu), f"{label}: card {r_card!r:.200} / CPU {r_cpu!r:.200}")
+        if isinstance(r_card, np.ndarray) and r_card.dtype.kind == "f":
+            diff = float(np.max(np.abs(r_card - r_cpu))) if r_card.size else 0.0
+            check(r_card.shape == r_cpu.shape and diff <= APT_ATOL,
+                  f"{label}: image card against CPU, max|Δ| {diff}")
+        else:
+            diff = same_result(r_card, r_cpu, FLOW_RTOL, label)
+        kernels, ops = count_ops(lambda: run(dev))
+        signal_ms = block_len / fs * 1e3
+        per = (lambda v: None if v is None else v / steps)
+        print(f"[27e {label}] block_len {block_len} at {fs:g} S/s, {steps} steps: as "
+              f"its JAX test asserts on the card and the CPU, card equal to the CPU "
+              f"(floats within {diff:.2e}); {ms_r:.3f} ms per step against "
+              f"{signal_ms:.3f} ms of signal, host {host_r:.3f} (delivery "
+              f"{deliver_r:.3f}), {per(kernels)} kernel launches and {per(ops)} torch "
+              f"ops per step {card}")
+        paths.append({"name": f"phase 27 {label} {block_len}", "steps": steps,
+                      "ms_per_step": ms_r, "signal_ms_per_step": signal_ms,
+                      "host_ms_per_step": host_r, "deliver_ms_per_step": deliver_r,
+                      "kernels_per_step": per(kernels), "torch_ops_per_step": per(ops)})
+    lap("e receivers")
+
+    # (f) CVSD at 16 kS/s, 16 kbit/s: 4 steps of 4096 samples of band-limited
+    # noise (tests/test_vocoder.py's _speech at this rate)
+    from scipy import signal as sps
+    b_, a_ = sps.butter(4, CVSD_BAND / (CVSD_FS / 2))
+    x = sps.lfilter(b_, a_, rng.standard_normal(CVSD_STEPS * CVSD_BLOCK_LEN))
+    speech = (0.5 * x / np.abs(x).max()).astype(np.float32)
+
+    def cvsd(device, profiler=None):
+        g = gt.Graph()
+        enc = reg.create("CvsdEncoder")
+        v, vb = reg.create("VectorSink"), reg.create("VectorSink")
+        g.connect_chain(reg.create("VectorSource", data=speech), enc,
+                        reg.create("CvsdDecoder"), v)
+        g.connect(enc, vb)
+        s = sched(g, device, CVSD_BLOCK_LEN, CVSD_FS, profiler)
+        s.run_and_wait()
+        return s, np.asarray(v.data()), np.asarray(vb.data())
+
+    ms_v, host_v, _, steps_v, (_, audio, vbits) = timed_run(dev, cvsd, lambda o: o[0]._step)
+    _, audio_cpu, vbits_cpu = cvsd("cpu")
+    skip = 2000
+    err = speech[skip:] - audio[skip:len(speech)]
+    snr = float(10 * np.log10(np.mean(speech[skip:] ** 2) / np.mean(err ** 2)))
+    a_diff = float(np.max(np.abs(audio - audio_cpu)))
+    check(snr > CVSD_SNR_DB, f"CVSD: SNR {snr:.2f} dB")
+    check(np.array_equal(vbits, vbits_cpu) and a_diff <= CVSD_AUDIO_ATOL,
+          f"CVSD: card against CPU, bits equal {np.array_equal(vbits, vbits_cpu)}, "
+          f"audio max|Δ| {a_diff}")
+    enc = reg.create("CvsdEncoder")
+    kernels, ops, ms_enc, _ = block_cost(dev, enc, {"in": torch.from_numpy(
+        speech[:CVSD_PROFILE]).to(dev)}, sample_rate=CVSD_FS)
+    audio_ms = CVSD_BLOCK_LEN / CVSD_FS * 1e3
+    print(f"[27f CVSD] {CVSD_FS:g} S/s, 1 bit a sample, {steps_v} steps of "
+          f"{CVSD_BLOCK_LEN}: SNR {snr:.2f} dB (> {CVSD_SNR_DB}), card bits equal to the "
+          f"CPU's, audio within {a_diff:.1e} (tol {CVSD_AUDIO_ATOL}); encoder → decoder "
+          f"{ms_v:.1f} ms per step against {audio_ms:.0f} ms of audio (host "
+          f"{host_v:.1f}); the encoder alone on {CVSD_PROFILE} samples: "
+          f"{None if kernels is None else kernels / CVSD_PROFILE} kernel launches and "
+          f"{ops / CVSD_PROFILE} torch ops a sample, {ms_enc / CVSD_PROFILE * 1e3:.2f} "
+          f"µs a sample {card}")
+    paths.append({"name": "phase 27 CVSD", "ms_per_step": ms_v, "audio_ms_per_step": audio_ms,
+                  "host_ms_per_step": host_v, "snr_db": snr,
+                  "encoder_kernels_per_sample": None if kernels is None
+                  else kernels / CVSD_PROFILE,
+                  "encoder_ops_per_sample": ops / CVSD_PROFILE,
+                  "encoder_us_per_sample": ms_enc / CVSD_PROFILE * 1e3})
+    lap("f cvsd")
+    counts = ck.launch_counts()
+    for k in KERNELS:
+        results[k]["launches"] += counts[k]
+    print(f"[27 seconds] wall s by sub-phase {({k: round(v, 2) for k, v in secs.items()})}"
+          f"; phase 27 {sum(secs.values()):.1f} s; hand-kernel launches {counts} {card}")
+    paths.append({"name": "phase 27 seconds", "seconds": sum(secs.values()),
+                  "by_sub_phase": secs})
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4255,6 +4854,7 @@ def main() -> int:
     carrier_phases(dev, paths, results)
     acquisition_phases(dev, card, paths, results)
     fec_flow_phases(dev, card, paths, results)
+    gnss_coding_phases(dev, card, paths, results)
 
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "share_of_bound", "library_ms")

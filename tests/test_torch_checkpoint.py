@@ -5,6 +5,7 @@ pilot equalizer, whose states hold a threefry key, a uint32 phase and a bool)
 and a carrier graph (every stateful block of the carrier-recovery slice)
 and an acquisition graph (every stateful block of the acquisition slice)
 and a FEC graph (ConvEncoder → soft ViterbiDecoder, Scrambler → Descrambler)
+and a CVSD graph (CvsdEncoder → CvsdDecoder, whose states are tuples)
 run 2 steps, are saved, and resume for 2 more — JAX → port, port → JAX and
 port → port — against steps 3–4 of an uninterrupted run; and a checkpoint
 whose state tree differs from the block's is refused, naming the key.
@@ -14,8 +15,9 @@ Tolerances: port → port bitwise; across packages the chain's spectra within
 the uniform noise bit for bit, the Gaussian noise within 1e-5 of max(1, |x|)
 (torch's erfinv against XLA's), the carrier graph's sinks within
 ``CARRIER_ATOL`` (each block's parity tolerance) with the squelch's gate
-exact, the FEC graph's bits bit for bit, and the restored threefry keys
-equal."""
+exact, the FEC graph's bits and the CVSD graph's bits and audio bit for
+bit, and the restored threefry keys equal. The CVSD states also cross by
+``interop`` both ways."""
 
 import json
 from importlib import import_module
@@ -198,10 +200,30 @@ def _fec(pkg):
     return g
 
 
+def _cvsd(pkg):
+    """Uniform threefry noise (bit for bit in both packages) → CvsdEncoder →
+    CvsdDecoder, the bits and the audio sunk: the state is the tuple (est
+    float32, delta float32, run int32) of each."""
+    g = pkg.Graph(name="cvsd")
+    reg = pkg.global_registry
+    enc = reg.create("CvsdEncoder", name="cvsd_enc")
+    g.connect_chain(reg.create("NoiseSource", noise="uniform", std=0.4, seed=13,
+                               name="nv"), enc,
+                    reg.create("CvsdDecoder", name="cvsd_dec"),
+                    reg.create("VectorSink", name="cvsd_audio"))
+    g.connect(enc, reg.create("VectorSink", name="cvsd_bits"))
+    return g
+
+
 GRAPHS = {"chain": _chain, "noise": _noise, "modem": _modem, "carrier": _carrier,
-          "acquisition": _acquisition, "fec": _fec}
+          "acquisition": _acquisition, "fec": _fec, "cvsd": _cvsd}
 # the FEC graph's sinks: bits, equal across packages
 FEC_EXACT = ("coded", "decoded", "scrambled", "descrambled")
+# the CVSD graph's sinks: bits and audio, equal across packages (the port
+# rounds est·accum_decay ± delta once, as XLA's fused multiply-add does)
+CVSD_EXACT = ("cvsd_bits", "cvsd_audio")
+# the CVSD loops run one step per sample: a short block keeps the case short
+CVSD_BLOCK_LEN = 256
 # the acquisition slice's sinks that copy or gate the bit-exact uniform noise,
 # and the Schmitt gate: equal across packages
 ACQ_EXACT = ("gated", "filtered", "sync0", "schmitt")
@@ -224,6 +246,8 @@ CARRIER_ATOL["sync1"] = 1e-5 + float(np.spacing(np.float32(
 
 
 def _block_len(name):
+    if name == "cvsd":
+        return CVSD_BLOCK_LEN
     return CARRIER_BLOCK_LEN if name in ("carrier", "fec") else BLOCK_LEN
 
 
@@ -263,7 +287,8 @@ def _agree(got, want, exact=False):
     for k in want:
         g_, w = got[k], want[k]
         assert g_.shape == w.shape and g_.dtype == w.dtype, k
-        if exact or k == "uniform" or k in ACQ_EXACT or k in FEC_EXACT:
+        if exact or k == "uniform" or k in ACQ_EXACT or k in FEC_EXACT \
+                or k in CVSD_EXACT:
             np.testing.assert_array_equal(g_, w, err_msg=k)
         elif k == "spec":
             assert np.max(np.abs(g_ - w)) <= SPEC_RTOL * np.max(np.abs(w))
@@ -319,6 +344,19 @@ def test_checkpoint_resumes(tmp_path, name, writer, reader):
             gate = fresh._states[uname["gate"]]
             assert gate.dtype == torch.int32 and int(gate) == int(blob["gate"])
             assert fresh._states[uname["fg_tone"]].dtype == torch.int64
+    if name == "cvsd":
+        blob = np.load(tmp_path / "states.npz")
+        for blk in ("cvsd_enc", "cvsd_dec"):
+            assert blob[f"{blk}[0]"].dtype == blob[f"{blk}[1]"].dtype == np.float32
+            assert blob[f"{blk}[2]"].dtype == np.int32
+            assert blob[f"{blk}[0]"].shape == blob[f"{blk}[2]"].shape == ()
+        if reader is gt:
+            fresh = gt.load_checkpoint(tmp_path, device="cpu")
+            uname = {b.name: b.unique_name for b in fresh.compiled.order}
+            est, delta, run = fresh._states[uname["cvsd_enc"]]
+            assert (est.dtype, delta.dtype, run.dtype) == \
+                (torch.float32, torch.float32, torch.int32)
+            assert int(run) == int(blob["cvsd_enc[2]"])
     if name == "noise" and reader is gt:
         # the restored threefry keys are the saved uint32 words
         blob = np.load(tmp_path / "states.npz")
@@ -528,3 +566,73 @@ def test_fec_states_continue_from_jax_by_interop():
             np.testing.assert_array_equal(got, want, err_msg=by_name[ut])
             seen.add(by_name[ut])
     assert seen == set(FEC_EXACT)
+
+
+def test_cvsd_states_cross_by_interop_both_ways():
+    """CvsdEncoder → CvsdDecoder: two compiled steps in one package, the
+    (est, delta, run) tuples handed across (``interop.states_from_numpy``
+    into the port, ``interop.states_to_numpy`` back to the JAX package), two
+    more steps in the other: the bits and the audio equal an unbroken run of
+    four steps, bit for bit, both ways."""
+    import jax
+    import jax.numpy as jnp
+    from gnuradio4_tpu_torch.interop import states_from_numpy, states_to_numpy
+    bl = CVSD_BLOCK_LEN
+    cj = gr.compile_graph(_cvsd(gr), block_len=bl, sample_rate=FS)
+    ct = gt.compile_graph(_cvsd(gt), block_len=bl, sample_rate=FS, device="cpu")
+    j2t = {bj.unique_name: bt.unique_name for bj, bt in zip(cj.order, ct.order)}
+    t2j = {v: k for k, v in j2t.items()}
+    by_name = {b.unique_name: b.name for b in ct.order}
+    uname = {b.name: b.unique_name for b in ct.order}
+
+    def host(a):
+        if jax.dtypes.issubdtype(a.dtype, jax.dtypes.prng_key):
+            a = jax.random.key_data(a)
+        return np.asarray(a)
+
+    def sinks_j(out):
+        return {by_name[j2t[u]]: np.asarray(d["in"]) for u, d in out.items()}
+
+    def sinks_t(out):
+        return {by_name[u]: d["in"].numpy() for u, d in out.items()}
+
+    st = cj.init_states()
+    unbroken = []
+    for _ in range(4):
+        st, out = cj.step(st, cj.gather_params(), {})
+        unbroken.append(sinks_j(out))
+    assert sorted(unbroken[0]) == sorted(CVSD_EXACT)
+
+    # JAX → port
+    st_j = cj.init_states()
+    for _ in range(2):
+        st_j, _ = cj.step(st_j, cj.gather_params(), {})
+    st_t = states_from_numpy(jax.tree_util.tree_map(host, st_j), "cpu", j2t)
+    enc = st_t[uname["cvsd_enc"]]
+    assert type(enc) is tuple and [a.dtype for a in enc] == \
+        [torch.float32, torch.float32, torch.int32]
+    for k in (2, 3):
+        st_t, out = ct.step(st_t, ct.gather_params())
+        for name, want in unbroken[k].items():
+            np.testing.assert_array_equal(sinks_t(out)[name], want, err_msg=name)
+
+    # port → JAX
+    st_t = ct.init_states()
+    for _ in range(2):
+        st_t, _ = ct.step(st_t, ct.gather_params())
+    back = states_to_numpy(st_t, t2j)
+    enc_j = back[t2j[uname["cvsd_enc"]]]
+    assert type(enc_j) is tuple and [a.dtype for a in enc_j] == \
+        [np.float32, np.float32, np.int32]
+    key = t2j[uname["nv"]]
+    assert back[key].dtype == np.uint32
+    fresh = cj.init_states()
+    st_j = {k: (jax.random.wrap_key_data(jnp.asarray(v))
+                if k == key and jax.dtypes.issubdtype(fresh[k].dtype,
+                                                      jax.dtypes.prng_key)
+                else jax.tree_util.tree_map(jnp.asarray, v))
+            for k, v in back.items()}
+    for k in (2, 3):
+        st_j, out = cj.step(st_j, cj.gather_params(), {})
+        for name, want in unbroken[k].items():
+            np.testing.assert_array_equal(sinks_j(out)[name], want, err_msg=name)
