@@ -209,6 +209,32 @@ result line:
     the audio within 1e-6; launches a sample and ms per step against the
     256 ms of audio a step carries. No hand kernel lies on these paths.
 
+28. the rest of the host core: (a) the headline chain across two graphs
+    under one ``Runtime`` at block_len 2^23: ``acq`` (ComplexToneSource(1
+    MHz) → PipeSink, 4 steps) piped into ``dsp`` (StreamSource(complex64,
+    capacity 2^24) → the chain's blocks): the sinks bitwise equal to phase
+    4's, and with GR4TPU_NO_ROTATION_ABSORB=1 to phase 5's, with their
+    ``fir_banded`` and ``nco_mix`` launches a dsp step; then 16 steps with
+    NullSinks under ``Profiler("chip_smoke")`` with instant and counter marks
+    (the ring's fill): the dsp graph's Msps against phase 4's, host ms a step
+    of ``PipeSink.consume`` and ``StreamSource.host_feed`` from the spans, the
+    chrome trace read back; and each wait strategy (spin, yield, sleep,
+    block) for 2 steps, the sinks equal to phase 4's; (b) ComplexToneSource →
+    ``ScheduledSubgraph``(FreqXlatingFir(127) → QuadratureDemod) → VectorSink
+    at 2^22 × 4: lossless and bitwise equal to the same blocks run flat,
+    ``fir_banded`` launched by the inner scheduler, the warm-up steps and ms
+    per step; (c) ``HostBlock``, ``PythonBlock`` (host and jax modes) and
+    ``LambdaBlock`` clipping an FM tone's demod output at 2^22: bitwise
+    equal, an int16 ``HostBlock`` with ``out_shape_fn``, card vs CPU at
+    2^16, each form's ms a step; (d) the chain with a ``domain="host"`` tap on
+    the FIR and a ``gpu:cuda:0`` FIR → FFT edge through
+    ``save_grc``/``load_grc``: the tap equal to a flat run's FIR output, a
+    ``tpu`` edge refused; (e) ``merge(MultiplyConst(2), AddConst(1),
+    Decimator(2))`` at 2^22 against the unmerged chain, ``GpsSource`` on a
+    ``ReplayNmeaDevice`` and ``PpsSource`` card vs CPU; (f)
+    ``Profiler.device_trace`` over one chain step: its kernels include
+    ``fir_banded``.
+
 Phases 13–17 each print the card against the CPU on a short run of the same
 graph, Msps (coded Mbit/s for 7 and 7k), ms per step by CUDA events over 5
 windows, host ms per step, the device-busy share of one profiled step, peak
@@ -454,6 +480,35 @@ CVSD_BLOCK_LEN = 4096
 CVSD_SNR_DB = 10.0
 CVSD_AUDIO_ATOL = 1e-6
 CVSD_PROFILE = 512
+# phase 28: the host core. (a) the chain across two graphs joined by a pipe,
+# at the chain's block_len; the ring holds two steps
+PIPE_STEPS = 4
+PIPE_TIMED_STEPS = 16
+PIPE_CAPACITY = 1 << 24
+WAIT_STEPS = 2
+WAITS = ("spin", "yield", "sleep", "block")
+PHASE28_TIMEOUT = 300.0          # bound on every threaded wait of the phase
+# (b) FreqXlatingFir → QuadratureDemod under its own scheduler
+SUB_BLOCK_LEN = 1 << 22
+SUB_STEPS = 4
+# (c) the user-function blocks on an FM tone's demod output: ±1 MHz of
+# deviation at 50 kHz is ±0.314 rad a sample, ×5 reaches ±1.57, so clip(±1)
+# cuts every cycle
+USER_BLOCK_LEN = 1 << 22
+USER_CPU_BLOCK_LEN = 1 << 16
+USER_STEPS = 2
+USER_DEV_HZ = 1e6
+USER_MOD_HZ = 50e3
+USER_GAIN = 5.0
+USER_QUANT = 1e4                 # the int16 HostBlock's scale
+USER_REPS = 5
+# (d) the tapped chain's steps; (e) merge
+DOMAIN_STEPS = 2
+MERGE_LEN = 1 << 22
+MERGE_STEPS = 2
+# tests/test_io_blocks.py:145-184
+NMEA_OK = "$GPRMC,123519,A,4807.038,N,01131.000,E,022.4,084.4,230394,003.1,W*6A"
+NMEA_GGA = "$GPGGA,123519,4807.038,N,01131.000,E,1,08,0.9,545.4,M,46.9,M,,*47"
 KERNELS = {
     "fir_banded": {
         "source": "gnuradio4_tpu_torch/csrc/fir_banded.cu",
@@ -643,30 +698,42 @@ def events_ms_per_step(step, n_steps: int, windows: int = 5):
     return statistics.median(w[0] for w in out), out
 
 
-def build_chain(sinks: str):
+def chain_xlating_fir():
+    """The chain's FreqXlatingFir: 127 taps, low-pass at 2 MHz, 3 MHz shift."""
+    import numpy as np
+    from gnuradio4_tpu_torch.blocks.filter import FreqXlatingFir
+    from gnuradio4_tpu_torch.ops import filter_design as fd
+    taps = fd.design_fir("lowpass", 127, sample_rate=FS, f_low=2e6)
+    return FreqXlatingFir(taps=taps.astype(np.float32), center_freq=3e6,
+                          sample_rate_in=FS, decim=1)
+
+
+def build_chain(sinks: str, source=None, fft_domain=None):
     """The headline chain of bench.py, built in the port. ``sinks``: 'vector'
-    (host capture) or 'null' (count only, no device→host copy)."""
+    (host capture) or 'null' (count only, no device→host copy). ``source``
+    replaces the 1 MHz ComplexToneSource; ``fft_domain`` annotates the FIR →
+    FFT edge."""
     import numpy as np
     import gnuradio4_tpu_torch as gt
     from gnuradio4_tpu_torch.blocks.basic import ComplexToneSource
-    from gnuradio4_tpu_torch.blocks.filter import FirFilter, FreqXlatingFir
+    from gnuradio4_tpu_torch.blocks.filter import FirFilter
     from gnuradio4_tpu_torch.blocks.fourier import FFT
     from gnuradio4_tpu_torch.blocks.sdr import QuadratureDemod
     from gnuradio4_tpu_torch.blocks.testing import NullSink, VectorSink
     from gnuradio4_tpu_torch.ops import filter_design as fd
 
     g = gt.Graph()
-    src = ComplexToneSource(frequency=1e6)
-    taps = fd.design_fir("lowpass", 127, sample_rate=FS, f_low=2e6)
-    fir = FreqXlatingFir(taps=taps.astype(np.float32), center_freq=3e6,
-                         sample_rate_in=FS, decim=1)
+    src = ComplexToneSource(frequency=1e6) if source is None else source
+    fir = chain_xlating_fir()
     fft = FFT(fft_size=4096, window="Hann", output="magnitude", calibrate=False)
     dem = QuadratureDemod(gain=1.0)
     audio = FirFilter(taps=fd.design_fir("lowpass", 63, sample_rate=FS,
                                          f_low=1e6).astype(np.float32), decim=8)
     sink = VectorSink if sinks == "vector" else NullSink
     s1, s2 = sink(name="spec"), sink(name="audio")
-    g.connect_chain(src, fir, fft, s1)
+    g.connect(src, fir)
+    g.connect(fir, fft, domain=fft_domain)
+    g.connect(fft, s1)
     g.connect(fir, dem)
     g.connect_chain(dem, audio, s2)
     return g, fir, s1, s2
@@ -4067,6 +4134,532 @@ def gnss_coding_phases(dev, card: str, paths: list, results: dict) -> None:
                   "by_sub_phase": secs})
 
 
+def sync(dev) -> None:
+    import torch
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def span_ms(prof, name: str, *, block: str | None = None,
+            tid: int | None = None) -> list[float]:
+    """Durations (ms) of the profiler's ``name`` spans, of one block or one
+    thread."""
+    return [e["dur"] / 1e3 for e in prof.events()
+            if e["name"] == name and e.get("ph") == "X"
+            and (block is None or e["args"].get("block") == block)
+            and (tid is None or e["tid"] == tid)]
+
+
+def thread_tid(sched) -> int:
+    """The profiler's ``tid`` of a started scheduler's runner thread."""
+    return sched._runner.ident % 100000
+
+
+def pipe_source(wait: str = "sleep"):
+    """Phase 28(a)'s StreamSource: complex64, a ring of PIPE_CAPACITY items."""
+    from gnuradio4_tpu_torch.blocks.python_block import StreamSource
+    return StreamSource(name="stream", dtype="complex64", capacity=PIPE_CAPACITY,
+                        wait=wait, timeout=PHASE28_TIMEOUT)
+
+
+def piped_chain(dev, n_steps: int, *, wait: str = "sleep", sinks: str = "vector",
+                absorb: bool = True, profiler=None, stream=None):
+    """Phase 28(a)'s two graphs under one Runtime: ``acq`` =
+    ComplexToneSource(1 MHz, n_steps blocks) → PipeSink, ``dsp`` = ``stream``
+    (default :func:`pipe_source`) → build_chain's blocks, both at block_len
+    2^23 on ``dev``. Returns (the dsp sinks' data or None, acq scheduler, dsp
+    scheduler, wall s of run_all)."""
+    import gnuradio4_tpu_torch as gt
+    from gnuradio4_tpu_torch.blocks.basic import ComplexToneSource
+    if absorb:
+        os.environ.pop("GR4TPU_NO_ROTATION_ABSORB", None)
+    else:
+        os.environ["GR4TPU_NO_ROTATION_ABSORB"] = "1"
+    try:
+        acq = gt.Graph(name="acq")
+        pipe = gt.PipeSink(name="pipe")
+        acq.connect(ComplexToneSource(frequency=1e6, n_samples=n_steps * BLOCK_LEN),
+                    pipe)
+        stream = pipe_source(wait) if stream is None else stream
+        dsp, fir, s1, s2 = build_chain(sinks, source=stream)
+        rt = gt.Runtime("phase28")
+        kw = dict(block_len=BLOCK_LEN, sample_rate=FS, device=dev)
+        if profiler is not None:
+            kw["profiler"] = profiler
+        a = rt.add(acq, name="acq", **kw)
+        d = rt.add(dsp, name="dsp", **kw)
+        rt.pipe(pipe, stream)
+        sync(dev)
+        t0 = time.perf_counter()
+        rt.run_all(timeout=PHASE28_TIMEOUT)
+        sync(dev)
+        wall = time.perf_counter() - t0
+    finally:
+        os.environ.pop("GR4TPU_NO_ROTATION_ABSORB", None)
+    check(fir._rotation_absorbed == absorb,
+          f"piped chain: rotation absorbed={fir._rotation_absorbed}, expected {absorb}")
+    out = (s1.data(), s2.data()) if sinks == "vector" else None
+    return out, a, d, wall
+
+
+def first_steps(sinks, steps: int):
+    """The chain's sinks cut to their first ``steps`` steps of 2^23."""
+    spec, audio = sinks
+    return spec[:steps * BLOCK_LEN], audio[:steps * BLOCK_LEN // 8]
+
+
+def fm_tone(n: int):
+    """An FM tone at +3 MHz (where the chain's FreqXlatingFir looks):
+    ±USER_DEV_HZ of deviation at USER_MOD_HZ, complex64."""
+    import numpy as np
+    k = np.arange(n, dtype=np.float64)
+    beta = USER_DEV_HZ / USER_MOD_HZ
+    ph = 2 * np.pi * 3e6 / FS * k + beta * np.sin(2 * np.pi * USER_MOD_HZ / FS * k)
+    return np.exp(1j * ph).astype(np.complex64)
+
+
+def host_core_phases(dev, card: str, phase45, chain_msps: float, paths: list,
+                     results: dict) -> None:
+    """Phase 28: the rest of the host core on the card — the chain across two
+    graphs under a Runtime, a ScheduledSubgraph, the user-function blocks,
+    compute domains, merge, GPS/PPS timing and the profiler."""
+    import json as _json
+    import tempfile
+    import threading
+    import numpy as np
+    import torch
+    import gnuradio4_tpu_torch as gt
+    from gnuradio4_tpu_torch.blocks.basic import ComplexToneSource
+    from gnuradio4_tpu_torch.blocks.python_block import (HostBlock, LambdaBlock,
+                                                         PythonBlock)
+    from gnuradio4_tpu_torch.blocks.sdr import QuadratureDemod
+    from gnuradio4_tpu_torch.blocks.testing import VectorSink, VectorSource
+    from gnuradio4_tpu_torch.blocks.timing import (GpsSource, PpsSource,
+                                                   ReplayNmeaDevice)
+    from gnuradio4_tpu_torch.core.subgraph import ScheduledSubgraph
+    from gnuradio4_tpu_torch.ops import cuda_kernels as ck
+
+    secs = {}
+    t_sub = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_host_core_"))
+
+    def lap(name: str) -> None:
+        nonlocal t_sub
+        now = time.perf_counter()
+        secs[name] = now - t_sub
+        t_sub = now
+
+    def tally(counts: dict) -> None:
+        for k in KERNELS:
+            results[k]["launches"] += counts[k]
+
+    per_step4 = {"fir_banded": 2, "nco_mix": 0}      # phase 4's launches a step
+    per_step5 = {"fir_banded": 2, "nco_mix": 1}      # phase 5's
+
+    # (a) the headline chain across two graphs, absorbed then derotated
+    for absorb, ref, per_step, label in ((True, phase45[0], per_step4, "absorbed"),
+                                         (False, phase45[1], per_step5, "derotated")):
+        ck.reset_launch_counts()
+        got, a_s, d_s, wall = piped_chain(dev, PIPE_STEPS, absorb=absorb)
+        counts = ck.launch_counts()
+        tally(counts)
+        # the last dsp step carries the end of stream (no valid sample)
+        check(d_s.steps == PIPE_STEPS + 1 and a_s.steps >= PIPE_STEPS,
+              f"piped {label}: dsp ran {d_s.steps} steps, acq {a_s.steps}")
+        for k, want in per_step.items():
+            check(counts[k] == want * d_s.steps,
+                  f"piped {label}: {k} launched {counts[k]} times over "
+                  f"{d_s.steps} dsp steps, expected {want} a step")
+        same = [np.array_equal(x, y) for x, y in zip(got, ref)]
+        check(all(same) and got[0].shape == ref[0].shape,
+              f"piped {label}: sinks equal to phase {4 if absorb else 5}'s: {same}")
+        print(f"[28a pipe {label}] acq ComplexToneSource → PipeSink ⇒ dsp "
+              f"StreamSource → chain, {PIPE_STEPS} steps of 2^23: sinks bitwise equal "
+              f"to phase {4 if absorb else 5}'s; launches {counts} over {d_s.steps} "
+              f"dsp steps ({ {k: counts[k] / d_s.steps for k in per_step} } a step, "
+              f"phase {4 if absorb else 5}: {per_step}); {wall:.3f} s wall {card}")
+    del got
+    lap("a checks")
+
+    # timed: NullSinks, 16 steps, one Profiler("chip_smoke") over both graphs
+    # with instant and counter marks: the ring's fill sampled every 2 ms
+    prof = gt.Profiler("chip_smoke")
+    stream = pipe_source()
+    ring = stream._ensure_ring()
+    stop = threading.Event()
+
+    def sample_ring():
+        while not stop.is_set():
+            prof.counter("pipe.ring", readable=ring.readable(stream._reader))
+            time.sleep(0.002)
+
+    sampler = threading.Thread(target=sample_ring, daemon=True)
+    sampler.start()
+    prof.instant("phase28a.start", steps=PIPE_TIMED_STEPS)
+    try:
+        ck.reset_launch_counts()
+        _, a_s, d_s, wall = piped_chain(dev, PIPE_TIMED_STEPS, sinks="null",
+                                        profiler=prof, stream=stream)
+        counts = ck.launch_counts()
+    finally:
+        stop.set()
+        sampler.join(5)
+    tally(counts)
+    prof.instant("phase28a.end", wall_s=wall)
+    check(counts["fir_banded"] == 2 * d_s.steps == 2 * (PIPE_TIMED_STEPS + 1),
+          f"piped timed run: fir_banded {counts['fir_banded']} over {d_s.steps} steps")
+    dsp_steps = span_ms(prof, "scheduler.step", tid=thread_tid(d_s))
+    acq_steps = span_ms(prof, "scheduler.step", tid=thread_tid(a_s))
+    consume = span_ms(prof, "block.consume", block="pipe")
+    feed = span_ms(prof, "block.host_feed", block="stream")
+    deliver_acq = span_ms(prof, "scheduler.deliver", tid=thread_tid(a_s))
+    check(len(consume) >= PIPE_TIMED_STEPS and len(feed) >= PIPE_TIMED_STEPS,
+          f"profiler spans: {len(consume)} consume, {len(feed)} host_feed")
+    steady = dsp_steps[2:] or dsp_steps
+    dsp_ms = statistics.median(steady)
+    msps = BLOCK_LEN / (dsp_ms * 1e-3) / 1e6
+    msps_wall = PIPE_TIMED_STEPS * BLOCK_LEN / wall / 1e6
+    trace = tmp / "phase28a.trace.json"
+    prof.write(str(trace))
+    doc = _json.loads(trace.read_text())
+    kinds = {(e["name"], e["ph"]) for e in doc["traceEvents"]}
+    check({("phase28a.start", "i"), ("phase28a.end", "i"), ("pipe.ring", "C"),
+           ("block.consume", "X"), ("block.host_feed", "X"),
+           ("scheduler.step", "X")} <= kinds
+          and doc["otherData"] == {"process": "chip_smoke"},
+          f"the chrome trace lacks marks: {sorted(kinds)[:12]}")
+    fills = [e["args"]["readable"] for e in doc["traceEvents"] if e["name"] == "pipe.ring"]
+    print(f"[28a pipe timed] {PIPE_TIMED_STEPS} steps of 2^23 (NullSinks): dsp "
+          f"{msps:.2f} Msps (median dsp step {dsp_ms:.3f} ms after 2 steps; "
+          f"{msps_wall:.2f} Msps over the {wall:.3f} s wall) against phase 4's "
+          f"{chain_msps:.2f} Msps in one graph; host ms a step: PipeSink.consume "
+          f"{statistics.median(consume):.3f} (acq delivery "
+          f"{statistics.median(deliver_acq):.3f}, acq step "
+          f"{statistics.median(acq_steps):.3f}), StreamSource.host_feed "
+          f"{statistics.median(feed):.3f}; 4 host copies of 64 MiB a step; the "
+          f"ring's fill (items) min/median/max {min(fills, default=0)}/"
+          f"{int(statistics.median(fills)) if fills else 0}/{max(fills, default=0)} over "
+          f"{len(fills)} samples; trace {len(doc['traceEvents'])} events {card}")
+    paths.append({"name": "phase 28a piped chain", "msps": msps, "msps_wall": msps_wall,
+                  "ms_per_step": dsp_ms, "phase4_msps": chain_msps,
+                  "pipe_consume_ms": statistics.median(consume),
+                  "stream_feed_ms": statistics.median(feed),
+                  "acq_deliver_ms": statistics.median(deliver_acq)})
+    lap("a timed")
+
+    # each wait strategy, 2 steps: the sinks stay equal to phase 4's
+    ref2 = first_steps(phase45[0], WAIT_STEPS)
+    wait_msps = {}
+    for wait in WAITS:
+        wprof = gt.Profiler()
+        ck.reset_launch_counts()
+        got, _, d_s, wall = piped_chain(dev, WAIT_STEPS, wait=wait, profiler=wprof)
+        tally(ck.launch_counts())
+        same = [np.array_equal(x, y) for x, y in zip(got, ref2)]
+        check(all(same), f"piped wait={wait}: sinks differ from phase 4's: {same}")
+        steps_ms = span_ms(wprof, "scheduler.step", tid=thread_tid(d_s))
+        feed = span_ms(wprof, "block.host_feed", block="stream")
+        wait_msps[wait] = WAIT_STEPS * BLOCK_LEN / (sum(steps_ms) * 1e-3) / 1e6
+        print(f"[28a wait={wait}] {WAIT_STEPS} steps of 2^23 with VectorSinks: sinks "
+              f"bitwise equal to phase 4's first {WAIT_STEPS} steps; dsp "
+              f"{wait_msps[wait]:.2f} Msps over its step spans "
+              f"({[round(x, 3) for x in steps_ms]} ms), host_feed "
+              f"{[round(x, 3) for x in feed]} ms; {wall:.3f} s wall {card}")
+    paths.append({"name": "phase 28a wait strategies", "msps": wait_msps})
+    lap("a waits")
+
+    # (b) ScheduledSubgraph: FreqXlatingFir → QuadratureDemod under its own
+    # scheduler on the card, against the same blocks run flat
+    def sub_run(flat: bool):
+        g = gt.Graph()
+        src = ComplexToneSource(frequency=1e6, n_samples=SUB_STEPS * SUB_BLOCK_LEN)
+        fir, dem = chain_xlating_fir(), QuadratureDemod(gain=1.0)
+        snk = VectorSink(name="demod")
+        fed = []
+        if flat:
+            g.connect_chain(src, fir, dem, snk)
+            sub = None
+        else:
+            inner = gt.Graph(name="inner")
+            inner.connect(fir, dem)
+            inner.export_in("in", fir, "in")
+            inner.export_out("out", dem, "out")
+            sub = ScheduledSubgraph(inner, name="sub", out_dtypes={"out": "float32"})
+            feed = sub.host_feed
+
+            def counted(n, abs_index):
+                got = feed(n, abs_index)
+                fed.append(None if got is None else got[1])
+                return got
+            sub.host_feed = counted
+            g.connect_chain(src, sub, snk)
+        sched = gt.Scheduler(g, block_len=SUB_BLOCK_LEN, sample_rate=FS, device=dev)
+        ck.reset_launch_counts()
+        sync(dev)
+        t0 = time.perf_counter()
+        sched.run_and_wait()
+        sync(dev)
+        wall = time.perf_counter() - t0
+        counts = ck.launch_counts()
+        tally(counts)
+        return snk.data(), sched, sub, fed, wall, counts, fir
+
+    flat, f_s, _, _, f_wall, f_counts, f_fir = sub_run(True)
+    out, o_s, sub, fed, wall, counts, fir = sub_run(False)
+    n_sub = SUB_STEPS * SUB_BLOCK_LEN
+    warm = 0
+    for nv in fed:
+        if nv:
+            break
+        warm += 1
+    check(fir._rotation_absorbed and f_fir._rotation_absorbed,
+          "subgraph: the rotation is absorbed in both runs")
+    check(out.shape == flat.shape == (n_sub,),
+          f"subgraph: {out.shape} samples against the flat run's {flat.shape}")
+    check(out[0] == flat[0] and np.array_equal(out, flat),
+          f"subgraph: output differs from the flat run "
+          f"(max|Δ| {float(np.max(np.abs(out - flat))) if out.shape == flat.shape else None})")
+    # one FIR launch a step of each scheduler; the inner one ends with a
+    # step that carries the end of stream
+    check(counts["fir_banded"] == sub._inner_sched.steps == SUB_STEPS + 1
+          and f_counts["fir_banded"] == f_s.steps and counts["nco_mix"] == 0,
+          f"subgraph: launches {counts} over {sub._inner_sched.steps} inner steps, "
+          f"flat {f_counts} over {f_s.steps}")
+    check(sub._inner_sched.device.type == torch.device(dev).type,
+          f"subgraph: inner scheduler on {sub._inner_sched.device}, "
+          f"{sub._inner_sched.steps} steps")
+    print(f"[28b subgraph] ComplexToneSource → ScheduledSubgraph(FreqXlatingFir(127) → "
+          f"QuadratureDemod) → VectorSink, {SUB_STEPS} steps of 2^22: lossless "
+          f"({n_sub} samples), bitwise equal to the flat run, first valid sample "
+          f"{out[0]:.7f} = the flat run's; fir_banded {counts['fir_banded']} launches "
+          f"by the inner scheduler ({sub._inner_sched.steps} inner steps on "
+          f"{sub._inner_sched.device}); warm-up {warm} outer steps of n_valid 0, "
+          f"{o_s.steps} outer steps, {wall / o_s.steps * 1e3:.3f} ms per outer step "
+          f"({wall:.3f} s) against the flat run's {f_wall / f_s.steps * 1e3:.3f} ms "
+          f"({f_s.steps} steps) {card}")
+    paths.append({"name": "phase 28b scheduled subgraph", "warmup_steps": warm,
+                  "outer_steps": o_s.steps, "ms_per_outer_step": wall / o_s.steps * 1e3,
+                  "flat_ms_per_step": f_wall / f_s.steps * 1e3})
+    del out, flat
+    lap("b subgraph")
+
+    # (c) the user-function blocks on the FM tone's demod output
+    np_body = "def process(x):\n    return np.clip(x, -1.0, 1.0) * 0.5"
+    torch_body = "def process(x):\n    return torch.clamp(x, -1.0, 1.0) * 0.5"
+
+    def forms():
+        return {
+            "HostBlock": HostBlock(lambda x: np.clip(x, -1.0, 1.0) * 0.5),
+            "PythonBlock host": PythonBlock(code=np_body, mode="host"),
+            "PythonBlock jax": PythonBlock(code=torch_body, mode="jax"),
+            "LambdaBlock": LambdaBlock(lambda x: torch.clamp(x, -1.0, 1.0) * 0.5),
+            "HostBlock int16": HostBlock(
+                lambda x: np.round(x * USER_QUANT).astype(np.int16),
+                out_shape_fn=lambda x: torch.empty(x.shape, dtype=torch.int16,
+                                                   device="meta")),
+        }
+
+    def user_run(device, block_len):
+        g = gt.Graph()
+        src = VectorSource(data=fm_tone(USER_STEPS * block_len), device_resident=True)
+        dem = QuadratureDemod(gain=USER_GAIN)
+        g.connect_chain(src, chain_xlating_fir(), dem)
+        sinks = {"demod": VectorSink()}
+        g.connect(dem, sinks["demod"])
+        blocks = forms()
+        for name, blk in blocks.items():
+            sinks[name] = VectorSink()
+            g.connect_chain(dem, blk, sinks[name])
+        gt.Scheduler(g, block_len=block_len, sample_rate=FS, device=device).run_and_wait()
+        return {k: v.data() for k, v in sinks.items()}, blocks
+
+    ck.reset_launch_counts()
+    card_out, blocks = user_run(dev, USER_BLOCK_LEN)
+    tally(ck.launch_counts())
+    demod = card_out["demod"]
+    want = np.clip(demod, -1.0, 1.0) * np.float32(0.5)
+    clipped = float(np.mean(np.abs(demod) > 1.0))
+    check(demod.shape == (USER_STEPS * USER_BLOCK_LEN,) and 0.1 < clipped < 0.9,
+          f"user blocks: demod {demod.shape}, clipped share {clipped}")
+    for name in ("HostBlock", "PythonBlock host", "PythonBlock jax", "LambdaBlock"):
+        y = card_out[name]
+        check(y.dtype == np.float32 and np.array_equal(y, want),
+              f"user blocks: {name} differs ({y.dtype}, max|Δ| "
+              f"{float(np.max(np.abs(y - want))) if y.shape == want.shape else y.shape})")
+    q = card_out["HostBlock int16"]
+    check(q.dtype == np.int16 and q.shape == demod.shape
+          and np.array_equal(q, np.round(demod * USER_QUANT).astype(np.int16)),
+          f"user blocks: the int16 HostBlock gave {q.dtype} {q.shape}")
+    cpu_out, _ = user_run("cpu", USER_CPU_BLOCK_LEN)
+    small, _ = user_run(dev, USER_CPU_BLOCK_LEN)
+    diffs = {}
+    for name, y in small.items():
+        y_cpu = cpu_out[name]
+        check(y.shape == y_cpu.shape and y.dtype == y_cpu.dtype,
+              f"user blocks card vs CPU: {name} {y.shape} {y.dtype} against "
+              f"{y_cpu.shape} {y_cpu.dtype}")
+        d = float(np.max(np.abs(y.astype(np.float64) - y_cpu)))
+        tol = USER_GAIN * AUDIO_ATOL * (USER_QUANT if name == "HostBlock int16" else 1.0)
+        diffs[name] = d
+        check(d <= tol + (1.0 if name == "HostBlock int16" else 0.0),
+              f"user blocks card vs CPU: {name} max|Δ| {d} > {tol}")
+    # host ms a step of each form's apply on the card's 2^22 demod tensor
+    x = torch.from_numpy(demod[:USER_BLOCK_LEN]).to(dev)
+    ctx = gt.BlockCtx(in_len={"in": USER_BLOCK_LEN}, out_len={"out": USER_BLOCK_LEN},
+                      sample_rate=FS, params={}, device=torch.device(dev))
+    host_ms = {}
+    for name, blk in forms().items():
+        times = []
+        for _ in range(USER_REPS):
+            sync(dev)
+            t0 = time.perf_counter()
+            blk.apply(None, {"in": x}, ctx)
+            sync(dev)
+            times.append((time.perf_counter() - t0) * 1e3)
+        host_ms[name] = statistics.median(times)
+    print(f"[28c user blocks] FM tone → FreqXlatingFir → QuadratureDemod(gain "
+          f"{USER_GAIN}) → {{HostBlock, PythonBlock host, PythonBlock jax, "
+          f"LambdaBlock}}(clip ±1 · 0.5), {USER_STEPS} steps of 2^22: all four "
+          f"bitwise equal ({clipped:.1%} of samples clipped); the int16 HostBlock "
+          f"int16 {q.shape}; card vs CPU at 2^16 max|Δ| "
+          f"{ {k: float(f'{v:.3g}') for k, v in diffs.items()} }; ms a step of "
+          f"apply + sync on the card at 2^22 (median of {USER_REPS}): "
+          f"{ {k: round(v, 3) for k, v in host_ms.items()} } {card}")
+    paths.append({"name": "phase 28c user blocks", "apply_ms": host_ms})
+    del card_out, cpu_out, small, demod, want, x
+    lap("c user blocks")
+
+    # (d) compute domains: a host tap on the FIR, a gpu:cuda:0 FIR → FFT edge,
+    # through save_grc/load_grc, against the same chain with a plain tap
+    def tapped(domain_fft, domain_tap):
+        g, fir, _, _ = build_chain("vector", fft_domain=domain_fft)
+        g.connect(fir, VectorSink(name="tap"), domain=domain_tap)
+        return g
+
+    loaded = gt.load_grc(gt.save_grc(tapped("gpu:cuda:0", "host")))
+    doms = {e.dst.name: str(e.domain) for e in loaded.edges if e.domain is not None}
+    fft_name = next(e.dst.name for e in loaded.edges
+                    if type(e.dst).__name__ == "FFT")
+    check(doms == {"tap": "host::0", fft_name: "gpu:cuda:0"},
+          f"domains after save_grc/load_grc: {doms}")
+
+    def run_taps(g):
+        ck.reset_launch_counts()
+        gt.Scheduler(g, block_len=BLOCK_LEN, sample_rate=FS,
+                     device=dev).run_and_wait(DOMAIN_STEPS)
+        sync(dev)
+        tally(ck.launch_counts())
+        by = {b.name: b for b in g.blocks}
+        return by["tap"].data(), by["spec"].data(), by["audio"].data()
+
+    tap, spec, audio = run_taps(loaded)
+    tap_f, spec_f, audio_f = run_taps(tapped(None, None))
+    ref = first_steps(phase45[1], DOMAIN_STEPS)
+    check(tap.shape == (DOMAIN_STEPS * BLOCK_LEN,) and np.array_equal(tap, tap_f),
+          "domains: the host tap differs from the flat run's FIR output")
+    check(np.array_equal(spec, spec_f) and np.array_equal(audio, audio_f)
+          and np.array_equal(spec, ref[0]) and np.array_equal(audio, ref[1]),
+          "domains: the tapped chain's sinks differ from the flat run's or phase 5's")
+    try:
+        g_tpu, _, _, _ = build_chain("null", fft_domain="tpu")
+        gt.Scheduler(g_tpu, block_len=BLOCK_LEN, sample_rate=FS, device=dev).init()
+        tpu_err = None
+    except gt.GrError as e:
+        tpu_err = str(e)
+    check(tpu_err is not None and "'tpu'" in tpu_err,
+          f"a tpu edge compiled (error: {tpu_err})")
+    print(f"[28d domains] the chain with a host tap on the FIR and a gpu:cuda:0 FIR → "
+          f"FFT edge: {doms} after save_grc/load_grc; the reloaded chain's tap "
+          f"({tap.dtype} {tap.shape}) bitwise equal to the flat run's FIR output, its "
+          f"sinks to phase 5's (the tap keeps the rotation); a tpu edge refused: "
+          f"{tpu_err.split(' (')[0][:90]}… {card}")
+    del tap, tap_f, spec, spec_f, audio, audio_f
+    lap("d domains")
+
+    # (e) merge on the card, GPS and PPS timing card vs CPU
+    rng = np.random.default_rng(SEED)
+    xm = rng.standard_normal(MERGE_STEPS * MERGE_LEN).astype(np.float32)
+
+    def merge_run(fused: bool):
+        reg = gt.global_registry
+        members = [reg.create("MultiplyConst", value=2.0),
+                   reg.create("AddConst", value=1.0),
+                   reg.create("Decimator", decim=2)]
+        chain = [gt.merge(*members)] if fused else members
+        g = gt.Graph()
+        snk = VectorSink()
+        g.connect_chain(VectorSource(data=xm, device_resident=True), *chain, snk)
+        gt.Scheduler(g, block_len=MERGE_LEN, sample_rate=FS, device=dev).run_and_wait()
+        return snk.data()
+
+    merged, plain = merge_run(True), merge_run(False)
+    check(merged.shape == (MERGE_STEPS * MERGE_LEN // 2,)
+          and np.array_equal(merged, plain)
+          and np.array_equal(merged, (xm * np.float32(2.0) + np.float32(1.0))[::2]),
+          "merge: the merged chain differs from the unmerged one")
+
+    def timing_tags(device):
+        tags = {}
+        g = gt.Graph()
+        snk = VectorSink()
+        g.connect(GpsSource(device=ReplayNmeaDevice([NMEA_OK, NMEA_GGA, NMEA_OK]),
+                            sample_rate=100.0, n_samples=400), snk)
+        gt.Scheduler(g, block_len=100, device=device).run_and_wait()
+        tags["gps"] = [(int(t.index), dict(t.map)) for t in snk.tags
+                       if t.map.get(gt.Keys.TRIGGER_NAME) == "gps_pps"]
+        tags["gps_data"] = snk.data()
+        g = gt.Graph()
+        snk = VectorSink()
+        g.connect(PpsSource(sample_rate=100.0, n_samples=1000), snk)
+        gt.Scheduler(g, block_len=250, device=device).run_and_wait()
+        tags["pps"] = sorted(int(t.index) for t in snk.tags
+                             if t.map.get(gt.Keys.TRIGGER_NAME) == "pps")
+        return tags
+
+    on_card, on_cpu = timing_tags(dev), timing_tags("cpu")
+    check(len(on_card["gps"]) >= 2 and any("lat" in m for _, m in on_card["gps"]),
+          f"GpsSource tags {on_card['gps']}")
+    check(on_card["pps"] == [0, 100, 200, 300, 400, 500, 600, 700, 800, 900],
+          f"PpsSource tags {on_card['pps']}")
+    check(on_card["gps"] == on_cpu["gps"] and on_card["pps"] == on_cpu["pps"]
+          and np.array_equal(on_card["gps_data"], on_cpu["gps_data"]),
+          "timing: the card's tags differ from the CPU's")
+    print(f"[28e merge, timing] merge(MultiplyConst(2), AddConst(1), Decimator(2)) at "
+          f"2^22 × {MERGE_STEPS}: bitwise equal to the unmerged chain; GpsSource on "
+          f"ReplayNmeaDevice: {len(on_card['gps'])} gps_pps tags at "
+          f"{[i for i, _ in on_card['gps']]}, PpsSource: {on_card['pps']}; card equal "
+          f"to CPU {card}")
+    del xm, merged, plain
+    lap("e merge timing")
+
+    # (f) device_trace over one step of the chain
+    g, _, _, _ = build_chain("null")
+    sched = gt.Scheduler(g, block_len=BLOCK_LEN, sample_rate=FS, device=dev)
+    for _ in range(2):
+        sched.step_once()
+    sync(dev)
+    tprof = gt.Profiler("chip_smoke_device")
+    with tprof.device_trace(str(tmp / "device")):
+        sched.step_once()
+        sync(dev)
+    files = sorted((tmp / "device").glob("chip_smoke_device.*.trace.json"))
+    check(len(files) == 1, f"device_trace wrote {files}")
+    events = _json.loads(files[0].read_text())["traceEvents"]
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    fir_k = [k for k in kernels if "fir_banded" in k]
+    check(len(fir_k) == 2, f"device_trace: fir_banded kernels {fir_k} among "
+                           f"{len(kernels)} kernels")
+    print(f"[28f device_trace] one chain step: {len(kernels)} kernels in the chrome "
+          f"trace, {len(fir_k)} of them fir_banded ({[k[:60] for k in fir_k]}) {card}")
+    del sched, g
+    lap("f device trace")
+    shutil.rmtree(tmp, ignore_errors=True)
+    print(f"[28 seconds] wall s by sub-phase {({k: round(v, 2) for k, v in secs.items()})}"
+          f"; phase 28 {sum(secs.values()):.1f} s {card}")
+    paths.append({"name": "phase 28 seconds", "seconds": sum(secs.values()),
+                  "by_sub_phase": secs})
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4486,6 +5079,7 @@ def main() -> int:
                         (time.perf_counter() - t0) / n_timed * 1e3))
     ms = statistics.median(w[0] for w in windows)
     msps = BLOCK_LEN / (ms * 1e-3) / 1e6
+    chain_msps = msps                    # phase 28 reads the piped chain against it
     torch.cuda.reset_peak_memory_stats()
     sched.step_once()
     torch.cuda.synchronize()
@@ -4848,13 +5442,14 @@ def main() -> int:
 
     paths += suite_phases(dev, gen, results)
     yaml_phases(dev, card, phase45, paths)
-    del phase45
     loop_phases(dev, paths)
     modem_phases(dev, paths, results)
     carrier_phases(dev, paths, results)
     acquisition_phases(dev, card, paths, results)
     fec_flow_phases(dev, card, paths, results)
     gnss_coding_phases(dev, card, paths, results)
+    host_core_phases(dev, card, phase45, chain_msps, paths, results)
+    del phase45
 
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "share_of_bound", "library_ms")

@@ -13,6 +13,7 @@ This package imports torch and NumPy and never JAX or PyYAML.
 
 from .core.block import (Block, BlockCtx, HostCtx, Port, PortRef, SinkBlock,
                          SourceBlock, UICategory)
+from .core.compute_domain import ComputeDomain, DomainKind
 from .core.compiler import CompiledGraph, compile_graph, default_device
 from .core.errors import Error, GrError
 from .core.graph import Edge, Graph
@@ -22,21 +23,27 @@ from .core.profiler import NullProfiler, Profiler
 from .core.registry import (BlockRegistry, PluginLoader, global_registry,
                             global_scheduler_registry, register_block,
                             register_scheduler)
+from .core.runtime import PipeSink, Runtime
 from .core.scheduler import (BreadthFirstScheduler, DepthFirstScheduler,
                              Scheduler, SimpleScheduler)
 from .core.settings import Setting, Settings, SettingsCtx
+from .core.stream import StreamSpec
 from .core.tags import Keys, Tag, TagPropagation
 from .core.dataset import Axis, DataSet, SignalMeta
 from .core.datasink import (DataSink, DataSinkQuery, DataSinkRegistry,
+                            DataSetPoller, MultiplexedPoller, OverflowPolicy,
+                            SnapshotPoller, StreamingPoller, TriggerPoller,
                             global_data_sink_registry)
-from .core.trigger import MatchResult
+from .core.merge import merge
+from .core.trigger import (BasicTriggerNameCtxMatcher, MatchResult,
+                           match_trigger)
 from .core.yaml_io import load_grc, run_grc, save_grc
 from .core.checkpoint import load_checkpoint, save_checkpoint
 from .core import pmt
 
 # importing the block library populates the global registry
 from . import blocks  # noqa: E402,F401
-from . import ops  # noqa: E402,F401
+from . import ops, utils  # noqa: E402,F401
 
 __version__ = "0.1.0"
 
@@ -51,6 +58,9 @@ __all__ = [
     "SimpleScheduler", "Setting", "Settings", "SettingsCtx", "Keys", "Tag",
     "TagPropagation", "PluginLoader", "Axis", "DataSet", "SignalMeta",
     "DataSink", "DataSinkQuery", "DataSinkRegistry", "global_data_sink_registry",
-    "MatchResult", "load_grc", "run_grc", "save_grc", "load_checkpoint",
-    "save_checkpoint", "pmt",
+    "DataSetPoller", "MultiplexedPoller", "OverflowPolicy", "SnapshotPoller",
+    "StreamingPoller", "TriggerPoller", "BasicTriggerNameCtxMatcher",
+    "MatchResult", "match_trigger", "load_grc", "run_grc", "save_grc",
+    "load_checkpoint", "save_checkpoint", "pmt", "ComputeDomain", "DomainKind",
+    "StreamSpec", "Runtime", "PipeSink", "merge",
 ]

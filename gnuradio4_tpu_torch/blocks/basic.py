@@ -128,7 +128,7 @@ class SignalGenerator(SourceBlock):
             shape = (n,) if ch == 0 else (ch, n)
             kind = str(self.settings.get("signal"))
             if kind == "UniformNoise":
-                y, key = noise_ops.uniform_noise(state, shape, low=-1.0, high=1.0)
+                y, key = noise_ops.uniform(state, shape, low=-1.0, high=1.0)
             elif kind == "TriangularNoise":
                 y, key = noise_ops.triangular(state, shape)
             else:
@@ -228,8 +228,8 @@ class NoiseSource(SourceBlock):
         if kind == "gaussian":
             y, key = noise_ops.gaussian(state, shape, std=std, mean=mean)
         elif kind == "uniform":
-            y, key = noise_ops.uniform_noise(state, shape, low=mean - std,
-                                             high=mean + std)
+            y, key = noise_ops.uniform(state, shape, low=mean - std,
+                                       high=mean + std)
         elif kind == "triangular":
             y, key = noise_ops.triangular(state, shape, half_range=std, mean=mean)
         else:

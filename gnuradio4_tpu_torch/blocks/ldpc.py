@@ -20,6 +20,8 @@ from ..core.registry import register_block
 from ..core.settings import Setting
 from ..ops.cuda_kernels import device_constant, frozen
 from ..ops.ldpc import LdpcGraph, decode, make_ldpc
+# the names the JAX package's blocks/ldpc exports
+from ..ops.ldpc import encode, min_sum_decode  # noqa: F401
 
 
 def _code(settings):

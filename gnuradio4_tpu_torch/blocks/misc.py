@@ -121,7 +121,7 @@ class FunctionGenerator(SourceBlock):
         dur = _f32(ctx.p("duration", 1.0))
         mode = str(self.settings.get("signal_type"))
         if mode in _FG_NOISE:
-            fn = {"UniformNoise": nz.uniform_noise,
+            fn = {"UniformNoise": nz.uniform,
                   "TriangularNoise": nz.triangular,
                   "GaussianNoise": nz.gaussian}[mode]
             y, key = fn(state, (n,))

@@ -4,7 +4,7 @@ The encoder runs ON DEVICE: the u→x butterfly is log₂N stages of
 reshape + XOR (as mod-2 float32 adds, exact on 0/1 values), three torch ops
 a stage. Successive-cancellation decoding is inherently sequential, so the
 decoder is a frame-rate host call inside the step (the RS pattern,
-blocks/reed_solomon.py :func:`~.reed_solomon.host_call`: one stream
+core/host_call.py :func:`~..core.host_call.host_call`: one stream
 synchronisation a step).
 """
 
@@ -16,11 +16,11 @@ import numpy as np
 import torch
 
 from ..core.block import Block, Port
+from ..core.host_call import host_call
 from ..core.registry import register_block
 from ..core.settings import Setting
 from ..ops.cuda_kernels import device_constant, frozen
 from ..ops.polar import frozen_mask, polar_decode
-from .reed_solomon import host_call
 
 
 @register_block("PolarEncoder")

@@ -22,25 +22,12 @@ run the codec inside the step through :func:`host_call` (the JAX package's
 from __future__ import annotations
 
 import numpy as np
-import torch
 
 from ..core.block import Block, Port
 from ..core.errors import GrError
+from ..core.host_call import host_call
 from ..core.registry import register_block
 from ..core.settings import Setting
-
-
-def host_call(fn, x: torch.Tensor) -> torch.Tensor:
-    """``fn`` (NumPy in, NumPy out) on the values of ``x``, inside a step: the
-    counterpart of the JAX package's ``jax.pure_callback``. The result comes
-    back as float32 on ``x``'s device.
-
-    It synchronises the stream once per call: the copy to the host waits for
-    the kernels that made ``x``, and the step goes on only when the result is
-    back on the device. So a step that holds a host call cannot be captured
-    into one CUDA graph."""
-    y = fn(x.detach().cpu().numpy())
-    return torch.from_numpy(np.ascontiguousarray(y, dtype=np.float32)).to(x.device)
 
 
 class GF256:

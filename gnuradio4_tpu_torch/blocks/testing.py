@@ -194,7 +194,11 @@ class VectorSource(SourceBlock):
             out = data.index_select(-1, take)
             nxt = (idx + n) % total
         else:
-            out = data[..., idx:idx + n]
+            # past the end (the steps after EOS) the window clamps to the
+            # last block, as the JAX package's dynamic_slice does: the
+            # scheduler marks those samples invalid
+            start = min(idx, data.shape[-1] - n)
+            out = data[..., start:start + n]
             nxt = idx + n
         return {"idx": torch.tensor(nxt, dtype=torch.int64), "data": data}, \
             {"out": out}

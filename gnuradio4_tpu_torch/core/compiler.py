@@ -453,6 +453,28 @@ def _feed_dtype(block: Block, port: str) -> np.dtype:
     return np.dtype(canonical_dtype(d)) if d is not None else np.dtype(np.float32)
 
 
+def _consume_domains(graph: Graph) -> None:
+    """Edge ComputeDomain consumption (≈ reference per-edge domain consumed at
+    buffer binding, BlockModel.hpp:89-97): a ``host`` domain forces the dst
+    block's inputs through the host each step (HOST_TAP delivery); ``gpu`` is
+    the graph's device and needs nothing; ``tpu`` and ``fpga`` are refused."""
+    from .compute_domain import DomainKind
+    for e in graph.edges:
+        if e.domain is None:
+            continue
+        if e.domain.kind in (DomainKind.TPU, DomainKind.FPGA):
+            raise GrError(f"edge {e} requests compute domain "
+                          f"{e.domain.kind.value!r}; this package targets "
+                          f"gpu (cuda) and host only")
+        if e.domain.kind is DomainKind.HOST:
+            if not hasattr(e.dst, "consume"):
+                raise GrError(
+                    f"edge {e} has domain=host but {e.dst.name} has no "
+                    f"consume() hook to receive host-side data; use a "
+                    f"SinkBlock or a block with HOST_TAP semantics")
+            e.dst.HOST_TAP = True
+
+
 def compile_graph(graph: Graph, *, block_len: int = 1 << 16,
                   sample_rate: float = 1.0, batch_steps: int = 1,
                   device: torch.device | str | None = None) -> CompiledGraph:
@@ -462,6 +484,7 @@ def compile_graph(graph: Graph, *, block_len: int = 1 << 16,
     device = default_device() if device is None else torch.device(device)
     graph = graph.flatten()
     graph.validate()
+    _consume_domains(graph)
     order = graph.topological_order()
     in_len, out_len = graph.resolve_rates(block_len, sample_rate)
 

@@ -36,6 +36,9 @@ class Edge:
     # fused step function has no buffers for them to size
     min_buffer_size: int = 0
     weight: int = 0
+    # ComputeDomain annotation (≈ per-edge domain, BlockModel.hpp:94); the
+    # compiler consumes it (core/compute_domain.py)
+    domain: Any = None
     # feedback edges close graph cycles (≈ reference feedback merges,
     # BlockMerging.hpp:628-645): dst sees src's output ``delay`` samples
     # late, initialized to ``fb_init``; the compiler runs the cycle as a loop
@@ -96,10 +99,11 @@ class Graph(Block):
     def connect(self, src: Block | PortRef, dst: Block | PortRef,
                 *, src_port: str | None = None, dst_port: str | None = None,
                 name: str = "", min_buffer_size: int = 0, weight: int = 0,
-                feedback: bool = False, delay: int = 1,
+                domain: Any = None, feedback: bool = False, delay: int = 1,
                 fb_init: float = 0.0) -> Edge:
         """Connect an output port to an input port. Accepts ``blk["port"]`` refs,
-        bare blocks (single-port inference), or string port names.
+        bare blocks (single-port inference), or string port names. ``domain``
+        annotates device placement (a ComputeDomain or "kind:backend:idx").
         ``feedback=True`` closes a cycle: dst sees src's output delayed by
         ``delay`` samples (initial value ``fb_init``)."""
         sref = self._resolve(src, src_port, output=True)
@@ -107,11 +111,15 @@ class Graph(Block):
         for b in (sref.block, dref.block):
             self.add(b)
         self._check_ports(sref, dref)
+        if isinstance(domain, str):
+            from .compute_domain import ComputeDomain
+            domain = ComputeDomain.parse(domain)
         if feedback and delay < 1:
             raise ConnectionError_("feedback delay must be >= 1 sample")
         edge = Edge(sref.block, sref.port, dref.block, dref.port, name=name,
                     min_buffer_size=int(min_buffer_size), weight=int(weight),
-                    feedback=feedback, delay=int(delay), fb_init=float(fb_init))
+                    domain=domain, feedback=feedback, delay=int(delay),
+                    fb_init=float(fb_init))
         # single-writer per input port (ring semantics): reject double connection
         for e in self.edges:
             if e.dst is dref.block and e.dst_port == dref.port:
@@ -196,6 +204,23 @@ class Graph(Block):
                                                   dst=d[0], dst_port=d[1]))
         flat.message_edges.extend(self.message_edges)
         return flat
+
+    def adjacency(self) -> dict[Block, list[Edge]]:
+        """src block → outgoing edges (≈ computeAdjacencyList, Graph.hpp:932)."""
+        adj: dict[Block, list[Edge]] = {b: [] for b in self.blocks}
+        for e in self.edges:
+            adj[e.src].append(e)
+        return adj
+
+    def source_blocks(self) -> list[Block]:
+        """Blocks no edge feeds, in insertion order."""
+        has_in = {e.dst for e in self.edges}
+        return [b for b in self.blocks if b not in has_in]
+
+    def sink_blocks(self) -> list[Block]:
+        """Blocks that feed no edge, in insertion order."""
+        has_out = {e.src for e in self.edges}
+        return [b for b in self.blocks if b not in has_out]
 
     def topological_order(self) -> list[Block]:
         # feedback edges close cycles by construction: the forward dataflow

@@ -290,6 +290,17 @@ class Scheduler:
                     self.graph, block_len=self.block_len,
                     sample_rate=self.sample_rate, batch_steps=self.batch_steps,
                     device=self.device)
+                if self.batch_steps > 1 and any(
+                        getattr(b, "FEED", False) and hasattr(b, "consume")
+                        for b in self.compiled.order):
+                    # a ring-bridged subgraph's feed depends on the PREVIOUS
+                    # step's delivery — batching would starve it S steps deep
+                    raise GrError(
+                        "batch_steps > 1 is incompatible with ring-bridged "
+                        "subgraphs (a block with both FEED and consume): its "
+                        "feed consumes the previous step's delivery, which a "
+                        "batched dispatch only produces at the super-step "
+                        "boundary. Run this graph with batch_steps=1.")
                 states = self.compiled.init_states()
                 break
             except GrError as e:
@@ -378,7 +389,8 @@ class Scheduler:
                     feeds[uname] = c.zero_feeds()[uname]
             elif is_feed:
                 try:
-                    got = b.host_feed(c.out_len[uname], self._abs_out[uname])
+                    with self.profiler.duration("block.host_feed", block=b.name):
+                        got = b.host_feed(c.out_len[uname], self._abs_out[uname])
                 except Exception as err:
                     if feed_failures is not None \
                             and self.on_block_error == "prune":
@@ -990,7 +1002,8 @@ class Scheduler:
                     nv = rec.n_valid_ports.get(uname) or \
                         {p.name: nv for p in block.in_ports}
                 try:
-                    block.consume(arrays, tags, nv, rec.abs_in.get(uname, 0))
+                    with self.profiler.duration("block.consume", block=block.name):
+                        block.consume(arrays, tags, nv, rec.abs_in.get(uname, 0))
                 except Exception as err:
                     if deferred is not None:
                         # async worker: zombie pruning mutates the graph —

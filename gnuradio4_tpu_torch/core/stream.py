@@ -10,10 +10,19 @@ graph files stay identical; :func:`torch_dtype` maps a resolved NumPy dtype onto
 the torch dtype a tensor of that stream carries. ``uint32`` streams and states
 (NCO phases) are carried as ``int64`` holding values in ``[0, 2³²)``: torch on
 the CPU has no wrapping uint32 arithmetic.
+
+``bfloat16``, a stream dtype of the JAX package, is refused with a
+:class:`~.errors.GrError`: NumPy has no bfloat16, and the graph's types are
+NumPy dtypes.
+
+``StreamSpec`` is the type that rides on ports/edges — the analog of the
+sample type + ``PortMetaInfo`` (SI units etc., reference Port.hpp:178).
 """
 
 from __future__ import annotations
 
+import dataclasses
+from fractions import Fraction
 from typing import Any
 
 import numpy as np
@@ -48,6 +57,10 @@ _TORCH = {
 
 def canonical_dtype(dtype: Any) -> np.dtype:
     """Stream dtype by name or dtype-like → NumPy dtype (the graph's type)."""
+    if isinstance(dtype, str) and dtype == "bfloat16":
+        from .errors import GrError
+        raise GrError("bfloat16 streams are not carried by this package (NumPy "
+                      "has no bfloat16); use float32")
     if isinstance(dtype, str):
         try:
             return np.dtype(DTYPES[dtype])
@@ -60,3 +73,56 @@ def torch_dtype(dtype: Any) -> torch.dtype:
     """The torch dtype that carries a stream of (canonical) ``dtype``."""
     return _TORCH[canonical_dtype(dtype)]
 
+
+
+_DTYPE_NAMES = {np.dtype(v): k for k, v in DTYPES.items()}
+
+
+def dtype_name(dtype: Any) -> str:
+    """The stream dtype's name (``"complex64"``), as graph files spell it."""
+    return _DTYPE_NAMES.get(np.dtype(dtype), str(np.dtype(dtype)))
+
+
+@dataclasses.dataclass(frozen=True)
+class StreamSpec:
+    """Static description of a stream riding an edge/port.
+
+    ``dtype`` is the NumPy dtype, as the graph's types are. ``sample_rate`` is
+    metadata (Hz at this point of the graph; rate-changing blocks scale it).
+    ``channels`` is the leading batch axis; ``channels == 0`` denotes a 1-D
+    stream shaped ``[block_len]``.
+    """
+
+    dtype: Any = np.float32
+    channels: int = 0
+    sample_rate: float = 1.0
+    # SI metadata (≈ PortMetaInfo, reference Port.hpp:178)
+    signal_name: str = ""
+    signal_unit: str = ""
+    signal_quantity: str = ""
+    signal_min: float = float("-inf")
+    signal_max: float = float("inf")
+
+    def __post_init__(self):
+        object.__setattr__(self, "dtype", canonical_dtype(self.dtype))
+
+    def shape(self, block_len: int) -> tuple[int, ...]:
+        return block_shape(self.channels, block_len)
+
+    def zeros(self, block_len: int, *, device: torch.device | str
+              ) -> torch.Tensor:
+        """A zero time block of this stream on ``device`` (which the caller
+        names: the JAX package's form has no device)."""
+        return torch.zeros(self.shape(block_len), dtype=torch_dtype(self.dtype),
+                           device=device)
+
+    def with_rate(self, ratio: Fraction) -> "StreamSpec":
+        return dataclasses.replace(self, sample_rate=float(self.sample_rate * ratio))
+
+    def compatible(self, other: "StreamSpec") -> bool:
+        return np.dtype(self.dtype) == np.dtype(other.dtype) and \
+            self.channels == other.channels
+
+
+def block_shape(channels: int, block_len: int) -> tuple[int, ...]:
+    return (block_len,) if channels == 0 else (channels, block_len)

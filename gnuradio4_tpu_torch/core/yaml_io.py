@@ -21,9 +21,8 @@ Nested graphs serialize blocks of type ``Graph`` with their own blocks/connectio
 and ``exports: {in: {...}, out: {...}}``.
 
 The text is read and written by this package's own YAML code (``yaml_pmt`` on
-``yaml_lite``); PyYAML is not needed. Edges here carry no compute-domain
-annotation (``core/compute_domain`` is not ported): a ``domain`` attribute
-raises.
+``yaml_lite``); PyYAML is not needed. An edge's compute domain travels as
+its ``domain`` attribute ("kind:backend:idx"), as in the JAX package.
 """
 
 from __future__ import annotations
@@ -89,6 +88,8 @@ def _edge_entry(e) -> list:
         extra["delay"] = int(e.delay)
         if e.fb_init:
             extra["fb_init"] = float(e.fb_init)
+    if e.domain is not None:
+        extra["domain"] = str(e.domain)
     if e.min_buffer_size:
         extra["min_buffer_size"] = int(e.min_buffer_size)
     if e.weight:
@@ -216,15 +217,13 @@ def _build_graph(body: dict[str, Any], registry: BlockRegistry,
             src, dst = by_name[sname], by_name[dname]
         except KeyError as e:
             raise GrError(f"connection references unknown block {e}") from e
-        if extra.get("domain") is not None:
-            raise GrError(f"connection {conn}: compute-domain annotations are "
-                          f"not ported to this package")
         sport = _resolve_port_name(src, sport, output=True)
         dport = _resolve_port_name(dst, dport, output=False)
         g.connect(src, dst, src_port=sport, dst_port=dport,
                   feedback=bool(extra.get("feedback", False)),
                   delay=int(extra.get("delay", 1)),
                   fb_init=float(extra.get("fb_init", 0.0)),
+                  domain=extra.get("domain"),
                   min_buffer_size=int(extra.get("min_buffer_size", 0)),
                   weight=int(extra.get("weight", 0)))
     return g

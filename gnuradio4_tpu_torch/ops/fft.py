@@ -24,6 +24,20 @@ MATMUL_ENGINES = {"matmul": "high", "matmul_exact": "highest",
                   "matmul_bf16": "bf16"}
 
 
+def chunked_fft(x: torch.Tensor, fft_size: int, *,
+                window: torch.Tensor | np.ndarray | None = None) -> torch.Tensor:
+    """Reshape the trailing time axis into ``[-1, fft_size]`` chunks, window,
+    FFT: x [..., T] with T % fft_size == 0 → complex spectra
+    [..., T // fft_size, fft_size]."""
+    lead = x.shape[:-1]
+    xr = x.reshape(*lead, -1, fft_size)
+    if window is not None:
+        real_dt = xr.real.dtype if xr.is_complex() else xr.dtype
+        w = torch.as_tensor(window).to(device=xr.device, dtype=real_dt)
+        xr = xr * w
+    return torch.fft.fft(xr, dim=-1)
+
+
 def magnitude(spectrum: torch.Tensor) -> torch.Tensor:
     return torch.abs(spectrum)
 
@@ -33,8 +47,31 @@ def magnitude_db(spectrum: torch.Tensor, *, floor: float = 1e-20) -> torch.Tenso
     return 10.0 * torch.log10(torch.clamp(p, min=floor))
 
 
+def phase(spectrum: torch.Tensor, *, unwrap: bool = False) -> torch.Tensor:
+    """The spectrum's phase in radians, unwrapped along the last axis on
+    request."""
+    ph = torch.angle(spectrum)
+    if unwrap:
+        d = torch.diff(ph, dim=-1)
+        d = torch.remainder(d + np.pi, 2 * np.pi) - np.pi
+        ph = torch.cat([ph[..., :1], ph[..., :1] + torch.cumsum(d, dim=-1)],
+                       dim=-1)
+    return ph
+
+
 def fftshift(x: torch.Tensor) -> torch.Tensor:
     return torch.fft.fftshift(x, dim=-1)
+
+
+def freq_axis(fft_size: int, sample_rate: float, *, shifted: bool = False,
+              one_sided: bool = False) -> np.ndarray:
+    """The bins' frequencies in Hz (NumPy, host side)."""
+    f = np.fft.fftfreq(fft_size, d=1.0 / sample_rate)
+    if one_sided:
+        return f[: fft_size // 2 + 1].copy()
+    if shifted:
+        return np.fft.fftshift(f)
+    return f
 
 
 def spectrum_scale(fft_size: int, window: np.ndarray | None, *, power: bool,

@@ -12,8 +12,10 @@ with ``& 0xFFFFFFFF`` (as ``ops/signal.py`` does for NCO phases).
 - ``split`` and ``random_bits`` hash the iota of the requested shape (its
   flat index, as hi/lo uint32 words) with the key, as jax 0.9's partitionable
   threefry does; 32-bit draws are ``bits1 ^ bits2``;
-- ``uniform`` puts 23 random mantissa bits under the exponent of 1.0 and
-  scales ``[0, 1)`` onto ``[minval, maxval)``; ``normal`` is
+- the plain uniform draw (``_uniform``) puts 23 random mantissa bits under
+  the exponent of 1.0 and scales ``[0, 1)`` onto ``[minval, maxval)``
+  (``uniform`` is the JAX package's ``noise.uniform``: a split, then that
+  draw on ``[low, high)``); ``normal`` is
   ``√2·erfinv(u)`` with u uniform on ``(nextafter(−1, 0), 1)``.
 
 The bits are exact. The floats go through float32 multiplies and adds in the
@@ -84,8 +86,8 @@ def random_bits(key: torch.Tensor, shape: tuple[int, ...]) -> torch.Tensor:
     return b1.bitwise_xor_(b2)
 
 
-def uniform(key: torch.Tensor, shape: tuple[int, ...], minval=0.0,
-            maxval=1.0) -> torch.Tensor:
+def _uniform(key: torch.Tensor, shape: tuple[int, ...], minval=0.0,
+             maxval=1.0) -> torch.Tensor:
     """``jax.random.uniform(key, shape, float32, minval, maxval)``."""
     bits = random_bits(key, shape)
     # 23 mantissa bits under the exponent of 1.0: a float in [1, 2)
@@ -98,7 +100,7 @@ def uniform(key: torch.Tensor, shape: tuple[int, ...], minval=0.0,
 
 def normal(key: torch.Tensor, shape: tuple[int, ...]) -> torch.Tensor:
     """``jax.random.normal(key, shape, float32)``."""
-    u = uniform(key, shape, _NORMAL_LO, 1.0)
+    u = _uniform(key, shape, _NORMAL_LO, 1.0)
     return torch.erfinv(u).mul_(_SQRT2_F32)
 
 
@@ -116,12 +118,11 @@ def gaussian(key: torch.Tensor, shape: tuple[int, ...], *, std=1.0, mean=0.0
     return x, keys[0]
 
 
-def uniform_noise(key: torch.Tensor, shape: tuple[int, ...], *, low=-1.0,
-                  high=1.0) -> tuple[torch.Tensor, torch.Tensor]:
-    """The JAX package's ``noise.uniform`` (a split, then a uniform draw on
-    ``[low, high)``); named apart from the plain :func:`uniform` draw."""
+def uniform(key: torch.Tensor, shape: tuple[int, ...], *, low=-1.0,
+            high=1.0) -> tuple[torch.Tensor, torch.Tensor]:
+    """A split, then a uniform draw on ``[low, high)``."""
     keys = split(key)
-    return uniform(keys[1], shape, low, high), keys[0]
+    return _uniform(keys[1], shape, low, high), keys[0]
 
 
 def complex_gaussian(key: torch.Tensor, shape: tuple[int, ...], *, std=1.0
@@ -138,7 +139,7 @@ def triangular(key: torch.Tensor, shape: tuple[int, ...], *, half_range=1.0,
                mean=0.0) -> tuple[torch.Tensor, torch.Tensor]:
     """Irwin-Hall(2) triangular noise on [mean−half_range, mean+half_range)."""
     keys = split(key)
-    u = uniform(keys[1], (2, *shape))
+    u = _uniform(keys[1], (2, *shape))
     return ((u[0] + u[1] - 1.0) * float(np.float32(half_range))
             + float(np.float32(mean))), keys[0]
 

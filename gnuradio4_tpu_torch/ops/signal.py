@@ -97,14 +97,16 @@ def complex_exp_ramp(phase0: int, dphi: int, n: int, *, amplitude: float = 1.0,
     return (rot[:, None] * base[None, :]).reshape(n)
 
 
-def nco_rotate(x: torch.Tensor, phase0: int, dphi: int) -> torch.Tensor:
-    """``x · complex_exp_ramp(phase0, dphi, T)`` over the last axis, with the
-    ramp kept factored through the multiply (same uint32 phase grid as
-    complex_exp_ramp; lengths that are not a multiple of B take the direct
-    form)."""
-    m = x.shape[-1]
+def nco_rotate(x: torch.Tensor, phase0: int, dphi: int, n: int | None = None
+               ) -> torch.Tensor:
+    """``x · complex_exp_ramp(phase0, dphi, n)`` over the last axis (``n``
+    defaults to its length), with the ramp kept factored through the multiply
+    (same uint32 phase grid as complex_exp_ramp; lengths that are not a
+    multiple of B, and an ``x`` that broadcasts against the ramp, take the
+    direct form)."""
+    m = x.shape[-1] if n is None else int(n)
     B = _RAMP_TILE
-    if m % B:
+    if m % B or x.shape[-1] != m:
         ramp = complex_exp(phase_to_frac(nco_phases(phase0, dphi, m, x.device)))
         return x * ramp
     coarse = complex_exp(phase_to_frac(

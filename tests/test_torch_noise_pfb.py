@@ -79,10 +79,22 @@ def test_random_bits_match_jax(shape):
 @pytest.mark.parametrize("lo,hi", [(0.0, 1.0), (-1.0, 3.0), (-0.5, 2.0)])
 def test_uniform_matches_jax(lo, hi):
     want = np.asarray(jax.random.uniform(_jkey(7), (50000,), minval=lo, maxval=hi))
-    got = tnoise.uniform(tnoise.key(7), (50000,), lo, hi).numpy()
+    got = tnoise._uniform(tnoise.key(7), (50000,), lo, hi).numpy()
     ulp = np.spacing(np.maximum(np.abs(want), np.abs(lo)).astype(np.float32))
     assert np.all(np.abs(got - want) <= ulp)
     assert got.min() >= lo and got.max() < hi
+
+
+@pytest.mark.parametrize("low,high", [(-1.0, 1.0), (0.25, 4.0)])
+def test_uniform_in_the_jax_packages_form(low, high):
+    """``uniform(key, shape, *, low, high) -> (x, key)``, called as the JAX
+    package's ``ops/noise.uniform`` is: the same next key and the same draw
+    (within one ulp of the range)."""
+    yj, kj = jnoise.uniform(_jkey(5), (3, 4000), low=low, high=high)
+    yt, kt = tnoise.uniform(tnoise.key(5), (3, 4000), low=low, high=high)
+    np.testing.assert_array_equal(kt.numpy(), _kd(kj))
+    ulp = np.spacing(np.float32(max(abs(low), abs(high))))
+    assert np.max(np.abs(yt.numpy() - np.asarray(yj))) <= ulp
 
 
 def test_normal_matches_jax():
@@ -100,7 +112,7 @@ def test_noise_draws_match_jax(kind, shape):
           "complex_gaussian": dict(std=1.5), "triangular": dict(half_range=1.5,
                                                                  mean=0.1)}[kind]
     jf = getattr(jnoise, kind)
-    tf = tnoise.uniform_noise if kind == "uniform" else getattr(tnoise, kind)
+    tf = getattr(tnoise, kind)
     yj, kj = jf(_jkey(11), shape, **{k: jnp.float32(v) for k, v in kw.items()})
     yt, kt = tf(tnoise.key(11), shape, **kw)
     np.testing.assert_array_equal(kt.numpy(), _kd(kj))
