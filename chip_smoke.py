@@ -235,6 +235,30 @@ result line:
     ``Profiler.device_trace`` over one chain step: its kernels include
     ``fir_banded``.
 
+29. the IO entry points, each reading with the wire it crossed: (a) an
+    RTL-SDR FM receiver through the RTL2832U + R820T protocol driver:
+    ``SdrSource(driver="rtlsdr")`` over ``FakeRtlUsb`` (a seeded FM station
+    100 kHz above the tuning, u8 IQ at 2.4 MS/s, converted by the native
+    ``u8iq_to_c64``) → ``make_wbfm_receiver`` (channel FIR 127, demod, audio
+    FIR 127 ÷50, de-emphasis) → ``AudioSink(backend="file")`` at 48 kHz,
+    block 2^18 (rounded to a multiple of 50), 2 + 8 steps: the 2 kHz tone,
+    the WAV's frames, ms a step, the host feed split into the driver's bulk
+    read and the conversion, the real-time factor, launches a step, the card
+    against the CPU; ``fir_banded`` at the receiver's two shapes; (b) phase
+    4's input recorded through ``SigmfSink`` as ``cf32_le`` and ``ci16_le``
+    and replayed through ``SigmfSource`` into the chain: ``cf32_le`` bitwise
+    equal to phase 4's sinks, ``ci16_le`` within the quantisation error the
+    phase states; Msps, the source's host ms and the conversion's ms; (c)
+    two graphs joined by TCP on localhost under a ``Runtime``
+    (ComplexToneSource → FreqXlatingFir(127) → TcpSink ⇒ TcpSource →
+    QuadratureDemod → FirFilter(63, ÷8)) at 2^22 complex64, bitwise equal to
+    the chain in one graph, Msps and host ms of each side; UDP at a small
+    size; (d) phase 28a's timed piped chain, which crosses the native ring,
+    read beside PR 16's over the NumPy ring (no second run); (e)
+    the 14 new registry names (the ZeroMQ four exactly when pyzmq imports)
+    and ``SdrSource(driver="soapy")`` on a fake libSoapySDR built from
+    ``tests/fake_soapy.cpp``. Every ring of the phase is native.
+
 Phases 13–17 each print the card against the CPU on a short run of the same
 graph, Msps (coded Mbit/s for 7 and 7k), ms per step by CUDA events over 5
 windows, host ms per step, the device-busy share of one profiled step, peak
@@ -509,6 +533,35 @@ MERGE_STEPS = 2
 # tests/test_io_blocks.py:145-184
 NMEA_OK = "$GPRMC,123519,A,4807.038,N,01131.000,E,022.4,084.4,230394,003.1,W*6A"
 NMEA_GGA = "$GPGGA,123519,4807.038,N,01131.000,E,1,08,0.9,545.4,M,46.9,M,,*47"
+# phase 29: the IO entry points. (a) an RTL-SDR FM receiver: the driver's
+# 2.4 MS/s (28.8 MHz · 2^22 / ratio, exact here), the station 100 kHz above
+# the tuning, a 2 kHz tone at 75 kHz deviation, ÷50 to 48 kHz audio; block
+# 2^18 (rounded by the rate algebra to a multiple of 50), 2 warm-up and 8
+# timed steps; the card against the CPU on 2 steps of 50·4096
+RTL_FS = 2.4e6
+RTL_FC = 100e6
+RTL_OFFSET = 100e3
+RTL_TONE = 2000.0
+RTL_DEV = 75e3
+RTL_DECIM = 50
+RTL_BLOCK_LEN = 1 << 18
+RTL_WARM = 2
+RTL_STEPS = 8
+RTL_CPU_BLOCK_LEN = RTL_DECIM * 4096
+RTL_NOISE = 0.02                 # seeded complex noise on the fake's air
+# WBFM audio (|audio| ≲ 1 at full deviation), card against CPU: f32 FIRs of
+# 127 taps, atan2 and the de-emphasis in two libraries (tests/
+# test_torch_sdr_drivers.py holds the port to the JAX package within 1e-5)
+RTL_ATOL = 1e-4
+# (b) SigMF replay of phase 4's input (STEPS steps of 2^23), then 2 + 8
+# steps of it repeated for the timing
+SIGMF_WARM = 2
+SIGMF_TIMED = 8
+# (c) two graphs joined by TCP at 2^22 complex64: 2 warm-up steps + 4
+TCP_BLOCK_LEN = 1 << 22
+TCP_STEPS = 6
+UDP_SAMPLES = 80_000
+PHASE29_TIMEOUT = 300.0
 KERNELS = {
     "fir_banded": {
         "source": "gnuradio4_tpu_torch/csrc/fir_banded.cu",
@@ -4155,6 +4208,35 @@ def thread_tid(sched) -> int:
     return sched._runner.ident % 100000
 
 
+def count_fir_shapes(by_shape: dict):
+    """Context manager: while it is open, each ``fir_banded`` launch that a
+    graph's FIR makes is added to ``by_shape`` under (stream 'c64'|'f32',
+    taps, decim, samples). It wraps ops/fir.py's name for the kernel's
+    wrapper and counts a call only when the wrapper's own count moved."""
+    import contextlib
+    from gnuradio4_tpu_torch.ops import cuda_kernels as ck
+    from gnuradio4_tpu_torch.ops import fir as tfir
+
+    @contextlib.contextmanager
+    def patched():
+        inner = tfir.fir_banded
+
+        def counted(x, hist, taps, decim=1):
+            before = ck.fir_banded.launches
+            y = inner(x, hist, taps, decim)
+            if ck.fir_banded.launches > before:
+                key = ("c64" if x.is_complex() else "f32", len(taps), int(decim),
+                       int(x.shape[-1]))
+                by_shape[key] = by_shape.get(key, 0) + ck.fir_banded.launches - before
+            return y
+        tfir.fir_banded = counted
+        try:
+            yield by_shape
+        finally:
+            tfir.fir_banded = inner
+    return patched()
+
+
 def pipe_source(wait: str = "sleep"):
     """Phase 28(a)'s StreamSource: complex64, a ring of PIPE_CAPACITY items."""
     from gnuradio4_tpu_torch.blocks.python_block import StreamSource
@@ -4286,6 +4368,8 @@ def host_core_phases(dev, card: str, phase45, chain_msps: float, paths: list,
     prof = gt.Profiler("chip_smoke")
     stream = pipe_source()
     ring = stream._ensure_ring()
+    check(ring.is_native and ring.producers == "multi",
+          f"pipe: ring native {ring.is_native}, producers {ring.producers}")
     stop = threading.Event()
 
     def sample_ring():
@@ -4339,9 +4423,13 @@ def host_core_phases(dev, card: str, phase45, chain_msps: float, paths: list,
           f"{statistics.median(feed):.3f}; 4 host copies of 64 MiB a step; the "
           f"ring's fill (items) min/median/max {min(fills, default=0)}/"
           f"{int(statistics.median(fills)) if fills else 0}/{max(fills, default=0)} over "
-          f"{len(fills)} samples; trace {len(doc['traceEvents'])} events {card}")
+          f"{len(fills)} samples; trace {len(doc['traceEvents'])} events; the ring "
+          f"native {ring.is_native}, producers {ring.producers!r}, capacity "
+          f"{ring.capacity} {card}")
     paths.append({"name": "phase 28a piped chain", "msps": msps, "msps_wall": msps_wall,
                   "ms_per_step": dsp_ms, "phase4_msps": chain_msps,
+                  "ring_native": ring.is_native, "ring_producers": ring.producers,
+                  "ring_capacity": ring.capacity,
                   "pipe_consume_ms": statistics.median(consume),
                   "stream_feed_ms": statistics.median(feed),
                   "acq_deliver_ms": statistics.median(deliver_acq)})
@@ -4657,6 +4745,484 @@ def host_core_phases(dev, card: str, phase45, chain_msps: float, paths: list,
     print(f"[28 seconds] wall s by sub-phase {({k: round(v, 2) for k, v in secs.items()})}"
           f"; phase 28 {sum(secs.values()):.1f} s {card}")
     paths.append({"name": "phase 28 seconds", "seconds": sum(secs.values()),
+                  "by_sub_phase": secs})
+
+
+def io_phases(dev, card: str, phase45, paths: list, results: dict) -> None:
+    """Phase 29: the IO entry points — an RTL-SDR FM receiver through the
+    protocol driver, a SigMF replay of the chain, two graphs joined by TCP,
+    the piped chain over the native ring, and the registry and drivers."""
+    import importlib.util
+    import socket
+    import tempfile
+    import wave
+    import numpy as np
+    import torch
+    import gnuradio4_tpu_torch as gt
+    from gnuradio4_tpu_torch.blocks import rtl2832 as trtl
+    from gnuradio4_tpu_torch.blocks import sdr as tsdr
+    from gnuradio4_tpu_torch.blocks import sigmf as tsigmf
+    from gnuradio4_tpu_torch.blocks import soapy as tsoapy
+    from gnuradio4_tpu_torch.blocks.audio import AudioSink
+    from gnuradio4_tpu_torch.blocks.basic import ComplexToneSource
+    from gnuradio4_tpu_torch.blocks.filter import FirFilter
+    from gnuradio4_tpu_torch.blocks.network import TcpSink, TcpSource
+    from gnuradio4_tpu_torch.blocks.sdr import QuadratureDemod
+    from gnuradio4_tpu_torch.blocks.testing import NullSink, VectorSink
+    from gnuradio4_tpu_torch.native import convert as cv
+    from gnuradio4_tpu_torch.native import ring as nring
+    from gnuradio4_tpu_torch.ops import cuda_kernels as ck
+    from gnuradio4_tpu_torch.ops import filter_design as fd
+
+    secs = {}
+    t_sub = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_io_"))
+
+    def lap(name: str) -> None:
+        nonlocal t_sub
+        now = time.perf_counter()
+        secs[name] = now - t_sub
+        t_sub = now
+
+    def tally(counts: dict) -> None:
+        for k in KERNELS:
+            results[k]["launches"] += counts[k]
+
+    def timed(fn, sink: list):
+        def wrapper(*a, **kw):
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            sink.append((time.perf_counter() - t0) * 1e3)
+            return out
+        return wrapper
+
+    def med(xs) -> float:
+        return statistics.median(xs) if xs else float("nan")
+
+    check(nring.native_available() and cv.native_available(),
+          "the native ring and converters did not build")
+    print(f"[29 native] ring {nring._lib._name}, converters {cv._lib._name} "
+          f"(built at first use by g++) {card}")
+
+    # (a) an RTL-SDR FM receiver through the real protocol driver
+    rng = np.random.default_rng(SEED)
+    period = int(RTL_FS / RTL_TONE)            # samples a tone cycle
+    k = np.arange(100 * period)                # whole cycles: the repeat is seamless
+    msg = np.sin(2 * np.pi * k / period)
+    air = (0.8 * np.exp(1j * 2 * np.pi * RTL_DEV / RTL_FS * np.cumsum(msg))
+           + RTL_NOISE * (rng.standard_normal(len(k)) + 1j * rng.standard_normal(len(k))))
+
+    def rtl_graph(sink):
+        fake = trtl.FakeRtlUsb(waveform=air, waveform_freq=RTL_FC + RTL_OFFSET)
+        src = tsdr.SdrSource(name="rtl", driver="rtlsdr",
+                             device=trtl._make_rtlsdr_device()(usb=fake),
+                             sample_rate=RTL_FS, center_frequency=RTL_FC)
+        rx = tsdr.make_wbfm_receiver(quad_rate=RTL_FS, audio_decim=RTL_DECIM,
+                                     center_freq=RTL_OFFSET, max_dev=RTL_DEV,
+                                     ntaps=127)
+        g = gt.Graph()
+        g.add(rx)
+        g.connect(src, rx["in"])
+        g.connect(rx["out"], sink)
+        return g, rx, fake
+
+    wav = tmp / "rtl_fm.wav"
+    asink = AudioSink(name="speaker", backend="file", device=str(wav),
+                      sample_rate=RTL_FS / RTL_DECIM)
+    g, rx, fake = rtl_graph(asink)
+    bulk_ms, conv_ms = [], []
+    fake.on_bulk_read(timed(fake._gen_samples, bulk_ms))
+    u8iq = cv.u8iq_to_c64
+    cv.u8iq_to_c64 = timed(u8iq, conv_ms)
+    prof = gt.Profiler()
+    by_shape, fir_run = {}, 0         # fir_banded launches of (a)'s runs
+    try:
+        sched = gt.Scheduler(g, block_len=RTL_BLOCK_LEN, sample_rate=RTL_FS,
+                             device=dev, profiler=prof)
+        step_ms, per_step = [], []
+        for i in range(RTL_WARM + RTL_STEPS):
+            if i == RTL_WARM:
+                bulk_ms.clear()
+                conv_ms.clear()
+                sched.profiler = prof = gt.Profiler()
+            ck.reset_launch_counts()
+            s_ev = torch.cuda.Event(enable_timing=True)
+            e_ev = torch.cuda.Event(enable_timing=True)
+            s_ev.record()
+            with count_fir_shapes(by_shape):
+                check(sched.step_once(), "rtl: the stream ended")
+            e_ev.record()
+            torch.cuda.synchronize()
+            counts = ck.launch_counts()
+            tally(counts)
+            fir_run += counts["fir_banded"]
+            if i >= RTL_WARM:
+                step_ms.append(s_ev.elapsed_time(e_ev))
+                per_step.append(counts)
+        finish(sched)
+        for b in sched.compiled.order:
+            b.stop()
+    finally:
+        cv.u8iq_to_c64 = u8iq
+    bl = sched.compiled.block_len
+    n_audio = bl // RTL_DECIM
+    with wave.open(str(wav)) as w:
+        frames, rate = w.getnframes(), w.getframerate()
+        pcm = np.frombuffer(w.readframes(frames), "<i2").astype(np.float32) / 32768.0
+    check(rate == int(RTL_FS / RTL_DECIM) and frames == (RTL_WARM + RTL_STEPS) * n_audio,
+          f"rtl: WAV {frames} frames at {rate} Hz, expected "
+          f"{(RTL_WARM + RTL_STEPS) * n_audio} at {RTL_FS / RTL_DECIM:.0f}")
+    settled = pcm[n_audio:]
+    spec = np.abs(np.fft.rfft(settled * np.hanning(len(settled))))
+    kk = int(np.argmax(spec[1:])) + 1
+    f_hz = kk * rate / len(settled)
+    share = float(spec[kk - 2:kk + 3].sum() / spec[1:].sum())
+    check(abs(f_hz - RTL_TONE) < 20.0 and share > 0.25,
+          f"rtl: audio peak at {f_hz:.1f} Hz with {share:.1%} of the spectrum")
+    fir_per = {c["fir_banded"] for c in per_step}
+    nco_per = {c["nco_mix"] for c in per_step}
+    check(fir_per == {2}, f"rtl: fir_banded launches a step {fir_per}")
+    feed = span_ms(prof, "block.host_feed", block="rtl")
+    consume = span_ms(prof, "block.consume", block="speaker")
+    ms = med(step_ms)
+    rtf = bl / RTL_FS / (ms * 1e-3)
+    print(f"[29a rtl-sdr] wire: USB bulk endpoint 0x81 (FakeRtlUsb, u8 IQ, "
+          f"{len(air)}-sample seeded station at +{RTL_OFFSET / 1e3:.0f} kHz) → "
+          f"rtlsdr driver → native u8iq → card → WAV file; block_len {bl} at "
+          f"{fake.sample_rate:.1f} S/s, {RTL_STEPS} timed steps after {RTL_WARM}: "
+          f"{ms:.3f} ms a step (CUDA events; steps {[round(x, 3) for x in step_ms]}), "
+          f"real-time factor {rtf:.2f}; host_feed {med(feed):.3f} ms (bulk read "
+          f"{med(bulk_ms):.3f}, u8iq conversion {med(conv_ms):.3f}), AudioSink "
+          f"consume {med(consume):.3f} ms; launches a step fir_banded {fir_per}, "
+          f"nco_mix {nco_per}; WAV {frames} frames at {rate} Hz; audio peak "
+          f"{f_hz:.2f} Hz ({share:.1%} of the spectrum) {card}")
+    paths.append({"name": "phase 29a rtl-sdr fm", "ms_per_step": ms,
+                  "real_time_factor": rtf, "host_feed_ms": med(feed),
+                  "bulk_read_ms": med(bulk_ms), "u8iq_ms": med(conv_ms),
+                  "consume_ms": med(consume), "block_len": bl})
+    del sched, g
+    audios = {}
+    for device in ("cpu", dev):
+        snk = VectorSink()
+        g, _, _ = rtl_graph(snk)
+        ck.reset_launch_counts()
+        with count_fir_shapes(by_shape):
+            gt.Scheduler(g, block_len=RTL_CPU_BLOCK_LEN, sample_rate=RTL_FS,
+                         device=device).run_and_wait(2)
+        sync(dev)
+        counts = ck.launch_counts()
+        tally(counts)
+        fir_run += counts["fir_banded"]
+        audios[str(device)] = snk.data()
+    a_cpu, a_card = audios["cpu"], audios[str(dev)]
+    err = float(np.max(np.abs(a_cpu - a_card))) if a_cpu.shape == a_card.shape else np.inf
+    print(f"[29a rtl-sdr] card vs CPU, 2 steps of {RTL_CPU_BLOCK_LEN}: audio "
+          f"{a_card.shape}, max|Δ| {err:.3e} (tol {RTL_ATOL}) {card}")
+    check(err <= RTL_ATOL, f"rtl: card vs CPU {err}")
+    check(sum(by_shape.values()) == fir_run,
+          f"rtl: fir_banded launches by shape {by_shape} against {fir_run} counted")
+    print(f"[29a rtl-sdr] fir_banded launches by (stream, K, decim, T) over the "
+          f"timed run and the card's check run: {by_shape} {card}")
+    # fir_banded at the timed run's two shapes, on the receiver's own taps:
+    # the channel filter (c64 × f32 K 127 ÷1) and the audio filter (f32 K 127
+    # ÷50); each row's launches are those counted at its shape above
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    rows = results["fir_banded"].setdefault("timed_shapes", [])
+    for blk, x_dt, decim in ((f"{rx.name}.channel", torch.complex64, 1),
+                             (f"{rx.name}.audio", torch.float32, RTL_DECIM)):
+        taps_np = next(b for b in rx.blocks if b.name == blk).settings.get("taps")
+        taps = torch.from_numpy(np.ascontiguousarray(taps_np, np.float32)).to(dev)
+        kt = taps.shape[0]
+        launches = by_shape.get(("c64" if x_dt == torch.complex64 else "f32", kt,
+                                 decim, bl), 0)
+        check(launches == RTL_WARM + RTL_STEPS,
+              f"fir_banded, {blk}: {launches} launches at its shape {by_shape}")
+        x = torch.randn(bl, dtype=x_dt, device=dev, generator=gen)
+        hist = torch.randn(kt - 1, dtype=x_dt, device=dev, generator=gen)
+        fe = float((ck.fir_banded(x, hist, taps, decim)
+                    - ck.fir_banded_ref(x, hist, taps, decim)).abs().max())
+        k_ms, p_ms = kernel_vs_plain_ms(lambda: ck.fir_banded(x, hist, taps, decim),
+                                        lambda: ck.fir_banded_ref(x, hist, taps, decim))
+        b_ms, b_by = bound_ms(*fir_work((bl,), x.is_complex(), False, kt, decim))
+        lib = conv1d_ms(x, hist, taps, decim)
+        kind = "c64 × f32" if x.is_complex() else "f32 × f32"
+        print(f"[29a fir_banded, {blk}] {kind} K {kt} ÷{decim} T {bl}: max|Δ| "
+              f"{fe:.3e} (tol {FIR_ATOL}); kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
+              f"bound {b_ms:.5f} ms ({b_by}), {b_ms / k_ms:.1%} of it; F.conv1d "
+              f"(TF32 off) {lib:.4f} ms; {launches} launches {card}")
+        check(fe <= FIR_ATOL, f"fir_banded, {blk}: {fe}")
+        results["fir_banded"]["max_abs_err"] = max(results["fir_banded"]["max_abs_err"], fe)
+        row = {"case": f"phase 29 {blk}: {kind} K {kt} ÷{decim} T {bl}",
+               "launches": launches, "max_abs_err": fe, "ms": k_ms, "plain_ms": p_ms,
+               "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib}
+        rows.append(row)
+        paths.append({"name": f"phase 29 fir_banded {row['case']}", **row})
+    lap("a rtl")
+
+    # (b) SigMF: phase 4's input recorded (cf32_le and ci16_le), replayed
+    # into the chain
+    def record(base, datatype):
+        g = gt.Graph()
+        snk = tsigmf.SigmfSink(path=str(base), datatype=datatype)
+        g.connect(ComplexToneSource(frequency=1e6, n_samples=STEPS * BLOCK_LEN), snk)
+        t0 = time.perf_counter()
+        gt.Scheduler(g, block_len=BLOCK_LEN, sample_rate=FS, device=dev).run_and_wait()
+        return time.perf_counter() - t0
+
+    def replay(base, sinks, steps, repeat=False, profiler=None):
+        src = tsigmf.SigmfSource(name="sigmf", path=str(base), repeat=repeat)
+        g, fir, s1, s2 = build_chain(sinks, source=src)
+        kw = {"profiler": profiler} if profiler is not None else {}
+        return gt.Scheduler(g, block_len=BLOCK_LEN, sample_rate=FS, device=dev,
+                            **kw), fir, s1, s2
+
+    absorbed = phase45[0]
+    xl_taps = chain_xlating_fir().settings.get("taps")
+    audio_taps = fd.design_fir("lowpass", 63, sample_rate=FS, f_low=1e6)
+    # ci16_le's error: half a step of rounding and up to one step of the
+    # ×32767/÷32768 scales on each of I and Q, through the FIR (ℓ1 of its
+    # taps), into the 4096-point Hann FFT (ℓ1 of the window) and the demod
+    # (the angle moves by ≤ 2|Δy|/|y| with |y| ≥ 0.5 for the tone in the
+    # pass band), then the audio FIR; plus the float32 tolerances
+    e_x = np.sqrt(2.0) * 2.0 / 32768
+    e_y = float(np.sum(np.abs(xl_taps))) * e_x
+    spec_tol = float(np.sum(np.hanning(4096))) * e_y + SPEC_RTOL * float(np.max(absorbed[0]))
+    audio_tol = float(np.sum(np.abs(audio_taps))) * 2 * e_y / 0.5 + AUDIO_ATOL
+    for datatype in (None, "ci16_le"):
+        name = datatype or "cf32_le"
+        base = tmp / f"chain_{name}"
+        rec_s = record(base, datatype)
+        size = (tmp / f"chain_{name}.sigmf-data").stat().st_size
+        meta = json.loads((tmp / f"chain_{name}.sigmf-meta").read_text())
+        check(meta["global"]["core:datatype"] == name
+              and meta["global"]["core:sample_rate"] == FS
+              and size == STEPS * BLOCK_LEN * (8 if datatype is None else 4),
+              f"sigmf {name}: meta {meta['global']}, {size} bytes")
+        ck.reset_launch_counts()
+        sched, fir, s1, s2 = replay(base, "vector", STEPS)
+        sched.run_and_wait(STEPS)
+        sync(dev)
+        counts = ck.launch_counts()
+        tally(counts)
+        got = (s1.data(), s2.data())
+        if datatype is None:
+            same = [np.array_equal(a, b) for a, b in zip(got, absorbed)]
+            check(all(same), f"sigmf cf32_le replay: sinks equal to phase 4's: {same}")
+            verdict = "bitwise equal to phase 4's"
+        else:
+            check(got[0].shape == absorbed[0].shape and got[1].shape == absorbed[1].shape,
+                  f"sigmf ci16_le: shapes {got[0].shape} {got[1].shape}")
+            ds = float(np.max(np.abs(got[0] - absorbed[0])))
+            da = float(np.max(np.abs(got[1][8:] - absorbed[1][8:])))
+            check(ds <= spec_tol and da <= audio_tol,
+                  f"sigmf ci16_le: spectrum max|Δ| {ds} (tol {spec_tol}), audio "
+                  f"{da} (tol {audio_tol})")
+            verdict = (f"within the quantisation error of phase 4's: spectrum "
+                       f"max|Δ| {ds:.3e} (tol {spec_tol:.3e}), audio max|Δ| "
+                       f"{da:.3e} (tol {audio_tol:.3e})")
+        check(counts["fir_banded"] == 2 * STEPS and counts["nco_mix"] == 0,
+              f"sigmf {name}: launches {counts}")
+        del got
+        # timing: the recording repeated, NullSinks, per-step CUDA events
+        conv = []
+        w2iq = tsigmf._wire_to_iq
+        tsigmf._wire_to_iq = timed(w2iq, conv)
+        tprof = gt.Profiler()
+        ck.reset_launch_counts()
+        try:
+            sched, _, _, _ = replay(base, "null", 0, repeat=True, profiler=tprof)
+            for _ in range(SIGMF_WARM):
+                sched.step_once()
+            sync(dev)
+            conv.clear()
+            sched.profiler = tprof = gt.Profiler()
+            ms_b, windows = events_ms_per_step(sched.step_once, SIGMF_TIMED, windows=1)
+            finish(sched)
+        finally:
+            tsigmf._wire_to_iq = w2iq
+        sync(dev)
+        t_counts = ck.launch_counts()
+        tally(t_counts)
+        check(t_counts["fir_banded"] == 2 * (SIGMF_WARM + SIGMF_TIMED),
+              f"sigmf {name} timing: launches {t_counts}")
+        feed = span_ms(tprof, "block.host_feed", block="sigmf")
+        msps = BLOCK_LEN / (ms_b * 1e-3) / 1e6
+        print(f"[29b sigmf {name}] wire: disk → page cache → mapped .sigmf-data "
+              f"({size / 2**20:.0f} MiB, {size / STEPS / 2**20:.0f} MiB a step) → "
+              f"card; recorded by SigmfSink in {rec_s:.3f} s; replay into the chain, "
+              f"{STEPS} steps of 2^23: {verdict}; launches {counts}; timed "
+              f"{SIGMF_TIMED} steps (repeat): {msps:.2f} Msps ({ms_b:.3f} ms a step, "
+              f"CUDA events; launches {t_counts}), SigmfSource.host_feed "
+              f"{med(feed):.3f} ms a step"
+              + (f", the native ci16 conversion {med(conv):.3f} ms of it" if conv
+                 else " (cf32_le: a copy, no conversion)") + f" {card}")
+        paths.append({"name": f"phase 29b sigmf {name}", "msps": msps,
+                      "ms_per_step": ms_b, "host_feed_ms": med(feed),
+                      "convert_ms": med(conv) if conv else 0.0,
+                      "record_s": rec_s})
+        (tmp / f"chain_{name}.sigmf-data").unlink()
+    lap("b sigmf")
+
+    # (c) two graphs joined by TCP on localhost, against one graph
+    def free_port(kind=socket.SOCK_STREAM) -> int:
+        with socket.socket(socket.AF_INET, kind) as so:
+            so.bind(("127.0.0.1", 0))
+            return so.getsockname()[1]
+
+    def demod_audio():
+        return (QuadratureDemod(gain=1.0),
+                FirFilter(taps=fd.design_fir("lowpass", 63, sample_rate=FS,
+                                             f_low=1e6).astype(np.float32), decim=8))
+
+    n_tcp = TCP_STEPS * TCP_BLOCK_LEN
+    os.environ["GR4TPU_NO_ROTATION_ABSORB"] = "1"   # as the split graph, whose
+    try:                                            # FIR feeds a socket
+        g = gt.Graph()
+        ref_snk = VectorSink()
+        dem, aud = demod_audio()
+        g.connect_chain(ComplexToneSource(frequency=1e6, n_samples=n_tcp),
+                        chain_xlating_fir(), dem, aud, ref_snk)
+        ck.reset_launch_counts()
+        gt.Scheduler(g, block_len=TCP_BLOCK_LEN, sample_rate=FS, device=dev).run_and_wait()
+        sync(dev)
+        ref_counts = ck.launch_counts()
+    finally:
+        os.environ.pop("GR4TPU_NO_ROTATION_ABSORB", None)
+    tally(ref_counts)
+    port = free_port()
+    tprof = gt.Profiler()
+    tx, rx = gt.Graph(name="tx"), gt.Graph(name="rx")
+    fir = chain_xlating_fir()
+    tx.connect_chain(ComplexToneSource(frequency=1e6, n_samples=n_tcp), fir,
+                     TcpSink(name="tcp_tx", port=port, listen=True))
+    tcp_src = TcpSource(name="tcp_rx", port=port, listen=False, dtype="complex64",
+                        n_samples=n_tcp, connect_timeout=PHASE29_TIMEOUT)
+    rx_snk = VectorSink()
+    dem, aud = demod_audio()
+    rx.connect_chain(tcp_src, dem, aud, rx_snk)
+    rt = gt.Runtime("phase29")
+    kw = dict(block_len=TCP_BLOCK_LEN, sample_rate=FS, device=dev, profiler=tprof)
+    a_s, d_s = rt.add(tx, name="tx", **kw), rt.add(rx, name="rx", **kw)
+    ck.reset_launch_counts()
+    sync(dev)
+    t0 = time.perf_counter()
+    rt.run_all(timeout=PHASE29_TIMEOUT)
+    sync(dev)
+    wall = time.perf_counter() - t0
+    counts = ck.launch_counts()
+    tally(counts)
+    check(not fir._rotation_absorbed, "tcp: the FIR feeding a socket derotates")
+    got, want = rx_snk.data(), ref_snk.data()
+    check(got.shape == want.shape == (n_tcp // 8,) and np.array_equal(got, want),
+          f"tcp: {got.shape} samples against {want.shape}, equal "
+          f"{got.shape == want.shape and np.array_equal(got, want)}")
+    check(counts == ref_counts, f"tcp: launches {counts} against one graph's {ref_counts}")
+    ring = tcp_src._feeder.ring
+    check(ring.is_native, "tcp: the source's ring is not native")
+    rx_steps = span_ms(tprof, "scheduler.step", tid=thread_tid(d_s))
+    tx_steps = span_ms(tprof, "scheduler.step", tid=thread_tid(a_s))
+    send = span_ms(tprof, "block.consume", block="tcp_tx")
+    recv = span_ms(tprof, "block.host_feed", block="tcp_rx")
+    rx_ms = med(rx_steps[2:] or rx_steps)
+    msps = TCP_BLOCK_LEN / (rx_ms * 1e-3) / 1e6
+    gbps = TCP_BLOCK_LEN * 8 / (rx_ms * 1e-3) / 1e9
+    print(f"[29c tcp] wire: TCP over localhost between two graphs under one Runtime "
+          f"(ComplexToneSource → FreqXlatingFir(127) → TcpSink ⇒ TcpSource → "
+          f"QuadratureDemod → FirFilter(63, ÷8)), {TCP_STEPS} steps of 2^22 "
+          f"complex64: bitwise equal to the chain in one graph (derotated), launches "
+          f"{counts} = one graph's; rx {msps:.2f} Msps ({rx_ms:.3f} ms a step after 2, "
+          f"{gbps:.2f} GB/s of samples), tx step {med(tx_steps):.3f} ms; host ms a "
+          f"step: TcpSink.consume {med(send):.3f}, TcpSource.host_feed "
+          f"{med(recv):.3f}; {wall:.3f} s wall; the source's ring native "
+          f"(capacity {ring.capacity}) {card}")
+    paths.append({"name": "phase 29c tcp", "msps": msps, "ms_per_step": rx_ms,
+                  "gbytes_per_s": gbps, "send_ms": med(send), "recv_ms": med(recv)})
+    del got, want
+    uport = free_port(socket.SOCK_DGRAM)
+    rt = gt.Runtime("phase29udp")
+    rx, tx = gt.Graph(), gt.Graph()
+    usnk = VectorSink()
+    usrc = gt.global_registry.create("UdpSource", port=uport, n_samples=UDP_SAMPLES,
+                                     idle_timeout=20.0)
+    rx.connect(usrc, usnk)
+    tx.connect(gt.global_registry.create("CountingSource", n_samples=UDP_SAMPLES),
+               gt.global_registry.create("UdpSink", port=uport, payload_items=1000))
+    rt.add(rx, block_len=4096, sample_rate=1e6, device=dev)
+    rt.add(tx, block_len=8192, sample_rate=1e6, device=dev)
+    rt.run_all(timeout=PHASE29_TIMEOUT)
+    y = usnk.data()
+    check(len(y) >= UDP_SAMPLES * 3 // 4 and bool(np.all(np.diff(y) > 0))
+          and usrc._feeder.ring.is_native,
+          f"udp: {len(y)} of {UDP_SAMPLES} samples, in order "
+          f"{bool(np.all(np.diff(y) > 0))}")
+    print(f"[29c udp] wire: UDP datagrams over localhost (1000 samples each): "
+          f"{len(y)} of {UDP_SAMPLES} arrived, in order; the source's ring native "
+          f"{card}")
+    lap("c tcp udp")
+
+    # (d) phase 28a's timed piped chain already crossed the native ring: its
+    # reading, beside PR 16's over the NumPy ring (no second run)
+    p28 = next((p for p in paths if p["name"] == "phase 28a piped chain"), None)
+    if p28 is None:
+        print(f"[29d pipe] phase 28a did not run in this process {card}")
+    else:
+        check(p28["ring_native"] and p28["ring_producers"] == "multi",
+              f"pipe: phase 28a's ring native {p28['ring_native']}, producers "
+              f"{p28['ring_producers']}")
+        print(f"[29d pipe] phase 28a's timed run crossed the native ring (PipeSink ⇒ "
+              f"StreamSource, producers 'multi', capacity {p28['ring_capacity']}): "
+              f"dsp {p28['msps']:.2f} Msps, PipeSink.consume "
+              f"{p28['pipe_consume_ms']:.3f} ms, StreamSource.host_feed "
+              f"{p28['stream_feed_ms']:.3f} ms a step (PR 16 over the NumPy ring: "
+              f"184.89–235.56 Msps) {card}")
+
+    # (e) the registry and the drivers
+    new = ("SigmfSink", "SigmfSource", "AudioSource", "AudioSink", "TcpSource",
+           "TcpSink", "UdpSource", "UdpSink", "HttpSource", "HttpSink")
+    zmq_names = ("ZmqPushSink", "ZmqPullSource", "ZmqPubSink", "ZmqSubSource")
+    known = set(gt.global_registry.known_blocks())
+    have_zmq = importlib.util.find_spec("zmq") is not None
+    check(set(new) <= known, f"registry lacks {sorted(set(new) - known)}")
+    check((set(zmq_names) <= known) == have_zmq
+          and (set(zmq_names) & known) in (set(), set(zmq_names)),
+          f"zmq blocks {sorted(set(zmq_names) & known)} with pyzmq {have_zmq}")
+    check("rtlsdr" in tsdr._SDR_DRIVERS, "the rtlsdr driver is not registered")
+    lib = tmp / "soapy" / "libFakeSoapySDR.so"
+    lib.parent.mkdir()
+    build = subprocess.run(["g++", "-O2", "-shared", "-fPIC", "-std=c++20",
+                            str(ROOT / "tests" / "fake_soapy.cpp"), "-o", str(lib)],
+                           capture_output=True, text=True, timeout=120)
+    check(build.returncode == 0, f"fake libSoapySDR: {build.stderr[-500:]}")
+    had_soapy = tsdr._SDR_DRIVERS.get("soapy")
+    tsoapy.register(lib_path=str(lib))
+    try:
+        g = gt.Graph()
+        snk = VectorSink()
+        g.connect_chain(tsdr.SdrSource(driver="soapy", sample_rate=1.024e6,
+                                       center_frequency=100e6),
+                        gt.global_registry.create("HeadBlock", n_samples=1 << 16), snk)
+        gt.Scheduler(g, block_len=1 << 14, sample_rate=1.024e6, device=dev).run_and_wait()
+    finally:
+        if had_soapy is None:
+            tsdr._SDR_DRIVERS.pop("soapy", None)
+        else:
+            tsdr._SDR_DRIVERS["soapy"] = had_soapy
+    x = snk.data()
+    f_pk = np.fft.fftfreq(len(x), 1 / 1.024e6)[int(np.argmax(np.abs(np.fft.fft(x))))]
+    check(x.shape == (1 << 16,) and abs(f_pk - 50e3) < 2 * 1.024e6 / len(x),
+          f"soapy: {x.shape}, peak at {f_pk} Hz")
+    print(f"[29e registry, drivers] {len(new)} new types registered; ZeroMQ's four "
+          f"{'registered' if have_zmq else 'not registered'} with pyzmq "
+          f"{'present' if have_zmq else 'absent'} (as the JAX package does); drivers "
+          f"{sorted(tsdr._SDR_DRIVERS)}; wire: the SoapySDR C ABI of a fake library "
+          f"built from tests/fake_soapy.cpp into {lib.parent}: SdrSource(driver="
+          f"'soapy') streamed {len(x)} samples, the station at {f_pk:.1f} Hz "
+          f"(+50 kHz) {card}")
+    lap("e registry")
+    shutil.rmtree(tmp, ignore_errors=True)
+    print(f"[29 seconds] wall s by sub-phase {({k: round(v, 2) for k, v in secs.items()})}"
+          f"; phase 29 {sum(secs.values()):.1f} s {card}")
+    paths.append({"name": "phase 29 seconds", "seconds": sum(secs.values()),
                   "by_sub_phase": secs})
 
 
@@ -5449,6 +6015,7 @@ def main() -> int:
     fec_flow_phases(dev, card, paths, results)
     gnss_coding_phases(dev, card, paths, results)
     host_core_phases(dev, card, phase45, chain_msps, paths, results)
+    io_phases(dev, card, phase45, paths, results)
     del phase45
 
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

@@ -1,9 +1,10 @@
 """File IO blocks (≈ reference blocks/fileio: BasicFileIo.hpp BasicFileSource/
 BasicFileSink, WavBlocks.hpp WavSource/WavSink).
 
-Sources stream through a host ring on an IO thread (core/feeder.py) so disk
-latency never stalls device dispatch — the analog of the reference's IO-bound
-thread pool feeding ring buffers. Sinks write on the scheduler's delivery path
+Sources stream through the native ring on an IO thread (core/feeder.py) so
+disk latency never stalls device dispatch — the analog of the reference's
+IO-bound thread pool feeding ring buffers; wire formats convert there through
+``native/convert.py``. Sinks write on the scheduler's delivery path
 (the NumPy arrays its device→host copy hands ``consume``).
 """
 
@@ -23,26 +24,7 @@ from ..core.registry import register_block
 from ..core.settings import Setting
 from ..core.stream import canonical_dtype
 from ..core.tags import Keys, Tag
-
-
-# on-disk wire formats → samples, on the IO thread (the JAX package's
-# native/convert.py in NumPy; the same results)
-def _i16_to_f32(x: np.ndarray) -> np.ndarray:
-    return x.astype(np.float32) * np.float32(1.0 / 32768.0)
-
-
-def _u8_to_f32(x: np.ndarray) -> np.ndarray:
-    return (x.astype(np.float32) - 127.5) * np.float32(1.0 / 127.5)
-
-
-def _iq(f: np.ndarray) -> np.ndarray:
-    f = f[: f.size // 2 * 2]
-    return (f[0::2] + 1j * f[1::2]).astype(np.complex64)
-
-
-_CONVERTERS = {"i16": _i16_to_f32, "u8": _u8_to_f32,
-               "i16iq": lambda x: _iq(_i16_to_f32(x)),
-               "u8iq": lambda x: _iq(_u8_to_f32(x))}
+from ..native import convert as cv
 
 
 def _chunks_from_file(path: str, dtype: np.dtype, chunk_items: int,
@@ -69,8 +51,8 @@ class FileSource(SourceBlock):
     dtype = Setting(default="float32", kind="static")
     wire_format = Setting(default="", kind="static",
                           choices=("", "i16", "u8", "i16iq", "u8iq"),
-                          description="on-disk format converted on the IO thread: "
-                                      "i16/u8 → float32, "
+                          description="on-disk format converted on the IO thread "
+                                      "(native SIMD): i16/u8 → float32, "
                                       "i16iq/u8iq → complex64")
     repeat = Setting(default=False, kind="static")
     offset_items = Setting(default=0, kind="static")
@@ -95,7 +77,10 @@ class FileSource(SourceBlock):
 
     def _converter(self):
         wf = str(self.settings.get("wire_format"))
-        return _CONVERTERS[wf] if wf else None
+        if not wf:
+            return None
+        return {"i16": cv.i16_to_f32, "u8": cv.u8_to_f32,
+                "i16iq": cv.i16iq_to_c64, "u8iq": cv.u8iq_to_c64}[wf]
 
     def start(self):
         path = str(self.settings.get("path"))

@@ -17,7 +17,8 @@ from ..core.errors import GrError
 from ..core.registry import register_block
 from ..core.settings import Setting
 from ..ops.cuda_kernels import nco_mix
-from ..ops.signal import (MASK32, complex_exp, phase_increment, phase_to_frac)
+from ..ops.signal import (MASK32, complex_exp, complex_exp_ramp,  # noqa: F401
+                          nco_phases, phase_increment, phase_to_frac)
 from ..utils.uncertain import UncertainValue
 from .basic import phase_state
 from .uncertain import check_uncertain_channels, uv_join, uv_split

@@ -28,10 +28,11 @@ import torch
 
 from ..core.block import Block, Port
 from ..core.errors import GrError
-from ..core.feeder import HostRing, read_exact
+from ..core.feeder import read_exact
 from ..core.host_call import host_call, numpy_dtype
 from ..core.registry import register_block
 from ..core.settings import Setting
+from ..native.ring import HostRing
 
 
 @register_block("LambdaBlock")
@@ -178,9 +179,10 @@ class PythonBlock(Block):
 @register_block("StreamSource")
 class StreamSource(Block):
     """Generic host-push streaming source: any thread calls :meth:`push` with
-    sample arrays; the scheduler drains them through a host ring
-    (:class:`~..core.feeder.HostRing` ≈ reference CircularBuffer.hpp). Call
-    :meth:`close` to signal end-of-stream.
+    sample arrays; the scheduler drains them through the native host ring
+    (:class:`~..native.ring.HostRing` ≈ reference CircularBuffer.hpp), made
+    for several producers: pushes from several threads claim disjoint
+    ranges. Call :meth:`close` to signal end-of-stream.
 
     This is the programmatic twin of FileSource/SdrSource for data that
     originates in the user's own Python code (network handlers, simulators,
@@ -218,7 +220,8 @@ class StreamSource(Block):
         with self._ring_lock:
             if self._ring is None:
                 ring = HostRing(int(self.settings.get("capacity")),
-                                np.dtype(str(self.settings.get("dtype"))))
+                                np.dtype(str(self.settings.get("dtype"))),
+                                producers="multi")
                 self._reader = ring.add_reader()
                 self._ring = ring
         return self._ring

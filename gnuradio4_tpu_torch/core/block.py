@@ -33,7 +33,7 @@ import torch
 
 from .errors import GrError
 from .settings import ApplyResult, Setting, Settings
-from .stream import canonical_dtype
+from .stream import StreamSpec, canonical_dtype  # noqa: F401  (StreamSpec: re-export)
 from .tags import Tag, TagPropagation, propagate
 
 _instance_counter = itertools.count()

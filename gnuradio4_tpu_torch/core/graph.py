@@ -21,6 +21,7 @@ from typing import Any, Iterable
 from .block import Block, Port, PortRef
 from .errors import ConnectionError_, GrError, RateError
 from .registry import BlockRegistry, global_registry
+from .stream import canonical_dtype  # noqa: F401  (the JAX package's re-export)
 
 
 @dataclasses.dataclass

@@ -29,7 +29,8 @@ import numpy as np
 
 from .block import Block, Port, SinkBlock, SourceBlock
 from .errors import GrError
-from .feeder import HostRing, read_exact
+from ..native.ring import HostRing
+from .feeder import read_exact
 from .graph import Graph
 from .registry import register_block
 from .settings import Setting
@@ -254,12 +255,14 @@ class ScheduledSubgraph(Block):
             buf = np.zeros((ch, n) if ch else n, ring.dtype)
             take = min(nv, avail_f[pub])
             if take:
+                # copied out of the ring's view before the release lets the
+                # inner graph overwrite it
                 got = ring.read(reader, take * k)
-                ring.release(reader, take * k)
                 if ch:
                     buf[:, :take] = got.reshape(ch, take, order="F")
                 else:
                     buf[:take] = got
+                ring.release(reader, take * k)
             out[pub] = buf
         from .lifecycle import State
         if self._inner_sched.state is State.ERROR:

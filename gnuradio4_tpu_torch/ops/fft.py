@@ -17,7 +17,7 @@ import torch
 from ..core.errors import GrError
 from .cuda_kernels import device_constant, frozen
 from .precision import rung_dot
-from .windows import enbw
+from .windows import enbw, make_window  # noqa: F401  (the JAX package's re-export)
 
 # the matmul FFT's precision rungs by engine name
 MATMUL_ENGINES = {"matmul": "high", "matmul_exact": "highest",

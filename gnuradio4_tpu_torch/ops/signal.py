@@ -41,9 +41,9 @@ def nco_phases(phase0: int, dphi: int, n: int,
     return (idx * (int(dphi) & MASK32) + (int(phase0) & MASK32)) & MASK32
 
 
-def phase_to_frac(phase: torch.Tensor) -> torch.Tensor:
+def phase_to_frac(phase_u32: torch.Tensor) -> torch.Tensor:
     """Phase in [0, 2³²) → fractional cycles in [0, 1) as f32 (keeps top 24 bits)."""
-    return phase.to(torch.float32) * _PHASE_SCALE
+    return phase_u32.to(torch.float32) * _PHASE_SCALE
 
 
 def waveform(kind: str, frac_phase: torch.Tensor, *, amplitude: float,

@@ -480,20 +480,26 @@ def test_read_exact_wait_strategies(pkg, wait):
     assert read_exact(r, rd, 30, wait=wait, timeout=1.0) is None
 
 
-def test_ring_read_across_the_wrap_is_two_slices(monkeypatch):
+@pytest.mark.parametrize("force_python", [False, True])
+def test_ring_read_across_the_wrap_is_two_slices(monkeypatch, force_python):
     """A read that wraps the end of the buffer returns the items in order
-    without an index array (the old read built one of ``n`` int64 items)."""
-    r = tfeeder.HostRing(16, dtype=np.complex64)
+    without an index array (an old read built one of ``n`` int64 items): the
+    native ring's double mapping makes it one span, the Python ring's read
+    joins two slices. ``read_exact`` hands out a copy that outlives the
+    release: the ring's own view is overwritten by the next write."""
+    r = tfeeder.HostRing(16, dtype=np.complex64, force_python=force_python)
+    assert r.is_native == (not force_python)
     rd = r.add_reader()
-    x = (np.arange(40) * (1 + 1j)).astype(np.complex64)
-    r.write(x[:12])
-    r.release(rd, 12)
+    cap = r.capacity
+    x = (np.arange(cap + 24) * (1 + 1j)).astype(np.complex64)
+    r.write(x[:cap - 4])
+    r.release(rd, cap - 4)
     monkeypatch.setattr(np, "arange", None)      # no index arrays from here
-    r.write(x[12:24])                            # 4 items, then 8 wrapped
-    got = r.read(rd, 12)
-    np.testing.assert_array_equal(got, x[12:24])
-    got[:] = 0                                   # a copy, not a view
-    np.testing.assert_array_equal(r.read(rd, 12), x[12:24])
+    r.write(x[cap - 4:cap + 8])                  # 4 items, then 8 wrapped
+    np.testing.assert_array_equal(r.read(rd, 12), x[cap - 4:cap + 8])
+    got = tfeeder.read_exact(r, rd, 12)
+    r.write(np.zeros(cap, np.complex64))         # the released span reused
+    np.testing.assert_array_equal(got, x[cap - 4:cap + 8])
     assert r.dtype == np.complex64
 
 
@@ -507,10 +513,11 @@ def test_ring_write_is_a_copy():
 
 
 def test_ring_write_stops_at_eos_and_on_timeout():
-    r = tfeeder.HostRing(8, dtype=np.float32)
+    r = tfeeder.HostRing(8, dtype=np.float32)     # capacity rounds up to a page
     r.add_reader()
     t0 = time.monotonic()
-    assert r.write(np.ones(12, np.float32), block=True, timeout=0.1) == 8
+    assert r.write(np.ones(r.capacity + 4, np.float32), block=True,
+                   timeout=0.1) == r.capacity
     assert time.monotonic() - t0 < 2.0
     r.set_eos()
     assert r.write(np.ones(4, np.float32)) == 0
