@@ -259,6 +259,22 @@ result line:
     and ``SdrSource(driver="soapy")`` on a fake libSoapySDR built from
     ``tests/fake_soapy.cpp``. Every ring of the phase is native.
 
+30. the time-sharded mesh on the card (``parallel/``, ``Scheduler(mesh=)``):
+    (a) the chain at 2^23 under ``make_mesh((8,), ("sp",), devices=[cuda] *
+    8)``, absorbed and derotated, against phases 4 and 5 (``compare_sinks``'
+    bounds), 8 ``fir_banded`` a FIR a step and 8 ``nco_mix`` a step
+    derotated, the tone source and a Rotator from 2^32 − 12345 bitwise equal
+    to unsharded, and the NullSink chain unsharded and sharded in turns:
+    Msps, host ms, kernels and torch ops a step, device-busy ms; (b)
+    ``dryrun_multichip(8)`` on the card (the three topologies of
+    ``__graft_entry__.dryrun_multichip``); (c) ``build_sharded_rx`` at
+    BASELINE config 4's widths, batch 2, 2^22 a stream, over (dp 2, sp 4)
+    against (1, 1) on the card and against the CPU at 2^14, ms a step and a
+    profiled step; (d) ``acquire_all`` over a 4-shard mesh against phase
+    27's search; (e) a three-stage ``StagePipeline.from_graph`` (FreqXlatingFir
+    | QuadratureDemod | FirFilter ÷8, derotated) bitwise equal to the fused
+    graph.
+
 Phases 13–17 each print the card against the CPU on a short run of the same
 graph, Msps (coded Mbit/s for 7 and 7k), ms per step by CUDA events over 5
 windows, host ms per step, the device-busy share of one profiled step, peak
@@ -562,6 +578,20 @@ TCP_BLOCK_LEN = 1 << 22
 TCP_STEPS = 6
 UDP_SAMPLES = 80_000
 PHASE29_TIMEOUT = 300.0
+# phase 30: the time-sharded mesh on one card — 8 time shards of the chain
+# at 2^23, the sharded receiver at BASELINE config 4's widths (64 channels,
+# 8 taps a phase, audio FIR 32 taps ÷4) over (dp 2, sp 4), the sky search over
+# 4 shards, a three-stage pipeline; sharded against unsharded within
+# dryrun_multichip's bound MESH_ATOL, bitwise where the JAX tests are; the
+# receiver's audio FIR held to fir_banded_ref at both its shapes (FIR_ATOL)
+MESH_SP = 8
+MESH_ATOL = 1e-4
+MESH_TIMED_STEPS = 20
+RX_CFG = dict(n_channels=64, taps_per_phase=8, audio_decim=4, audio_ntaps=32,
+              batch=2, block_len=1 << 22)
+RX_STEPS = 3
+RX_CPU_BLOCK_LEN = 1 << 14
+RX_OFFSET = 0.2                  # per-channel tone offset, ≤ this/M cycles a sample
 KERNELS = {
     "fir_banded": {
         "source": "gnuradio4_tpu_torch/csrc/fir_banded.cu",
@@ -4208,11 +4238,13 @@ def thread_tid(sched) -> int:
     return sched._runner.ident % 100000
 
 
-def count_fir_shapes(by_shape: dict):
+def count_fir_shapes(by_shape: dict, keep: dict | None = None):
     """Context manager: while it is open, each ``fir_banded`` launch that a
     graph's FIR makes is added to ``by_shape`` under (stream 'c64'|'f32',
     taps, decim, samples). It wraps ops/fir.py's name for the kernel's
-    wrapper and counts a call only when the wrapper's own count moved."""
+    wrapper and counts a call only when the wrapper's own count moved. With
+    ``keep``, the latest launch's ``(x, hist, taps, decim)`` at each (x's
+    shape, taps, decim) is kept there."""
     import contextlib
     from gnuradio4_tpu_torch.ops import cuda_kernels as ck
     from gnuradio4_tpu_torch.ops import fir as tfir
@@ -4228,6 +4260,9 @@ def count_fir_shapes(by_shape: dict):
                 key = ("c64" if x.is_complex() else "f32", len(taps), int(decim),
                        int(x.shape[-1]))
                 by_shape[key] = by_shape.get(key, 0) + ck.fir_banded.launches - before
+                if keep is not None:
+                    keep[(tuple(x.shape), len(taps), int(decim))] = (x, hist, taps,
+                                                                     decim)
             return y
         tfir.fir_banded = counted
         try:
@@ -5226,6 +5261,322 @@ def io_phases(dev, card: str, phase45, paths: list, results: dict) -> None:
                   "by_sub_phase": secs})
 
 
+def rx_tones(cfg: dict, steps: int, dev, seed: int = SEED):
+    """The sharded receiver's input, [B, steps·T] complex64 on ``dev``: in
+    every stream one tone per channel, channel c's at c/M + δ/M cycles a
+    sample (|δ| ≤ RX_OFFSET) with a random phase, each from an exact integer
+    phase (uint32 wrap), so every channel's demod is a constant angle far
+    from ±π."""
+    import numpy as np
+    import torch
+    m, b, t = cfg["n_channels"], cfg["batch"], cfg["block_len"] * steps
+    rng = np.random.default_rng(seed)
+    frac = (np.arange(m)[None] + rng.uniform(-RX_OFFSET, RX_OFFSET, (b, m))) / m
+    dphi = np.round((frac % 1.0) * 2.0 ** 32).astype(np.int64)
+    ph0 = rng.integers(0, 1 << 32, (b, m)).astype(np.int64)
+    n = torch.arange(t, dtype=torch.int64, device=dev)
+    x = torch.zeros((b, t), dtype=torch.complex64, device=dev)
+    for i in range(b):
+        for c in range(m):
+            ph = (n * int(dphi[i, c]) + int(ph0[i, c])) & 0xFFFFFFFF
+            ang = ph.to(torch.float64) * (2.0 * math.pi / 2.0 ** 32)
+            x[i] += torch.polar(torch.ones_like(ang), ang).to(torch.complex64)
+    return x / math.sqrt(m)
+
+
+def run_rx(mesh, cfg: dict, x, steps: int):
+    """``steps`` steps of ``build_sharded_rx(mesh, ...)`` over ``x``: the
+    audio joined over steps, the powers, and each step's ms by CUDA events
+    when the mesh is on the card (the first step's includes the FFT plans),
+    then the device ms and top kernels of one more step (torch.profiler)."""
+    import torch
+    from gnuradio4_tpu_torch.parallel.sharded_rx import (ShardedRxConfig,
+                                                         build_sharded_rx)
+    rcfg = ShardedRxConfig(**cfg)
+    step, init_state, _ = build_sharded_rx(mesh, rcfg)
+    state, outs, powers, ms = init_state(), [], [], []
+    cuda = mesh.home.type == "cuda"
+    for k in range(steps):
+        xk = x[:, k * rcfg.block_len:(k + 1) * rcfg.block_len]
+        if cuda:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+        state, audio, power = step(state, xk)
+        if cuda:
+            end.record()
+            torch.cuda.synchronize()
+            ms.append(start.elapsed_time(end))
+        outs.append(audio)
+        powers.append(power)
+    prof = profile_device(lambda: step(state, xk)) if cuda else (None, [])
+    return torch.cat(outs, dim=-1).cpu(), [float(p) for p in powers], ms, prof
+
+
+def mesh_phases(dev, card: str, phase45, chain_msps: float, paths: list,
+                results: dict) -> None:
+    """Phase 30: the time-sharded mesh on the card — the chain over 8 time
+    shards against phases 4 and 5, dryrun_multichip, the sharded wideband
+    receiver, the sky search over a mesh, and a three-stage pipeline."""
+    import numpy as np
+    import torch
+    import gnuradio4_tpu_torch as gt
+    from gnuradio4_tpu_torch.core.profiler import Profiler
+    from gnuradio4_tpu_torch.ops import cuda_kernels as ck
+    from gnuradio4_tpu_torch.ops import gnss
+    from gnuradio4_tpu_torch.parallel.dryrun import dryrun_multichip
+    from gnuradio4_tpu_torch.parallel.mesh import make_mesh
+    from gnuradio4_tpu_torch.parallel.pipeline import StagePipeline
+
+    t_phase = time.perf_counter()
+    mesh = make_mesh((MESH_SP,), ("sp",), devices=[dev] * MESH_SP)
+
+    def tally(counts: dict) -> None:
+        for k in KERNELS:
+            results[k]["launches"] += counts[k]
+
+    # (a) the headline chain at 2^23 over 8 time shards, absorbed and not
+    print(f"[30a mesh chain] block_len 2^23 over {mesh} ({MESH_SP} time shards "
+          f"on one card), {STEPS} steps, against phases 4 and 5 ({card})")
+    for absorb, ref, label in ((True, phase45[0], "absorbed"),
+                               (False, phase45[1], "derotated")):
+        ck.reset_launch_counts()
+        out = run_chain(str(dev), BLOCK_LEN, STEPS, absorb, mesh=mesh)
+        counts = ck.launch_counts()
+        tally(counts)
+        per_step = {k: counts[k] / STEPS for k in ("fir_banded", "nco_mix")}
+        print(f"  {label}: launches {counts}; per step {per_step} (expected "
+              f"fir_banded {2 * MESH_SP}: {MESH_SP} per FIR, nco_mix "
+              f"{0 if absorb else MESH_SP})")
+        check(counts["fir_banded"] == 2 * MESH_SP * STEPS
+              and counts["nco_mix"] == (0 if absorb else MESH_SP * STEPS),
+              f"mesh chain {label}: launches {counts}")
+        check_chain_outputs(*out, BLOCK_LEN, STEPS, f"mesh chain {label}")
+        compare_sinks(out, ref, f"mesh chain {label} vs phase "
+                      f"{4 if absorb else 5}")
+        del out
+    # bitwise: the tone source and a Rotator from a phase just below 2^32
+    # (the JAX tests assert both bitwise), and the FIR's NCO phase state
+    srcs = {}
+    for key, m in (("sharded", mesh), ("unsharded", None)):
+        g = gt.Graph()
+        tone = g.emplace("ComplexToneSource", frequency=1e6)
+        snk = g.emplace("VectorSink")
+        g.connect(tone, snk)
+        gt.Scheduler(g, block_len=BLOCK_LEN, sample_rate=FS, mesh=m,
+                     device=None if m is not None else dev).run_and_wait(2)
+        g2 = gt.Graph()
+        src = g2.emplace("ComplexToneSource", frequency=1e6)
+        rot = g2.emplace("Rotator", frequency_shift=-3.1e6)
+        snk2 = g2.emplace("NullSink")
+        g2.connect_chain(src, rot, snk2)
+        c = gt.compile_graph(g2, block_len=ROTATOR_BLOCK_LEN, sample_rate=C1_FS,
+                             mesh=m, device=None if m is not None else dev)
+        st = c.init_states()
+        st[rot.unique_name] = torch.tensor((1 << 32) - 12345)
+        params = c.gather_params()
+        ck.reset_launch_counts()
+        ys = []
+        for _ in range(ROTATOR_STEPS):
+            st, sink_ins = c.step(st, params)
+            ys.append(sink_ins[snk2.unique_name]["in"].cpu())
+        counts = ck.launch_counts()
+        tally(counts)
+        check(counts["nco_mix"] == ROTATOR_STEPS * (MESH_SP if m else 1),
+              f"mesh Rotator {key}: launches {counts}")
+        srcs[key] = (snk.data(), torch.cat(ys).numpy(), int(st[rot.unique_name]))
+    same_tone = np.array_equal(srcs["sharded"][0], srcs["unsharded"][0])
+    same_rot = np.array_equal(srcs["sharded"][1], srcs["unsharded"][1])
+    print(f"  ComplexToneSource 2^23 × 2 bitwise equal sharded/unsharded: "
+          f"{same_tone}; Rotator 2^20 × {ROTATOR_STEPS} from 2^32 − 12345 "
+          f"({MESH_SP} nco_mix a step): bitwise {same_rot}, end phase "
+          f"{srcs['sharded'][2]} vs {srcs['unsharded'][2]}")
+    check(same_tone and same_rot and srcs["sharded"][2] == srcs["unsharded"][2],
+          "mesh: tone source / Rotator not bitwise equal to unsharded")
+    # the cost of the mesh on one card: the NullSink chain, unsharded and
+    # sharded in turns (plain, mesh, mesh, plain), CUDA events over windows
+    timing = {"unsharded": [], "sharded": []}
+    for key in ("unsharded", "sharded", "sharded", "unsharded"):
+        g, _, _, _ = build_chain("null")
+        m = mesh if key == "sharded" else None
+        sched = gt.Scheduler(g, block_len=BLOCK_LEN, sample_rate=FS, mesh=m,
+                             device=None if m is not None else dev,
+                             pipeline_depth=1, profiler=Profiler())
+        sched.init()
+        sched.fsm.transition_to(gt.State.RUNNING)
+        for _ in range(2):
+            sched._pump_once()
+        sync(dev)
+        ms, windows, host_ms, split = drive_windows(sched, MESH_TIMED_STEPS)
+        finish(sched)
+        kernels, ops = count_ops(sched.step_once)
+        busy = profile_device(sched.step_once)[0]
+        timing[key].append((ms, host_ms, kernels, ops, windows, busy))
+        del sched
+    row = {}
+    for key, runs in timing.items():
+        ms = statistics.median(r[0] for r in runs)
+        host = statistics.median(r[1] for r in runs)
+        row[key] = (ms, host)
+        print(f"  chain {key} (sync, NullSinks): {BLOCK_LEN / (ms * 1e-3) / 1e6:.2f} "
+              f"Msps, {ms:.4f} ms/step, host {host:.4f} ms/step in the pump; "
+              f"{runs[0][2]} kernels and {runs[0][3]} torch ops a step, "
+              f"device busy {[r[5] for r in runs]} ms a step (torch.profiler); "
+              f"windows (events ms, wall ms) "
+              f"{fmt_windows(runs[0][4])} / {fmt_windows(runs[1][4])} on {card}")
+        paths.append({"name": f"mesh chain {key}", "msps": BLOCK_LEN / (ms * 1e-3) / 1e6,
+                      "ms_per_step": ms, "host_ms_per_step": host})
+    print(f"  sharded / unsharded: {row['sharded'][0] / row['unsharded'][0]:.3f}× "
+          f"the device ms, {row['sharded'][1] / row['unsharded'][1]:.3f}× the host "
+          f"ms (phase 4's chain: {chain_msps:.2f} Msps)")
+
+    # (b) dryrun_multichip: the JAX package's three topologies on the card
+    print(f"[30b dryrun_multichip] {MESH_SP} shards on {dev} ({card})")
+    ck.reset_launch_counts()
+    recs = dryrun_multichip(MESH_SP, device=dev)
+    tally(ck.launch_counts())
+    check(len(recs) == 3 and all(r["max_abs_err"] < MESH_ATOL for r in recs),
+          f"dryrun_multichip: {recs}")
+
+    # (c) the sharded wideband receiver at config 4's widths over (dp 2, sp 4)
+    rx_mesh = make_mesh((2, 4), ("dp", "sp"), devices=[dev] * 8)
+    one = make_mesh((1, 1), ("dp", "sp"), devices=[dev])
+    print(f"[30c sharded rx] {RX_CFG} over {rx_mesh}, {RX_STEPS} steps, against "
+          f"(1, 1) on the card and the CPU at block_len {RX_CPU_BLOCK_LEN} ({card})")
+    x = rx_tones(RX_CFG, RX_STEPS, dev)
+    # each run keeps its audio FIR's last inputs (the profiled step's: the
+    # demod output and the history carried from the step before)
+    by_shape, kept = ({}, {}), ({}, {})
+    ck.reset_launch_counts()
+    with count_fir_shapes(by_shape[0], kept[0]):
+        got, p_got, ms, prof = run_rx(rx_mesh, RX_CFG, x, RX_STEPS)
+    counts = ck.launch_counts()
+    tally(counts)
+    ck.reset_launch_counts()
+    with count_fir_shapes(by_shape[1], kept[1]):
+        want, p_want, ms1, prof1 = run_rx(one, RX_CFG, x, RX_STEPS)
+    counts1 = ck.launch_counts()
+    tally(counts1)
+    del x
+    m_ = RX_CFG["n_channels"]
+    shape = (RX_CFG["batch"], m_, RX_STEPS * RX_CFG["block_len"] // m_
+             // RX_CFG["audio_decim"])
+    err = float((got - want).abs().max())
+    for key, t, pr, c in (("(2, 4)", ms, prof, counts),
+                          ("(1, 1)", ms1, prof1, counts1)):
+        print(f"  {key}: ms per step {[round(v, 4) for v in t]} (CUDA events; "
+              f"the first builds the FFT plans), fir_banded {c['fir_banded']} "
+              f"over {RX_STEPS + 1} steps ({c['fir_banded'] // (RX_STEPS + 1)} a "
+              f"step); one more step profiled: device "
+              f"{pr[0]} ms, top {pr[1][:4]}")
+    print(f"  (2, 4) vs (1, 1): {tuple(got.shape)}, max|Δ| {err:.3e} (tol "
+          f"{MESH_ATOL}); power {p_got} vs {p_want}")
+    check(tuple(got.shape) == shape and bool(torch.isfinite(got).all()),
+          f"sharded rx: shape {tuple(got.shape)}, expected {shape}")
+    check(err <= MESH_ATOL and counts["fir_banded"] == 8 * (RX_STEPS + 1)
+          and counts1["fir_banded"] == RX_STEPS + 1,
+          f"sharded rx: max|Δ| {err}, launches {counts} / {counts1}")
+    # fir_banded against its plain version at both receivers' audio FIR
+    # shapes, on the inputs each run gave it
+    rows = results["fir_banded"].setdefault("timed_shapes", [])
+    for key, n_shape, keep in (("(2, 4)", by_shape[0], kept[0]),
+                               ("(1, 1)", by_shape[1], kept[1])):
+        check(len(keep) == 1 and sum(n_shape.values()) == (
+            counts if key == "(2, 4)" else counts1)["fir_banded"],
+              f"sharded rx {key}: fir_banded shapes {list(keep)}, launches "
+              f"{n_shape}")
+        (xf, hf, taps, decim), = keep.values()
+        launches, = n_shape.values()
+        k = len(taps)
+        fe = float((ck.fir_banded(xf, hf, taps, decim)
+                    - ck.fir_banded_ref(xf, hf, taps, decim)).abs().max())
+        k_ms, p_ms = kernel_vs_plain_ms(lambda: ck.fir_banded(xf, hf, taps, decim),
+                                        lambda: ck.fir_banded_ref(xf, hf, taps, decim))
+        b_ms, b_by = bound_ms(*fir_work(tuple(xf.shape), False, False, k, decim))
+        h_dev = torch.from_numpy(np.ascontiguousarray(taps, np.float32)).to(dev)
+        lib = conv1d_ms(xf, hf, h_dev, decim)
+        print(f"[30c fir_banded, the receiver's audio FIR at {key}] f32 × f32 K {k} "
+              f"÷{decim} {tuple(xf.shape)}, the demod output with its carried "
+              f"history: max|Δ| {fe:.3e} (tol {FIR_ATOL}); kernel {k_ms:.4f} ms, "
+              f"plain {p_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}), {b_ms / k_ms:.1%} "
+              f"of it; F.conv1d (TF32 off) {lib:.4f} ms; {launches} launches {card}")
+        check(fe <= FIR_ATOL, f"fir_banded, sharded rx {key}: {fe}")
+        results["fir_banded"]["max_abs_err"] = max(results["fir_banded"]["max_abs_err"], fe)
+        row = {"case": f"phase 30 sharded rx {key} audio: f32 × f32 K {k} ÷{decim} "
+                       f"{list(xf.shape)}",
+               "launches": launches, "max_abs_err": fe, "ms": k_ms, "plain_ms": p_ms,
+               "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib}
+        rows.append(row)
+        paths.append({"name": f"phase 30 fir_banded {row['case']}", **row})
+    del kept
+    ms = statistics.median(ms[1:])
+    check(all(abs(a - b) <= 1e-4 * abs(b) for a, b in zip(p_got, p_want)),
+          f"sharded rx power {p_got} vs {p_want}")
+    small = dict(RX_CFG, block_len=RX_CPU_BLOCK_LEN)
+    xs = rx_tones(small, RX_STEPS, "cpu")
+    cpu_out = run_rx(make_mesh((2, 4), ("dp", "sp"), devices=["cpu"] * 8),
+                     small, xs, RX_STEPS)[0]
+    ck.reset_launch_counts()
+    card_out = run_rx(rx_mesh, small, xs.to(dev), RX_STEPS)[0]
+    tally(ck.launch_counts())
+    err_c = float((cpu_out - card_out).abs().max())
+    print(f"  CPU vs card at block_len {RX_CPU_BLOCK_LEN}: max|Δ| {err_c:.3e} "
+          f"(tol {MESH_ATOL})")
+    check(err_c <= MESH_ATOL, f"sharded rx CPU vs card: {err_c}")
+    paths.append({"name": "sharded rx (2, 4)", "msps": RX_CFG["batch"]
+                  * RX_CFG["block_len"] / (ms * 1e-3) / 1e6, "ms_per_step": ms})
+
+    # (d) the sky search over a 4-shard mesh at phase 27's widths
+    rng = np.random.default_rng(SEED)
+    sig = gnss.synthesize(GNSS_SATS, fs=GNSS_FS, n_ms=GNSS_N_MS,
+                          noise_std=GNSS_NOISE, rng=rng)
+    iq = torch.from_numpy(sig[:2 * GNSS_BLOCK_LEN]).to(dev)
+    sky = gnss.acquire_all(iq, fs=GNSS_FS, device=dev)
+    sky4 = gnss.acquire_all(iq, fs=GNSS_FS, mesh=make_mesh(
+        (4,), ("ep",), devices=[dev] * 4))
+    key = [(d["prn"], d["code_phase"], d["doppler"]) for d in sky4]
+    print(f"[30d sky search over 4 shards] {key} ({card})")
+    check(key == [(d["prn"], d["code_phase"], d["doppler"]) for d in sky]
+          and [d["prn"] for d in sky4] == [s[0] for s in GNSS_SATS],
+          f"acquire_all(mesh=): {sky4} against {sky}")
+
+    # (e) a three-stage pipeline on the card: FreqXlatingFir | demod | FIR ÷8
+    def pipe_chain(cut: bool):
+        g, fir, _, _ = build_chain("vector")
+        order = {type(b).__name__: b for b in g.blocks}
+        h = gt.Graph()
+        src, dem, aud = (order["ComplexToneSource"], order["QuadratureDemod"],
+                         order["FirFilter"])
+        h.connect(src, fir)
+        h.connect(fir, dem, domain="gpu:cuda:1" if cut else None)
+        h.connect(dem, aud, domain="gpu:cuda:2" if cut else None)
+        return h, aud
+    os.environ["GR4TPU_NO_ROTATION_ABSORB"] = "1"
+    try:
+        h, _ = pipe_chain(True)
+        pipe = StagePipeline.from_graph(h, block_len=BLOCK_LEN, sample_rate=FS,
+                                        devices=[dev] * 3)
+        ck.reset_launch_counts()
+        outs = [pipe.push().cpu() for _ in range(STEPS)]
+        counts = ck.launch_counts()
+        tally(counts)
+        h2, aud = pipe_chain(False)
+        snk = gt.global_registry.create("VectorSink")
+        h2.connect(aud, snk)
+        gt.Scheduler(h2, block_len=BLOCK_LEN, sample_rate=FS,
+                     device=dev).run_and_wait(STEPS)
+    finally:
+        os.environ.pop("GR4TPU_NO_ROTATION_ABSORB", None)
+    same = np.array_equal(torch.cat(outs).numpy(), snk.data())
+    print(f"[30e pipeline] {len(pipe.stages)} stages on {dev} × 3, {STEPS} pushes "
+          f"of 2^23: launches {counts}; bitwise equal to the fused graph: {same} "
+          f"({card})")
+    check(len(pipe.stages) == 3 and same, "pipeline differs from the fused graph")
+    check(counts["fir_banded"] == 2 * STEPS and counts["nco_mix"] == STEPS,
+          f"pipeline launches {counts}")
+    print(f"  phase 30: {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -6016,6 +6367,7 @@ def main() -> int:
     gnss_coding_phases(dev, card, paths, results)
     host_core_phases(dev, card, phase45, chain_msps, paths, results)
     io_phases(dev, card, phase45, paths, results)
+    mesh_phases(dev, card, phase45, chain_msps, paths, results)
     del phase45
 
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

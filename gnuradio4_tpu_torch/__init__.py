@@ -43,7 +43,7 @@ from .core import pmt
 
 # importing the block library populates the global registry
 from . import blocks  # noqa: E402,F401
-from . import ops, utils  # noqa: E402,F401
+from . import ops, parallel, utils  # noqa: E402,F401
 
 __version__ = "0.1.0"
 

@@ -159,6 +159,22 @@ class SignalGenerator(SourceBlock):
             y = y.expand(ch, n).contiguous()
         return self._advance(state, dphi, n), {"out": self._cast_out(y)}
 
+    def apply_sp(self, state, ins, ctx, local_ctx, axis):
+        """Time-sharded lowering: the integer-NCO phase is a pure function of
+        global sample position, so each shard generates its local segment from
+        a position-offset start phase — no halo, no gather island (exact:
+        the uint32 phase wraps identically). Noise signal types run as a
+        gather island (the full-length stream drawn once and split —
+        sharded == unsharded exactly), as do per-sample param ramps."""
+        if self._is_noise() or any(
+                np.ndim(ctx.params.get(k, 0.0))
+                for k in ("_dphi", "amplitude", "offset")):
+            return self.lower_sp(None, state, ins, ctx, local_ctx, axis)
+        from ..parallel.halo import nco_shard_apply
+        return nco_shard_apply(self, state, ins, local_ctx, axis,
+                               int(ctx.params.get("_dphi", 0)),
+                               local_ctx[0].out_len["out"])
+
 
 @register_block("ComplexToneSource")
 class ComplexToneSource(SignalGenerator):

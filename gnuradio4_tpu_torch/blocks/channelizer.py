@@ -72,6 +72,20 @@ class PFBChannelizer(_PfbBank):
         y, new_state = pfb_analyze(x, self._device_taps(x.device), state)
         return new_state, {"out": y}
 
+    # time-sharding protocol: the branch-FIR history is the last
+    # (taps_per_phase−1)·M input samples, stored corner-turned as rows [P−1, M]
+    def sp_halo(self, ctx):
+        m = int(self.settings.get("n_channels"))
+        p = int(self.settings.get("taps_per_phase"))
+        return (p - 1) * m
+
+    def sp_state_to_tail(self, state, ctx):
+        return state.reshape(*state.shape[:-2], -1)  # rows → flat input order
+
+    def sp_tail_to_state(self, tail, state, ctx):
+        m = int(self.settings.get("n_channels"))
+        return tail.reshape(*tail.shape[:-1], -1, m).to(torch.complex64)
+
 
 @register_block("PFBSynthesizer")
 class PFBSynthesizer(_PfbBank):

@@ -121,6 +121,12 @@ class FirFilter(Block):
                                  precision=self._prec())
         return new_state, {"out": y}
 
+    def sp_halo(self, ctx):
+        """Time-shardable: state is exactly the last ntaps−1 raw inputs, so the
+        default halo lowering applies (per-shard lengths are decim-divisible
+        by the rate algebra's shard alignment)."""
+        return len(self._taps_array()) - 1
+
 
 @register_block("FreqXlatingFir")
 class FreqXlatingFir(FirFilter):
@@ -228,6 +234,56 @@ class FreqXlatingFir(FirFilter):
         return ({"hist": new_hist, "phase": phase_state(int(state["phase"])
                                                         + dphi * n_out)},
                 {"out": y})
+
+    def apply_sp(self, state, ins, ctx, local_ctx, axis):
+        """Time-sharded lowering: FIR history via the left neighbour's halo;
+        the NCO phase is position-dependent, so each shard offsets its start
+        phase by its global position (the integer phase wraps mod 2³²
+        exactly). Complex input rotates BEFORE the halo exchange (the carried
+        tail is the rotated stream, matching ``apply``'s history)."""
+        from ..parallel.halo import fir_timeshard
+        xs = [d["in"] for d in ins]
+        fs = self._fs(ctx.sample_rate)
+        decim = int(self.settings.get("decim"))
+        fc = float(self.settings.get("center_freq"))
+        hist = state["hist"]
+        phase = int(state["phase"])
+
+        def fir(streams, taps):
+            ys, tail = fir_timeshard(streams, taps, hist, decim=decim,
+                                     precision=self._prec())
+            return ys, tail.to(hist.dtype)
+
+        if getattr(self, "_rotation_absorbed", False) or fc == 0.0:
+            # absorbed: consumers handle the residual rotation (linear in the
+            # GLOBAL index, the form absorbers are built for); fc == 0: no
+            # translation — either way the FIR runs raw, no NCO pass
+            dt = torch.complex64 if xs[0].is_complex() else torch.float32
+            taps = self._rotated_taps(fs) if fc != 0.0 else self._taps_array()
+            self._fs_cached = fs
+            ys, tail = fir([x.to(dt) for x in xs], taps)
+            return ({"hist": tail, "phase": state["phase"]},
+                    [{"out": y.to(torch.complex64)} for y in ys])
+        if xs[0].is_complex():
+            dphi = int(phase_increment(-fc, fs))
+            n_in = xs[0].shape[-1]
+            xr = [nco_mix(x.to(torch.complex64).contiguous(),
+                          phase + dphi * i * n_in, dphi)[0]
+                  for i, x in enumerate(xs)]
+            self._fs_cached = fs
+            ys, tail = fir(xr, self._taps_array())
+            return ({"hist": tail,
+                     "phase": phase_state(phase + dphi * axis.size * n_in)},
+                    [{"out": y} for y in ys])
+        ys, tail = fir([x.to(torch.float32) for x in xs], self._rotated_taps(fs))
+        n_out = ys[0].shape[-1]
+        dphi = int(phase_increment(-fc * decim, fs))
+        ys = [y * complex_exp_ramp(phase + dphi * i * n_out, dphi, n_out,
+                                   device=y.device)
+              for i, y in enumerate(ys)]
+        return ({"hist": tail,
+                 "phase": phase_state(phase + dphi * axis.size * n_out)},
+                [{"out": y} for y in ys])
 
 
 @functools.lru_cache(maxsize=64)
@@ -519,3 +575,11 @@ class RationalResampler(Block):
     def apply(self, state, ins, ctx):
         y, st = self._kernel().apply(ins["in"], state)
         return st, {"out": y}
+
+    def sp_halo(self, ctx):
+        """Time-shardable: the polyphase state is the last ntaps_eff−1 inputs
+        and the decimation/interpolation phase restarts cleanly at shard
+        boundaries (local lengths are alignment·sp-divisible)."""
+        k = self._kernel()
+        ntaps_eff = k.k_per_phase if k.interp > 1 else len(k.taps)
+        return ntaps_eff - 1

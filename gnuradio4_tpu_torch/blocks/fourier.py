@@ -132,6 +132,13 @@ class FFT(Block):
         return torch.zeros(shape, dtype=torch_dtype(ctx.dtype("in")),
                            device=ctx.device)
 
+    def sp_halo(self, ctx):
+        # overlap state is the last fft_size−stride inputs → default halo
+        # converters apply (back-to-back windows are stateless/time-local)
+        n = int(self.settings.get("fft_size"))
+        s = self._stride()
+        return 0 if s >= n else n - s
+
     def apply(self, state, ins, ctx):
         x = ins["in"]
         n = int(self.settings.get("fft_size"))

@@ -246,6 +246,18 @@ class Rotator(Block):
             y = y * complex(np.exp(1j * np.float32(phoff)).astype(np.complex64))
         return new_phase, {"out": y}
 
+    def apply_sp(self, state, ins, ctx, local_ctx, axis):
+        """Time-sharded lowering: per-shard integer phase offset (exact, no
+        collective); per-sample dphi ramps use the gather island.
+        ``nco_shard_apply`` re-enters ``apply`` with the full params, so
+        ``_phoff`` is applied once, there."""
+        dphi = ctx.params.get("_dphi", np.uint32(0))
+        if np.ndim(dphi):
+            return self.lower_sp(None, state, ins, ctx, local_ctx, axis)
+        from ..parallel.halo import nco_shard_apply
+        return nco_shard_apply(self, state, ins, local_ctx, axis, int(dphi),
+                               ins[0]["in"].shape[-1])
+
 
 @register_block("Abs")
 class Abs(Block):

@@ -63,6 +63,16 @@ class QuadratureDemod(Block):
         y, last = quadrature_demod(ins["in"], state, gain=gain, rot=rot)
         return last, {"out": y}
 
+    # time-sharding protocol: one-sample halo; state has no trailing time axis
+    def sp_halo(self, ctx):
+        return 1
+
+    def sp_state_to_tail(self, state, ctx):
+        return state[..., None]
+
+    def sp_tail_to_state(self, tail, state, ctx):
+        return tail[..., 0].to(torch.complex64)
+
 
 @register_block("FmDeemphasis")
 class FmDeemphasis(Block):

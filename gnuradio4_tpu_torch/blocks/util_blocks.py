@@ -92,6 +92,10 @@ class MovingAverage(Block):
         y = (c[..., n:] - c[..., :-n]) * float(np.float32(scale))
         return xc[..., -(n - 1):], {"out": y.to(x.dtype)}
 
+    def sp_halo(self, ctx):
+        # state is exactly the last length−1 inputs → default halo converters
+        return int(self.settings.get("length")) - 1
+
 
 @register_block("DcBlocker")
 class DcBlocker(Block):
@@ -282,3 +286,12 @@ class DiffPhasor(Block):
         x = ins["in"]
         prev = torch.cat([state[..., None], x[..., :-1]], dim=-1)
         return x[..., -1], {"out": (x * prev.conj()).to(torch.complex64)}
+
+    def sp_halo(self, ctx):
+        return 1
+
+    def sp_state_to_tail(self, state, ctx):
+        return state[..., None]
+
+    def sp_tail_to_state(self, tail, state, ctx):
+        return tail[..., 0].to(torch.complex64)

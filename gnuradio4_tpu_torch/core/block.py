@@ -163,6 +163,111 @@ class Block:
         """One step over one time block, on the tensors' device."""
         raise NotImplementedError(f"{type(self).__name__}.apply")
 
+    def out_sharding(self, port: str, mesh: Any, channels: int):
+        """PartitionSpec for this output under a mesh, or None.
+
+        Default policy: shard the channel axis over a mesh axis named 'chan'
+        when it divides evenly; 1-D streams stay unsharded (time sharding is
+        the ``sp`` path). The compiler records the spec
+        (``CompiledGraph.out_specs``); the values stay whole on the mesh's
+        home device."""
+        if mesh is None or channels == 0:
+            return None
+        if "chan" in getattr(mesh, "axis_names", ()) and \
+                channels % mesh.shape["chan"] == 0:
+            from ..parallel.mesh import PartitionSpec
+            return PartitionSpec("chan", None)
+        return None
+
+    # -- sp (time-axis) sharding protocol --------------------------------------
+    # Under a mesh with an 'sp' axis every stream value is a list of local
+    # time shards [..., T/sp], one per shard device, and each block declares
+    # how it lowers:
+    #
+    #   sp_halo(ctx) == 0     time-local (stateless elementwise/FFT) — apply
+    #                         per shard unchanged;
+    #   sp_halo(ctx) == h>0   overlap-save: each shard needs the last h input
+    #                         samples of its LEFT neighbour (parallel/halo.py
+    #                         halo_left; ≈ HistoryBuffer prehistory, core
+    #                         HistoryBuffer.hpp:68);
+    #   sp_halo(ctx) is None  not time-shardable (sequential scan state etc.)
+    #                         — a gather island: the shards joined on the
+    #                         mesh's home device, the full block run once
+    #                         there, its outputs split again.
+    #
+    # Blocks with h>0 map between their carried state and a raw input tail
+    # via sp_state_to_tail / sp_tail_to_state. Blocks with bespoke needs
+    # (position-dependent NCOs) override apply_sp.
+
+    def sp_halo(self, ctx: BlockCtx):
+        """Left-halo length in input samples under time sharding (see above).
+        The compiler asks once per compile (``CompiledGraph.sp_halos``)."""
+        return 0 if self.init_state(ctx) is None else None
+
+    def sp_state_to_tail(self, state: Any, ctx: BlockCtx) -> torch.Tensor:
+        """Carried state → input-tail tensor [..., sp_halo] (shard 0's halo)."""
+        return state
+
+    def sp_tail_to_state(self, tail: torch.Tensor, state: Any, ctx: BlockCtx
+                         ) -> Any:
+        """Input tail [..., sp_halo] (+ previous state for non-tail parts) →
+        carried state."""
+        dt = getattr(state, "dtype", None)
+        return tail if dt is None else tail.to(dt)
+
+    def apply_sp(self, state: Any, ins: list[dict[str, torch.Tensor]],
+                 ctx: BlockCtx, local_ctx: list[BlockCtx], axis: Any
+                 ) -> tuple[Any, list[dict[str, torch.Tensor]]]:
+        """Apply under time sharding.
+
+        ``ins`` holds one input dict per shard (local time shards on the
+        shard's device); ``local_ctx`` one context per shard (per-shard
+        lengths and device); ``axis`` the ``parallel.collectives.ShardAxis``.
+        Returns ``(new_state, outs)``: ONE new state (the state the unsharded
+        block would carry on; it lives on the mesh's home device) and one
+        output dict per shard. The default lowers via :meth:`sp_halo`."""
+        return self.lower_sp(self.sp_halo(ctx), state, ins, ctx, local_ctx,
+                             axis)
+
+    def lower_sp(self, h: int | None, state: Any,
+                 ins: list[dict[str, torch.Tensor]], ctx: BlockCtx,
+                 local_ctx: list[BlockCtx], axis: Any
+                 ) -> tuple[Any, list[dict[str, torch.Tensor]]]:
+        """The default :meth:`apply_sp` for a halo of ``h`` (an
+        :meth:`sp_halo` answer): per shard, a gather island, or overlap-save
+        with the left neighbour's last ``h`` inputs."""
+        if h == 0:
+            outs = []
+            for x, lctx in zip(ins, local_ctx):
+                st, o = self.apply(state, x, lctx)
+                outs.append(o)
+            return st, outs
+        from ..parallel.collectives import gather, split
+        if h is None:
+            # gather island: the full block once on the home device, then
+            # each shard keeps its slice
+            full = {p: gather([d[p] for d in ins], axis.home) for p in ins[0]}
+            new_state, outs = self.apply(state, full, ctx)
+            parts = {p: split(v, axis) for p, v in outs.items()}
+            return new_state, [{p: v[i] for p, v in parts.items()}
+                               for i in range(axis.size)]
+        # overlap-save halo path
+        stream_ins = [p.name for p in self.in_ports if not p.asynchronous]
+        if len(stream_ins) != 1:
+            raise GrError(
+                f"{self.name}: default halo sharding needs exactly one stream "
+                f"input (has {stream_ins}); override apply_sp")
+        from ..parallel.halo import halo_left, last_shard_tail
+        xs = [d[stream_ins[0]] for d in ins]
+        seed = self.sp_state_to_tail(state, ctx)
+        halos = halo_left(xs, h, seed)
+        outs = []
+        for x, halo, lctx in zip(ins, halos, local_ctx):
+            _, o = self.apply(self.sp_tail_to_state(halo, state, ctx), x, lctx)
+            outs.append(o)
+        # new state: the LAST shard's input tail
+        return self.sp_tail_to_state(last_shard_tail(xs, h), state, ctx), outs
+
     # -- host path -------------------------------------------------------------
     def process_tags(self, in_tags: dict[str, list[Tag]], ctx: "HostCtx"
                      ) -> dict[str, list[Tag]]:

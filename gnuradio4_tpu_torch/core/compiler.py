@@ -45,14 +45,33 @@ def default_device() -> torch.device:
     return torch.device("cuda")
 
 
-def _feed_tensor(a: np.ndarray, device: torch.device) -> torch.Tensor:
+def _feed_tensor(a: np.ndarray | torch.Tensor, device: torch.device
+                 ) -> torch.Tensor:
     """A host-fed array as a tensor of its stream's torch dtype on ``device``
-    (uint32 streams travel as int64, as everywhere in this package)."""
+    (uint32 streams travel as int64, as everywhere in this package). A tensor
+    (a pipeline stage's input) only moves to ``device``."""
+    if torch.is_tensor(a):
+        return a.to(device)
     dt = torch_dtype(a.dtype)
     t = torch.from_numpy(np.ascontiguousarray(a))
     if t.dtype != dt:
         t = t.to(dt)
     return t.to(device)
+
+
+def _apply_or_raise(b: Block, what: str, fn, *args):
+    """``fn(*args)`` for block ``b`` (its ``apply`` or sp lowering, named by
+    ``what``): a ``GrError`` is raised again with ``b`` as its block where it
+    names none, any other error as a ``GrError`` naming ``b``."""
+    try:
+        return fn(*args)
+    except GrError as e:
+        if e.block is None:
+            e.block = b.name
+        raise
+    except Exception as e:
+        raise GrError(f"{b.name} ({type(b).__name__}).{what} failed: "
+                      f"{type(e).__name__}: {e}", block=b.name) from e
 
 
 @dataclasses.dataclass
@@ -81,6 +100,22 @@ class CompiledGraph:
     exec_plan: list[Any] = dataclasses.field(default_factory=list)
     loop_groups: list[dict] = dataclasses.field(default_factory=list)
     fb_init_states: dict[str, Any] = dataclasses.field(default_factory=dict)
+    mesh: Any = None
+    # under an 'sp' mesh axis: the axis (name, shard devices), each block's
+    # per-shard contexts, and the lowering each block got — "local" (per
+    # shard), "halo" (left-neighbour halo), "island" (gathered on the home
+    # device) or "custom" (the block's own apply_sp); the default lowering's
+    # halo lengths
+    sp_axis: Any = None
+    sp_local_ctx: dict[str, list[BlockCtx]] = dataclasses.field(
+        default_factory=dict)
+    sp_plan: dict[str, str] = dataclasses.field(default_factory=dict)
+    # each block that takes the default lowering: its sp_halo answer
+    sp_halos: dict[str, int | None] = dataclasses.field(default_factory=dict)
+    # under a 'chan' mesh axis: (block, port) → the PartitionSpec its
+    # out_sharding asks for (values stay whole on the home device)
+    out_specs: dict[tuple[str, str], Any] = dataclasses.field(
+        default_factory=dict)
     _params_cache: Any = None
     _zero_feeds_cache: Any = None
     _pump_plan: Any = None
@@ -228,21 +263,25 @@ class CompiledGraph:
         for key, parts in pieces.items():
             values[key] = torch.cat(parts, dim=-1)
 
+    def _run_group_or_raise(self, group, states, params, values, new_states):
+        """:meth:`_run_loop_group`, any error but a ``GrError`` raised again
+        as one naming the group's members."""
+        try:
+            self._run_loop_group(group, states, params, values, new_states)
+        except GrError:
+            raise
+        except Exception as e:
+            names = [m.name for m in group["order"]]
+            raise GrError(f"feedback loop {names} failed: "
+                          f"{type(e).__name__}: {e}") from e
+
     def _substep(self, states, params, feeds):
         values: dict[tuple[str, str], torch.Tensor] = {}
         new_states: dict[str, Any] = {}
         sink_ins: dict[str, dict[str, torch.Tensor]] = {}
         for b in self.exec_plan:
             if isinstance(b, dict):      # a contracted feedback loop group
-                try:
-                    self._run_loop_group(b, states, params, values,
-                                         new_states)
-                except GrError:
-                    raise
-                except Exception as e:
-                    names = [m.name for m in b["order"]]
-                    raise GrError(f"feedback loop {names} failed: "
-                                  f"{type(e).__name__}: {e}") from e
+                self._run_group_or_raise(b, states, params, values, new_states)
                 continue
             uname = b.unique_name
             ctx = dataclasses.replace(self.block_ctx[uname],
@@ -254,16 +293,65 @@ class CompiledGraph:
                 ins = {**feeds[uname], **ins}
             if uname in self.sink_names:
                 sink_ins[uname] = ins
-            try:
-                st, outs = b.apply(states.get(uname), ins, ctx)
-            except GrError:
-                raise
-            except Exception as e:
-                raise GrError(f"{b.name} ({type(b).__name__}).apply failed: "
-                              f"{type(e).__name__}: {e}", block=b.name) from e
+            st, outs = _apply_or_raise(b, "apply", b.apply, states.get(uname),
+                                       ins, ctx)
             new_states[uname] = st
             for pname, arr in outs.items():
                 values[(uname, pname)] = arr
+        return new_states, sink_ins
+
+    def _substep_sp(self, states, params, feeds):
+        """One step under time sharding: every stream value is a list of
+        local shards, one per device of ``sp_axis``; each block runs through
+        its ``apply_sp``, a feedback loop group once on the home device over
+        its gathered inputs, and each sink's inputs are joined on the home
+        device."""
+        from ..parallel.collectives import gather, split
+        axis = self.sp_axis
+        home = axis.home
+        values: dict[tuple[str, str], list[torch.Tensor]] = {}
+        new_states: dict[str, Any] = {}
+        sink_ins: dict[str, dict[str, torch.Tensor]] = {}
+        for b in self.exec_plan:
+            if isinstance(b, dict):      # a feedback loop group: an island
+                full: dict[tuple[str, str], torch.Tensor] = {}
+                for m in b["order"]:
+                    for e in self.in_edges[m.unique_name]:
+                        key = (e.src.unique_name, e.src_port)
+                        if not e.feedback and key not in full and \
+                                e.src.unique_name not in b["members"]:
+                            full[key] = gather(values[key], home)
+                self._run_group_or_raise(b, states, params, full, new_states)
+                for key in b["outputs"]:
+                    values[key] = split(full[key], axis)
+                continue
+            uname = b.unique_name
+            ctx = dataclasses.replace(self.block_ctx[uname],
+                                      params=params.get(uname, {}))
+            ins = [{} for _ in range(axis.size)]
+            for p, t in feeds.get(uname, {}).items():
+                for d, part in zip(ins, split(t, axis)):
+                    d[p] = part
+            for e in self.in_edges[uname]:
+                for d, part in zip(ins, values[(e.src.unique_name,
+                                                e.src_port)]):
+                    d[e.dst_port] = part
+            if uname in self.sink_names:
+                sink_ins[uname] = {p: gather([d[p] for d in ins], home)
+                                   for p in ins[0]}
+            lctx = [dataclasses.replace(c, params=ctx.params)
+                    for c in self.sp_local_ctx[uname]]
+            if uname in self.sp_halos:      # the default lowering
+                st, outs = _apply_or_raise(
+                    b, "apply_sp", b.lower_sp, self.sp_halos[uname],
+                    states.get(uname), ins, ctx, lctx, axis)
+            else:
+                st, outs = _apply_or_raise(b, "apply_sp", b.apply_sp,
+                                           states.get(uname), ins, ctx, lctx,
+                                           axis)
+            new_states[uname] = st
+            for pname in outs[0]:
+                values[(uname, pname)] = [o[pname] for o in outs]
         return new_states, sink_ins
 
     def step(self, states, params, feeds=None, overlays=None, *,
@@ -279,8 +367,9 @@ class CompiledGraph:
         package's batched layout) or, with ``stack=False``, a list."""
         fed = {u: {p: _feed_tensor(a, self.device) for p, a in d.items()}
                for u, d in (feeds or {}).items()}
+        substep = self._substep if self.sp_axis is None else self._substep_sp
         if self.batch_steps == 1:
-            return self._substep(states, params, fed)
+            return substep(states, params, fed)
         per: list[dict[str, dict[str, torch.Tensor]]] = []
         for k in range(self.batch_steps):
             p = params
@@ -288,7 +377,7 @@ class CompiledGraph:
                 p = dict(params)
                 for uname, snaps in overlays.items():
                     p[uname] = {**params.get(uname, {}), **snaps[k]}
-            states, sink_ins = self._substep(
+            states, sink_ins = substep(
                 states, p, {u: {q: t[k] for q, t in d.items()}
                             for u, d in fed.items()})
             per.append(sink_ins)
@@ -475,18 +564,49 @@ def _consume_domains(graph: Graph) -> None:
             e.dst.HOST_TAP = True
 
 
+def _mesh_device(mesh: Any, device: torch.device | str | None
+                 ) -> torch.device:
+    """The mesh's home device, which a ``device`` given beside the mesh must
+    equal."""
+    from ..parallel.mesh import Mesh, canonical_device
+    if not isinstance(mesh, Mesh):
+        raise GrError(f"mesh must be a gnuradio4_tpu_torch.parallel.mesh.Mesh "
+                      f"(make_mesh); got {type(mesh).__name__}")
+    home = mesh.home
+    if device is not None and canonical_device(device) != home:
+        raise GrError(f"device={device} conflicts with the mesh, whose first "
+                      f"device {home} is where the graph runs")
+    return home
+
+
 def compile_graph(graph: Graph, *, block_len: int = 1 << 16,
                   sample_rate: float = 1.0, batch_steps: int = 1,
-                  device: torch.device | str | None = None) -> CompiledGraph:
+                  device: torch.device | str | None = None,
+                  mesh: Any = None) -> CompiledGraph:
     """Flatten nested graphs, validate, solve rates/dtypes/channels, run the
     rotation-absorption pass, and bind the graph to ``device`` (default:
-    :func:`default_device`). ``CompiledGraph.graph`` is the flattened graph."""
+    :func:`default_device`). ``CompiledGraph.graph`` is the flattened graph.
+
+    ``mesh`` (``parallel.mesh.Mesh``): the graph runs on the mesh's first
+    device (a different ``device`` raises). An ``sp`` axis time-shards the
+    WHOLE graph: every stream value becomes a list of local time shards,
+    one per device along ``sp``, and each block lowers by its sp protocol
+    (``Block.apply_sp``: per shard, a left-neighbour halo, or a gather
+    island; ``compiled.sp_plan`` says which); feedback loop groups run once
+    on the home device over their gathered inputs; sinks receive their
+    inputs joined on the home device. A ``chan`` axis records each
+    multi-channel output's ``out_sharding`` spec in ``compiled.out_specs``
+    and leaves the values whole on the home device."""
+    if mesh is not None:
+        device = _mesh_device(mesh, device)
     device = default_device() if device is None else torch.device(device)
     graph = graph.flatten()
     graph.validate()
     _consume_domains(graph)
     order = graph.topological_order()
-    in_len, out_len = graph.resolve_rates(block_len, sample_rate)
+    axis_names = tuple(getattr(mesh, "axis_names", ()))
+    sp = int(mesh.shape["sp"]) if "sp" in axis_names else 1
+    in_len, out_len = graph.resolve_rates(block_len, sample_rate, shard=sp)
 
     # per-edge dtype/channel resolution (compile-time type inference over the DAG)
     in_edges: dict[str, list[Edge]] = {b.unique_name: [] for b in graph.blocks}
@@ -579,6 +699,34 @@ def compile_graph(graph: Graph, *, block_len: int = 1 << 16,
     batch_steps = int(batch_steps)
     if batch_steps < 1:
         raise GrError(f"batch_steps must be >= 1, got {batch_steps}")
+    out_specs: dict[tuple[str, str], Any] = {}
+    if mesh is not None and (sp == 1 or "chan" in axis_names):
+        for b in order:
+            for p in b.out_ports:
+                spec = b.out_sharding(
+                    p.name, mesh, out_channels[(b.unique_name, p.name)])
+                if spec is not None:
+                    out_specs[(b.unique_name, p.name)] = spec
+    sp_axis, sp_local_ctx, sp_plan, sp_halos = None, {}, {}, {}
+    if sp > 1:
+        from ..parallel.collectives import ShardAxis
+        sp_axis = ShardAxis("sp", tuple(mesh.axis_devices("sp")))
+        for b in order:
+            uname = b.unique_name
+            c = block_ctx[uname]
+            sp_local_ctx[uname] = [dataclasses.replace(
+                c, in_len={k: v // sp for k, v in c.in_len.items()},
+                out_len={k: v // sp for k, v in c.out_len.items()},
+                device=d) for d in sp_axis.devices]
+            if type(b).apply_sp is not Block.apply_sp:
+                sp_plan[uname] = "custom"
+            else:
+                h = sp_halos[uname] = b.sp_halo(c)
+                sp_plan[uname] = "local" if h == 0 else \
+                    "island" if h is None else "halo"
+        for g in loop_groups:
+            for uname in g["members"]:
+                sp_plan[uname] = "island"
     return CompiledGraph(
         graph=graph, order=order, in_len=in_len, out_len=out_len,
         block_ctx=block_ctx, in_edges=in_edges, fed_blocks=fed_blocks,
@@ -589,4 +737,6 @@ def compile_graph(graph: Graph, *, block_len: int = 1 << 16,
         statics={b.unique_name: b.settings.static_params() for b in order},
         exec_plan=exec_plan, loop_groups=loop_groups,
         fb_init_states={g["state_key"]: _fb_init_values(
-            g, out_channels, out_dtypes, device) for g in loop_groups})
+            g, out_channels, out_dtypes, device) for g in loop_groups},
+        mesh=mesh, sp_axis=sp_axis, sp_local_ctx=sp_local_ctx,
+        sp_plan=sp_plan, sp_halos=sp_halos, out_specs=out_specs)

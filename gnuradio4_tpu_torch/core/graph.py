@@ -258,8 +258,8 @@ class Graph(Block):
                     raise ConnectionError_(f"{b.name}.{p.name} (input) not connected")
 
     # -- rate algebra ----------------------------------------------------------
-    def resolve_rates(self, block_len: int, sample_rate: float = 1.0
-                      ) -> tuple[dict[str, int], dict[str, int]]:
+    def resolve_rates(self, block_len: int, sample_rate: float = 1.0,
+                      shard: int = 1) -> tuple[dict[str, int], dict[str, int]]:
         """Solve per-block input/output samples-per-step (static shapes).
 
         Every block's input length is ``k * f_b`` for a per-component base ``k`` and a
@@ -268,6 +268,10 @@ class Graph(Block):
         then scale to ≈ ``block_len`` at the sources. Returns
         ``(in_len, out_len)`` keyed by block unique_name. Also stamps each edge's
         ``samples_per_step``/``sample_rate``.
+
+        ``shard`` > 1 (time-axis sp sharding): every per-step length must
+        additionally divide into ``shard`` equal time shards that each still
+        satisfy the block's alignment — i.e. divisible by ``alignment·shard``.
         """
         order = self.topological_order()
         f: dict[Block, Fraction] = {}
@@ -313,7 +317,7 @@ class Graph(Block):
         # minimal base k: for each block need k*f integer and divisible by alignment
         k0 = 1
         for b in order:
-            a = max(1, int(b.alignment))
+            a = max(1, int(b.alignment)) * max(1, int(shard))
             frac = f[b]
             need = (frac.denominator * a) // math.gcd(frac.numerator, frac.denominator * a)
             k0 = k0 * need // math.gcd(k0, need)

@@ -44,7 +44,8 @@ import torch
 
 from ..utils import thread_pool
 from .block import Block, HostCtx, SinkBlock
-from .compiler import CompiledGraph, compile_graph, default_device
+from .compiler import (CompiledGraph, _mesh_device, compile_graph,
+                       default_device)
 from .errors import Error, GrError
 from .graph import Graph
 from .lifecycle import State, StateMachine
@@ -80,7 +81,8 @@ class _InFlight:
 
 
 class Scheduler:
-    """Single-device streaming scheduler (≈ gr::scheduler::Simple)."""
+    """Streaming scheduler (≈ gr::scheduler::Simple) on one device, or over
+    the shards of a mesh (``mesh=``, see ``compile_graph``)."""
 
     def __init__(self, graph: Graph, *, block_len: int = 1 << 16,
                  sample_rate: float = 1.0,
@@ -91,13 +93,15 @@ class Scheduler:
                  max_tags_per_step: int = 64, name: str = "scheduler",
                  on_block_error: str = "shutdown",
                  async_delivery: bool = False, batch_steps: int = 1):
-        if mesh is not None:
-            raise GrError("mesh scheduling (time/channel sharding over several "
-                          "devices) is not ported to this package yet")
         self.name = name
         self.graph = graph
         self.block_len = block_len
         self.sample_rate = sample_rate
+        # a mesh (parallel.mesh.Mesh) shards the compiled step over its
+        # devices; the scheduler runs on the mesh's first device
+        self.mesh = mesh
+        if mesh is not None:
+            device = _mesh_device(mesh, device)
         self.device = default_device() if device is None else torch.device(device)
         # step batching: plan S logical sub-steps on the host and run them in
         # one dispatch. STATIC/structural settings changes and block state
@@ -289,7 +293,7 @@ class Scheduler:
                 self.compiled = compile_graph(
                     self.graph, block_len=self.block_len,
                     sample_rate=self.sample_rate, batch_steps=self.batch_steps,
-                    device=self.device)
+                    device=self.device, mesh=self.mesh)
                 if self.batch_steps > 1 and any(
                         getattr(b, "FEED", False) and hasattr(b, "consume")
                         for b in self.compiled.order):
@@ -1070,8 +1074,17 @@ class Scheduler:
                         b.settings.activate_context_for_time(
                             float(t.map[Keys.CTX_TIME]))
             if events:
-                # sort by index only (stable: arrival order for ties)
-                self._tag_ramps[uname] = sorted(events, key=lambda e: e[0])
+                if "sp" in getattr(self.mesh, "axis_names", ()):
+                    # a per-sample ramp is a full-step-length param, which
+                    # the time shards cannot split: under sp the change
+                    # applies at the next step boundary
+                    self.bus.notify(b.name, "TagSettings",
+                                    {"note": "sample-accurate ramp skipped "
+                                             "under sp sharding; applied at "
+                                             "the next step boundary"})
+                else:
+                    # sort by index only (stable: arrival order for ties)
+                    self._tag_ramps[uname] = sorted(events, key=lambda e: e[0])
             # device-visible tag path: blocks that gate on tags on the device
             # (WANTS_TAG_ARRAYS) receive this step's input tags; their
             # prepare_params packs them into fixed-capacity TagArrays

@@ -308,21 +308,33 @@ def acquire_all(iq, *, fs: float, prns=range(1, 33),
     The PRN axis is a batch: the wiped spectra are computed once and the
     [P, D, K, N] correlations are one inverse FFT. Each PRN's peak, code
     phase and second peak are found on the device, so only [P] numbers come
-    back. ``mesh`` (the JAX package's PRN axis sharded across chips) is not
-    ported: it raises."""
-    if mesh is not None:
-        raise GrError("acquire_all(mesh=...): the sky search sharded across "
-                      "cards is not ported (ROADMAP queue 1 item 9, "
-                      "parallel/); call it without a mesh")
-    dev = _device(device)
+    back. Under a ``mesh`` (``parallel.mesh.Mesh``; ``device`` must then be
+    None) the PRN axis is split over the mesh's last axis: each device
+    searches its slice of the constellation (no collective in the hot
+    loop), and the peaks are joined on the host."""
     prns = list(prns)
     n = int(round(fs * 1e-3))
-    codes = device_constant(_code_table(tuple(prns), fs, n), dev)
     dopplers = doppler_grid(doppler_max, doppler_step)
-    surfs = acquire_metric(_iq_tensor(iq, dev), codes,
-                           device_constant(dopplers, dev), fs=fs,
-                           n_coherent=n_coherent)                 # [P, D, N]
-    d_idx, c_idx, peak, second = _peaks(surfs, int(round(fs / CHIP_RATE)))
+    spc = int(round(fs / CHIP_RATE))
+    if mesh is None:
+        parts = [(prns, _device(device))]
+    else:
+        from ..parallel.mesh import Mesh
+        if not isinstance(mesh, Mesh) or device is not None:
+            raise GrError("acquire_all: pass a mesh (parallel.mesh.Mesh) or "
+                          "a device, not both")
+        devs = mesh.axis_devices(mesh.axis_names[-1])
+        parts = [([int(p) for p in c], d) for c, d in
+                 zip(np.array_split(np.asarray(prns), len(devs)), devs)
+                 if len(c)]
+    found = []
+    for part, dev in parts:
+        codes = device_constant(_code_table(tuple(part), fs, n), dev)
+        surfs = acquire_metric(_iq_tensor(iq, dev), codes,
+                               device_constant(dopplers, dev), fs=fs,
+                               n_coherent=n_coherent)             # [P, D, N]
+        found.append(_peaks(surfs, spc))
+    d_idx, c_idx, peak, second = (np.concatenate(a) for a in zip(*found))
     out = []
     for k, prn in enumerate(prns):
         metric = float(peak[k] / max(second[k], 1e-30))

@@ -1,6 +1,6 @@
 """Feedback loop groups in the port against the JAX package, on the CPU:
-every case of ``tests/test_feedback.py`` (the ``sp``-mesh case becomes the
-check that ``mesh=`` raises), the loop under every way the port's scheduler
+every case of ``tests/test_feedback.py`` (its ``sp``-mesh case runs in
+``tests/test_torch_mesh_scheduler.py``), the loop under every way the port's scheduler
 runs a step, the back-edge state through checkpoints that cross packages,
 and ``examples/agc_loop.yaml`` through ``run_grc`` and the CLI.
 
@@ -254,11 +254,16 @@ def test_host_tap_member_rejected():
 
 
 def test_mesh_raises():
-    """The sp-mesh lowering of a loop is not ported: ``mesh=`` raises, as it
-    does for every graph in the port."""
+    """A loop graph under ``mesh=`` (its gather island is held to the
+    unsharded run in tests/test_torch_mesh_scheduler.py) raises for what is
+    not a mesh, and for a ``device`` that is not the mesh's first."""
+    from gnuradio4_tpu_torch.parallel.mesh import make_mesh
     g, _ = _agc_loop_graph(gt, _x(), 0.01, delay=1)
     with pytest.raises(TGrError, match="mesh"):
         gt.Scheduler(g, block_len=1024, mesh=object(), device="cpu")
+    mesh = make_mesh((8,), ("sp",), devices=[torch.device("cpu")] * 8)
+    with pytest.raises(TGrError, match="conflicts with the mesh"):
+        gt.Scheduler(g, block_len=1024, mesh=mesh, device="meta")
 
 
 def _ck_graph(pkg):

@@ -157,8 +157,15 @@ def test_acquire_all_peak_wraps_the_code_phase():
 
 
 def test_acquire_all_with_a_mesh_raises():
-    with pytest.raises(GrError, match="queue 1 item 9"):
-        gnss.acquire_all(np.zeros(4092, np.complex64), fs=FS, mesh=object(), **CPU)
+    """A mesh splits the PRN axis over its devices (tests/test_torch_parallel.py
+    holds it to the plain search); one that is not a Mesh, or a mesh beside a
+    device, raises."""
+    from gnuradio4_tpu_torch.parallel.mesh import make_mesh
+    with pytest.raises(GrError, match="a mesh"):
+        gnss.acquire_all(np.zeros(4092, np.complex64), fs=FS, mesh=object())
+    mesh = make_mesh((2,), ("ep",), devices=["cpu", "cpu"])
+    with pytest.raises(GrError, match="not both"):
+        gnss.acquire_all(np.zeros(4092, np.complex64), fs=FS, mesh=mesh, **CPU)
 
 
 def test_entry_points_default_to_the_card():

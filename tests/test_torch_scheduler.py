@@ -3,7 +3,8 @@ builds the same graph in both packages, runs it under both schedulers with the
 same settings and compares every sink (data and tags) — lifecycle,
 start/wait_done, stop from another thread, pause/resume, EOS, partial final
 blocks, pipeline depth, step_once, dynamic settings without recompile, the
-scheduler variants, and what the port refuses (feedback loops, meshes)."""
+scheduler variants, and what the port refuses (bad feedback loops, what is
+not a mesh)."""
 
 import threading
 import time
@@ -339,8 +340,8 @@ def test_wait_done_raises_runner_failure():
 
 def test_feedback_edges_and_meshes_raise():
     """A feedback back-edge compiles into one loop group, as in the JAX
-    package (tests/test_torch_feedback.py runs the loops); meshes and bad
-    batch sizes are refused."""
+    package (tests/test_torch_feedback.py runs the loops); a mesh that is
+    not a ``parallel.mesh.Mesh`` and bad batch sizes are refused."""
     h = gt.Graph()
     a = h.emplace("Copy", name="a")
     b = h.emplace("Copy", name="b")
