@@ -274,6 +274,21 @@ result line:
     27's search; (e) a three-stage ``StagePipeline.from_graph`` (FreqXlatingFir
     | QuadratureDemod | FirFilter ÷8, derotated) bitwise equal to the fused
     graph.
+31. the chain at 2^23 across two processes sharing the card
+    (``parallel/multihost.py``): this file run twice with
+    ``--multihost-worker`` on a free local port, each process
+    ``init_distributed`` (the backend chosen from the devices and printed:
+    Gloo with host staging, as the two share ``cuda:0``) and
+    ``global_mesh(("sp",), [cuda] * 4)``; the derotated chain for 4 steps
+    with every launch counted (8 ``fir_banded`` and 4 ``nco_mix`` a step a
+    process) and each kernel held against its plain version on the run's
+    inputs; each process's sink slices against phase 30's 8-shard chain
+    (bitwise expected, bound ``MESH_ATOL``) and phase 5's (``compare_sinks``);
+    the NullSink chain's ms and host ms a step, the transport's ms, bytes
+    and calls a step and each process's peak device memory
+    (``MemoryMonitor``), beside phase 30's 8-shard chain run before and
+    after. A worker that fails, disagrees or outlives ``MH_DEADLINE`` fails
+    the phase.
 
 Phases 13–17 each print the card against the CPU on a short run of the same
 graph, Msps (coded Mbit/s for 7 and 7k), ms per step by CUDA events over 5
@@ -297,6 +312,7 @@ import statistics
 import subprocess
 import sys
 import time
+import traceback
 from pathlib import Path
 
 # a hidden PyYAML dependency fails here as on a machine without PyYAML: the
@@ -592,6 +608,17 @@ RX_CFG = dict(n_channels=64, taps_per_phase=8, audio_decim=4, audio_ntaps=32,
 RX_STEPS = 3
 RX_CPU_BLOCK_LEN = 1 << 14
 RX_OFFSET = 0.2                  # per-channel tone offset, ≤ this/M cycles a sample
+# phase 31: the chain at 2^23 across two processes on the one card — a
+# global mesh of 4 time shards a process, all on cuda:0, Gloo with host
+# staging; each process's slices against phase 30's 8-shard chain (bitwise
+# expected, bound MESH_ATOL) and phase 5's; the NullSink chain timed in
+# turns with phase 30's; the workers are this file run with
+# --multihost-worker
+MH_WORLD = 2
+MH_LOCAL = 4
+MH_TIMEOUT = 120.0      # the process group's set-up and collective timeout
+MH_DEADLINE = 420.0     # a worker not done by then fails the phase
+MH_WINDOWS = 3
 KERNELS = {
     "fir_banded": {
         "source": "gnuradio4_tpu_torch/csrc/fir_banded.cu",
@@ -5338,6 +5365,7 @@ def mesh_phases(dev, card: str, phase45, chain_msps: float, paths: list,
     # (a) the headline chain at 2^23 over 8 time shards, absorbed and not
     print(f"[30a mesh chain] block_len 2^23 over {mesh} ({MESH_SP} time shards "
           f"on one card), {STEPS} steps, against phases 4 and 5 ({card})")
+    derotated = None
     for absorb, ref, label in ((True, phase45[0], "absorbed"),
                                (False, phase45[1], "derotated")):
         ck.reset_launch_counts()
@@ -5354,6 +5382,8 @@ def mesh_phases(dev, card: str, phase45, chain_msps: float, paths: list,
         check_chain_outputs(*out, BLOCK_LEN, STEPS, f"mesh chain {label}")
         compare_sinks(out, ref, f"mesh chain {label} vs phase "
                       f"{4 if absorb else 5}")
+        if not absorb:
+            derotated = out     # phase 31's reference
         del out
     # bitwise: the tone source and a Rotator from a phase just below 2^32
     # (the JAX tests assert both bitwise), and the FIR's NCO phase state
@@ -5575,6 +5605,244 @@ def mesh_phases(dev, card: str, phase45, chain_msps: float, paths: list,
     check(counts["fir_banded"] == 2 * STEPS and counts["nco_mix"] == STEPS,
           f"pipeline launches {counts}")
     print(f"  phase 30: {time.perf_counter() - t_phase:.1f} s")
+    return derotated
+
+
+def timed_null_chain(mesh, windows: int):
+    """The NullSink chain (absorbed) under ``mesh``, warmed by two steps and
+    driven through ``windows`` windows of ``MESH_TIMED_STEPS`` steps
+    (``drive_windows``); the process group's transport is counted from the
+    first timed step."""
+    import gnuradio4_tpu_torch as gt
+    from gnuradio4_tpu_torch.core.profiler import Profiler
+    from gnuradio4_tpu_torch.parallel import collectives as col
+    g, _, _, _ = build_chain("null")
+    sched = gt.Scheduler(g, block_len=BLOCK_LEN, sample_rate=FS, mesh=mesh,
+                         pipeline_depth=1, profiler=Profiler())
+    sched.init()
+    sched.fsm.transition_to(gt.State.RUNNING)
+    for _ in range(2):
+        sched._pump_once()
+    sync("cuda")
+    col.transport.reset()
+    out = drive_windows(sched, MESH_TIMED_STEPS, windows=windows)
+    finish(sched)
+    return out
+
+
+def multihost_worker(rank: int, world: int, port: str, out_dir: str) -> int:
+    """One process of phase 31 (``python3 chip_smoke.py --multihost-worker
+    RANK WORLD PORT DIR``): joins the process group, runs the derotated
+    chain over the global mesh with every launch counted and each kernel's
+    latest inputs kept, holds those against the plain versions, times the
+    NullSink chain, saves its sinks' slices to DIR and prints one
+    ``MH_RESULT {json}`` line."""
+    import contextlib
+    import dataclasses
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from gnuradio4_tpu_torch.ops import cuda_kernels as ck
+    from gnuradio4_tpu_torch.blocks import filter as tfilter
+    from gnuradio4_tpu_torch.parallel import collectives as col
+    from gnuradio4_tpu_torch.parallel import multihost as mh
+    from gnuradio4_tpu_torch.utils.memory import (MemoryMonitor,
+                                                  device_memory_stats)
+
+    t0 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    dev = torch.device("cuda", 0)
+    torch.cuda.init()
+    ck.build()
+    mh.init_distributed(f"127.0.0.1:{port}", world, rank, device=dev,
+                        timeout=MH_TIMEOUT)
+    backend = mh.backend()
+    print(f"[31 process {rank}] backend {backend}: the devices "
+          f"{mh.published_devices()}", flush=True)
+    mesh = mh.global_mesh(("sp",), [dev] * MH_LOCAL)
+    check(mesh.shape["sp"] == world * MH_LOCAL and mesh.home == dev,
+          f"global mesh {mesh}")
+    torch.cuda.reset_peak_memory_stats(dev)
+    mon = MemoryMonitor(interval_s=0.02, device=dev).start()
+
+    @contextlib.contextmanager
+    def keep_nco(keep: dict):
+        inner = tfilter.nco_mix
+
+        def kept(x, phase0, dphi):
+            before = ck.nco_mix.launches
+            y = inner(x, phase0, dphi)
+            if ck.nco_mix.launches > before:
+                keep["last"] = (x, int(phase0), int(dphi))
+            return y
+        tfilter.nco_mix = kept
+        try:
+            yield
+        finally:
+            tfilter.nco_mix = inner
+
+    # the derotated chain over the global mesh: launches counted from 0
+    by_shape, fir_kept, nco_kept = {}, {}, {}
+    with count_fir_shapes(by_shape, fir_kept), keep_nco(nco_kept):
+        ck.reset_launch_counts()
+        spec, audio = run_chain("cuda", BLOCK_LEN, STEPS, False, mesh=mesh)
+        counts = ck.launch_counts()
+    # each kernel against its plain version on the run's inputs
+    errs = {"fir_banded": [], "nco_mix": []}
+    for (xf, hf, taps, decim) in fir_kept.values():
+        errs["fir_banded"].append(float(
+            (ck.fir_banded(xf, hf, taps, decim)
+             - ck.fir_banded_ref(xf, hf, taps, decim)).abs().max()))
+    xn, ph, dphi = nco_kept["last"]
+    (y, p1), (y_ref, p_ref) = ck.nco_mix(xn, ph, dphi), ck.nco_mix_ref(xn, ph,
+                                                                       dphi)
+    errs["nco_mix"].append(float((y - y_ref).abs().max()))
+    check(p1 == p_ref, f"nco_mix phase {p1} vs {p_ref}")
+    del fir_kept, nco_kept, xn, y, y_ref
+    np.save(os.path.join(out_dir, f"rank{rank}_spec.npy"), spec)
+    np.save(os.path.join(out_dir, f"rank{rank}_audio.npy"), audio)
+    # the NullSink chain, timed; the transport over the same windows
+    ms, windows, host_ms, split = timed_null_chain(mesh, MH_WINDOWS)
+    n = MH_WINDOWS * MESH_TIMED_STEPS
+    moved = dataclasses.asdict(col.transport)
+    mon.sample()
+    mon.stop()
+    stats = device_memory_stats(dev)
+    dist.barrier()
+    mh.shutdown()
+    print("MH_RESULT " + json.dumps({
+        "rank": rank, "backend": backend,
+        "counts": counts, "shapes": {str(k): v for k, v in by_shape.items()},
+        "errs": errs, "spec_shape": list(spec.shape),
+        "audio_shape": list(audio.shape), "ms": ms, "host_ms": host_ms,
+        "windows": windows, "split": split,
+        "transport_ms": moved["seconds"] * 1e3 / n,
+        "transport_bytes": moved["bytes"] / n,
+        "transport_calls": moved["calls"] / n,
+        "peak_device_bytes": mon.peak_device_bytes,
+        "peak_bytes_in_use": stats.get("peak_bytes_in_use", 0),
+        "bytes_reserved": stats.get("bytes_reserved", 0),
+        "seconds": time.perf_counter() - t0}), flush=True)
+    return 0
+
+
+def multihost_phases(dev, card: str, phase5, mesh_derotated, paths: list,
+                     results: dict) -> None:
+    """Phase 31: the chain at 2^23 across two processes sharing the card
+    (this file's workers), against phase 30's 8-shard chain and phase 5;
+    the NullSink chain in turns with phase 30's."""
+    import socket
+    import tempfile
+    import numpy as np
+    import torch
+    from gnuradio4_tpu_torch.parallel.mesh import make_mesh
+
+    t_phase = time.perf_counter()
+    mesh8 = make_mesh((MESH_SP,), ("sp",), devices=[dev] * MESH_SP)
+    print(f"[31 multihost] the chain at 2^23 across {MH_WORLD} processes on "
+          f"{dev}, {MH_LOCAL} time shards each, {STEPS} checked steps; the "
+          f"NullSink chain in turns with phase 30's 8-shard chain ({card})")
+    single = [timed_null_chain(mesh8, MH_WINDOWS)]
+    torch.cuda.empty_cache()
+    with socket.socket() as so:
+        so.bind(("127.0.0.1", 0))
+        port = str(so.getsockname()[1])
+    out_dir = tempfile.mkdtemp(prefix="gr4tpu_mh_")
+    procs = [subprocess.Popen(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--multihost-worker",
+         str(r), str(MH_WORLD), port, out_dir],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        cwd=str(ROOT)) for r in range(MH_WORLD)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(
+                timeout=max(1.0, t_phase + MH_DEADLINE - time.perf_counter()))[0])
+    except subprocess.TimeoutExpired:
+        for p in procs:
+            p.kill()
+            p.communicate()
+        raise SmokeFailure(f"phase 31: workers not done within {MH_DEADLINE} "
+                           f"s:\n" + "\n".join(o[-3000:] for o in outs))
+    single.append(timed_null_chain(mesh8, MH_WINDOWS))
+    got = []
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        lines = [ln for ln in out.splitlines() if ln.startswith("MH_RESULT ")]
+        check(p.returncode == 0 and len(lines) == 1,
+              f"phase 31 worker {r} failed (rc {p.returncode}):\n{out[-4000:]}")
+        got.append(json.loads(lines[0][len("MH_RESULT "):]))
+    # each process's slices against phase 30's 8-shard chain and phase 5
+    spec8, audio8 = mesh_derotated
+    for r, res in enumerate(got):
+        spec = np.load(os.path.join(out_dir, f"rank{r}_spec.npy"))
+        audio = np.load(os.path.join(out_dir, f"rank{r}_audio.npy"))
+
+        def mine(a):
+            per = a.reshape(STEPS, -1)
+            w = per.shape[1] // MH_WORLD
+            return per[:, r * w:(r + 1) * w].reshape(-1)
+        d8 = max(float(np.max(np.abs(spec - mine(spec8)))),
+                 float(np.max(np.abs(audio - mine(audio8)))))
+        same = np.array_equal(spec, mine(spec8)) and np.array_equal(
+            audio, mine(audio8))
+        print(f"  process {r}: spectrum {spec.shape}, audio {audio.shape}; "
+              f"against phase 30's slices max|Δ| {d8:.3e} (tol {MESH_ATOL}), "
+              f"bitwise {same}")
+        check(spec.shape == (BLOCK_LEN * STEPS // MH_WORLD,) and
+              audio.shape == (BLOCK_LEN * STEPS // 8 // MH_WORLD,) and
+              d8 <= MESH_ATOL, f"phase 31 process {r}: max|Δ| {d8}")
+        compare_sinks((spec, audio), (mine(phase5[0]), mine(phase5[1])),
+                      f"process {r} vs phase 5")
+        c = res["counts"]
+        print(f"  process {r}: backend {res['backend']}; launches {c} (expected "
+              f"fir_banded {2 * MH_LOCAL * STEPS}, nco_mix {MH_LOCAL * STEPS}); "
+              f"fir_banded shapes {res['shapes']}; against the plain versions "
+              f"on the run's inputs max|Δ| fir_banded "
+              f"{max(res['errs']['fir_banded']):.3e} (tol {FIR_ATOL}), nco_mix "
+              f"{max(res['errs']['nco_mix']):.3e} (tol {NCO_ATOL}) ({card})")
+        check(res["backend"] == "gloo", f"phase 31 backend {res['backend']}")
+        check(c["fir_banded"] == 2 * MH_LOCAL * STEPS
+              and c["nco_mix"] == MH_LOCAL * STEPS,
+              f"phase 31 process {r}: launches {c}")
+        check(max(res["errs"]["fir_banded"]) <= FIR_ATOL
+              and max(res["errs"]["nco_mix"]) <= NCO_ATOL,
+              f"phase 31 process {r}: kernels against plain {res['errs']}")
+        for k in ("fir_banded", "nco_mix"):
+            results[k]["launches"] += c[k]
+            results[k]["max_abs_err"] = max(results[k]["max_abs_err"],
+                                            *res["errs"][k])
+        print(f"  process {r}: NullSink chain {res['ms']:.4f} ms a step "
+              f"(CUDA events, median of {MH_WINDOWS} windows of "
+              f"{MESH_TIMED_STEPS}), host {res['host_ms']:.4f} ms a step in "
+              f"the pump ({fmt_split(res['split'])}); windows (events ms, "
+              f"wall ms) {fmt_windows(res['windows'])}; transport "
+              f"{res['transport_ms']:.4f} ms, {res['transport_bytes']:.0f} "
+              f"bytes, {res['transport_calls']:.1f} calls a step; peak device "
+              f"memory {res['peak_device_bytes'] / 2**30:.3f} GiB "
+              f"(MemoryMonitor; allocator peak "
+              f"{res['peak_bytes_in_use'] / 2**30:.3f}, reserved "
+              f"{res['bytes_reserved'] / 2**30:.3f}); worker "
+              f"{res['seconds']:.1f} s ({card})")
+        paths.append({"name": f"multihost chain process {r}",
+                      "msps": BLOCK_LEN / (res["ms"] * 1e-3) / 1e6,
+                      "ms_per_step": res["ms"],
+                      "host_ms_per_step": res["host_ms"],
+                      "transport_ms_per_step": res["transport_ms"],
+                      "transport_bytes_per_step": res["transport_bytes"],
+                      "peak_device_bytes": res["peak_device_bytes"]})
+        del spec, audio
+    for f in os.listdir(out_dir):
+        os.remove(os.path.join(out_dir, f))
+    os.rmdir(out_dir)
+    ms1 = [w[0] for w in single]
+    host1 = [w[2] for w in single]
+    print(f"  phase 30's 8-shard chain in turns (before, after): "
+          f"{[round(v, 4) for v in ms1]} ms a step, host "
+          f"{[round(v, 4) for v in host1]} ms a step; two processes / one: "
+          f"{max(r['ms'] for r in got) / statistics.median(ms1):.3f}× the "
+          f"step ({card})")
+    print(f"  phase 31: {time.perf_counter() - t_phase:.1f} s")
 
 
 def main() -> int:
@@ -6367,8 +6635,10 @@ def main() -> int:
     gnss_coding_phases(dev, card, paths, results)
     host_core_phases(dev, card, phase45, chain_msps, paths, results)
     io_phases(dev, card, phase45, paths, results)
-    mesh_phases(dev, card, phase45, chain_msps, paths, results)
-    del phase45
+    mesh_derotated = mesh_phases(dev, card, phase45, chain_msps, paths,
+                                 results)
+    multihost_phases(dev, card, phase45[1], mesh_derotated, paths, results)
+    del phase45, mesh_derotated
 
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "share_of_bound", "library_ms")
@@ -6387,7 +6657,15 @@ def main() -> int:
 
 if __name__ == "__main__":
     try:
+        if sys.argv[1:2] == ["--multihost-worker"]:
+            sys.exit(multihost_worker(int(sys.argv[2]), int(sys.argv[3]),
+                                      sys.argv[4], sys.argv[5]))
         sys.exit(main())
     except SmokeFailure as e:
-        print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+        # on stdout too: a record that keeps only stdout keeps the cause
+        for stream in (sys.stdout, sys.stderr):
+            print(f"chip_smoke: FAILED: {e}", file=stream, flush=True)
         sys.exit(1)
+    except Exception:
+        traceback.print_exc(file=sys.stdout)
+        raise

@@ -5,13 +5,14 @@ Commands (the app surface of the framework — ≈ running a GRC flowgraph):
                   [--profile TRACE] [--draw [--draw-interval S]]
   blocks                      list registered block types
   describe <BlockType>        show a block type's settings/ports
-  inspect <flow.yaml>         parse + validate + print the resolved graph
+  inspect <flow.yaml>         parse + validate + draw + print the resolved graph
+  new-block <Name> [--kind device|sink|source] [--dir D]
+                              scaffold a block module + its test
 
 ``run`` takes the CUDA card unless ``--cpu`` is given; without a card it
 fails. ``run --draw`` redraws the graph's Drawable blocks (ImChartMonitor,
-WaterfallMonitor) while the scheduler runs. The JAX package's ``new-block``
-and ``bench`` and the drawing ``inspect`` prints above its table are not
-ported yet: each raises.
+WaterfallMonitor) while the scheduler runs. ``bench`` raises: the port's
+benchmark comes with a change of its own.
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ import sys
 from .core.errors import GrError
 
 _NOT_PORTED = ("is not ported to gnuradio4_tpu_torch yet (it comes with the "
-               "port's scaffolding and benchmark)")
+               "port's benchmark)")
 
 
 def _run_with_dashboard(sched, graph, n_steps, interval: float) -> None:
@@ -103,16 +104,25 @@ def main(argv: list[str] | None = None) -> int:
     insp.add_argument("--block-len", type=int, default=4096)
 
     sub.add_parser("bench", help="run the headline benchmark (not ported yet)")
-    nb = sub.add_parser("new-block", help="scaffold a block module + test "
-                                          "(not ported yet)")
+    nb = sub.add_parser("new-block", help="scaffold a block module + test")
     nb.add_argument("name")
-    nb.add_argument("--kind", default="device")
-    nb.add_argument("--dir", default=".")
+    nb.add_argument("--kind", default="device",
+                    choices=("device", "sink", "source"),
+                    help="device: torch apply(); sink: host consume(); "
+                         "source: host_feed()")
+    nb.add_argument("--dir", default=".",
+                    help="where to write <snake>.py / test_<snake>.py")
 
     args = ap.parse_args(argv)
 
-    if args.cmd in ("bench", "new-block"):
+    if args.cmd == "bench":
         raise GrError(f"`{args.cmd}` {_NOT_PORTED}")
+
+    if args.cmd == "new-block":
+        from .utils.scaffold import new_block
+        for path in new_block(args.name, kind=args.kind, out_dir=args.dir):
+            print(f"wrote {path}")
+        return 0
 
     from . import blocks  # noqa: F401  (populates the registry)
     from .core.registry import global_registry
@@ -158,6 +168,8 @@ def main(argv: list[str] | None = None) -> int:
         in_len, out_len = flat.resolve_rates(
             meta.get("block_len", args.block_len),
             sample_rate=meta.get("sample_rate", 1.0))
+        from .utils.imgraph import render_graph
+        print(render_graph(g))
         print(f"graph {g.name!r}: {len(flat.blocks)} blocks, {len(flat.edges)} edges")
         for b in flat.topological_order():
             print(f"  {b.name:30s} {type(b).__name__:24s} "

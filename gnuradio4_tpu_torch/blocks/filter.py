@@ -251,7 +251,7 @@ class FreqXlatingFir(FirFilter):
 
         def fir(streams, taps):
             ys, tail = fir_timeshard(streams, taps, hist, decim=decim,
-                                     precision=self._prec())
+                                     precision=self._prec(), axis=axis)
             return ys, tail.to(hist.dtype)
 
         if getattr(self, "_rotation_absorbed", False) or fc == 0.0:
@@ -269,7 +269,7 @@ class FreqXlatingFir(FirFilter):
             n_in = xs[0].shape[-1]
             xr = [nco_mix(x.to(torch.complex64).contiguous(),
                           phase + dphi * i * n_in, dphi)[0]
-                  for i, x in enumerate(xs)]
+                  for i, x in enumerate(xs, start=axis.first)]
             self._fs_cached = fs
             ys, tail = fir(xr, self._taps_array())
             return ({"hist": tail,
@@ -280,7 +280,7 @@ class FreqXlatingFir(FirFilter):
         dphi = int(phase_increment(-fc * decim, fs))
         ys = [y * complex_exp_ramp(phase + dphi * i * n_out, dphi, n_out,
                                    device=y.device)
-              for i, y in enumerate(ys)]
+              for i, y in enumerate(ys, start=axis.first)]
         return ({"hist": tail,
                  "phase": phase_state(phase + dphi * axis.size * n_out)},
                 [{"out": y} for y in ys])

@@ -221,8 +221,9 @@ class Block:
         """Apply under time sharding.
 
         ``ins`` holds one input dict per shard (local time shards on the
-        shard's device); ``local_ctx`` one context per shard (per-shard
-        lengths and device); ``axis`` the ``parallel.collectives.ShardAxis``.
+        shard's device; across processes, this process's shards);
+        ``local_ctx`` one context per shard (per-shard lengths and device);
+        ``axis`` the ``parallel.collectives.ShardAxis``.
         Returns ``(new_state, outs)``: ONE new state (the state the unsharded
         block would carry on; it lives on the mesh's home device) and one
         output dict per shard. The default lowers via :meth:`sp_halo`."""
@@ -242,15 +243,17 @@ class Block:
                 st, o = self.apply(state, x, lctx)
                 outs.append(o)
             return st, outs
-        from ..parallel.collectives import gather, split
+        from ..parallel.collectives import gather_global, split
         if h is None:
-            # gather island: the full block once on the home device, then
-            # each shard keeps its slice
-            full = {p: gather([d[p] for d in ins], axis.home) for p in ins[0]}
+            # gather island: the full block once on the home device (on
+            # every process, replicated, when the axis spans processes),
+            # then each shard keeps its slice
+            full = {p: gather_global([d[p] for d in ins], axis, axis.home)
+                    for p in ins[0]}
             new_state, outs = self.apply(state, full, ctx)
             parts = {p: split(v, axis) for p, v in outs.items()}
             return new_state, [{p: v[i] for p, v in parts.items()}
-                               for i in range(axis.size)]
+                               for i in range(axis.local_size)]
         # overlap-save halo path
         stream_ins = [p.name for p in self.in_ports if not p.asynchronous]
         if len(stream_ins) != 1:
@@ -260,13 +263,14 @@ class Block:
         from ..parallel.halo import halo_left, last_shard_tail
         xs = [d[stream_ins[0]] for d in ins]
         seed = self.sp_state_to_tail(state, ctx)
-        halos = halo_left(xs, h, seed)
+        halos = halo_left(xs, h, seed, axis)
         outs = []
         for x, halo, lctx in zip(ins, halos, local_ctx):
             _, o = self.apply(self.sp_tail_to_state(halo, state, ctx), x, lctx)
             outs.append(o)
         # new state: the LAST shard's input tail
-        return self.sp_tail_to_state(last_shard_tail(xs, h), state, ctx), outs
+        return self.sp_tail_to_state(last_shard_tail(xs, h, axis), state,
+                                     ctx), outs
 
     # -- host path -------------------------------------------------------------
     def process_tags(self, in_tags: dict[str, list[Tag]], ctx: "HostCtx"

@@ -305,8 +305,15 @@ class CompiledGraph:
         local shards, one per device of ``sp_axis``; each block runs through
         its ``apply_sp``, a feedback loop group once on the home device over
         its gathered inputs, and each sink's inputs are joined on the home
-        device."""
-        from ..parallel.collectives import gather, split
+        device.
+
+        When the axis spans processes, the lists hold this process's shards:
+        ``feeds`` are this process's time slice (the scheduler cuts them), a
+        loop group all-gathers its inputs and runs on every process,
+        replicated, and a sink's join is this process's slice (what the JAX
+        package's ``drain_local`` gives its sinks)."""
+        from ..parallel.collectives import (gather, gather_global, split,
+                                            split_local)
         axis = self.sp_axis
         home = axis.home
         values: dict[tuple[str, str], list[torch.Tensor]] = {}
@@ -320,7 +327,8 @@ class CompiledGraph:
                         key = (e.src.unique_name, e.src_port)
                         if not e.feedback and key not in full and \
                                 e.src.unique_name not in b["members"]:
-                            full[key] = gather(values[key], home)
+                            full[key] = gather_global(values[key], axis,
+                                                      home)
                 self._run_group_or_raise(b, states, params, full, new_states)
                 for key in b["outputs"]:
                     values[key] = split(full[key], axis)
@@ -328,9 +336,9 @@ class CompiledGraph:
             uname = b.unique_name
             ctx = dataclasses.replace(self.block_ctx[uname],
                                       params=params.get(uname, {}))
-            ins = [{} for _ in range(axis.size)]
+            ins = [{} for _ in range(axis.local_size)]
             for p, t in feeds.get(uname, {}).items():
-                for d, part in zip(ins, split(t, axis)):
+                for d, part in zip(ins, split_local(t, axis)):
                     d[p] = part
             for e in self.in_edges[uname]:
                 for d, part in zip(ins, values[(e.src.unique_name,
@@ -572,6 +580,10 @@ def _mesh_device(mesh: Any, device: torch.device | str | None
     if not isinstance(mesh, Mesh):
         raise GrError(f"mesh must be a gnuradio4_tpu_torch.parallel.mesh.Mesh "
                       f"(make_mesh); got {type(mesh).__name__}")
+    if mesh.process_count > 1 and set(mesh.axis_names) != {"sp"}:
+        raise GrError("multi-host scheduling currently requires a mesh "
+                      "with exactly the 'sp' (time) axis spanning all "
+                      "processes")
     home = mesh.home
     if device is not None and canonical_device(device) != home:
         raise GrError(f"device={device} conflicts with the mesh, whose first "
@@ -594,7 +606,10 @@ def compile_graph(graph: Graph, *, block_len: int = 1 << 16,
     (``Block.apply_sp``: per shard, a left-neighbour halo, or a gather
     island; ``compiled.sp_plan`` says which); feedback loop groups run once
     on the home device over their gathered inputs; sinks receive their
-    inputs joined on the home device. A ``chan`` axis records each
+    inputs joined on the home device. A mesh that spans processes
+    (``parallel.multihost.global_mesh``) has exactly the ``sp`` axis; each
+    process runs its own shards, and its sinks receive its time slice
+    (``_substep_sp``). A ``chan`` axis records each
     multi-channel output's ``out_sharding`` spec in ``compiled.out_specs``
     and leaves the values whole on the home device."""
     if mesh is not None:
@@ -709,8 +724,7 @@ def compile_graph(graph: Graph, *, block_len: int = 1 << 16,
                     out_specs[(b.unique_name, p.name)] = spec
     sp_axis, sp_local_ctx, sp_plan, sp_halos = None, {}, {}, {}
     if sp > 1:
-        from ..parallel.collectives import ShardAxis
-        sp_axis = ShardAxis("sp", tuple(mesh.axis_devices("sp")))
+        sp_axis = mesh.shard_axis("sp")
         for b in order:
             uname = b.unique_name
             c = block_ctx[uname]

@@ -102,6 +102,10 @@ class Scheduler:
         self.mesh = mesh
         if mesh is not None:
             device = _mesh_device(mesh, device)
+        # multi-process (parallel/multihost.py): every process runs this
+        # same scheduler; each feeds its own time slice of the host feeds,
+        # and sinks receive this process's slice
+        self._multihost = mesh is not None and mesh.process_count > 1
         self.device = default_device() if device is None else torch.device(device)
         # step batching: plan S logical sub-steps on the host and run them in
         # one dispatch. STATIC/structural settings changes and block state
@@ -540,8 +544,9 @@ class Scheduler:
         ``(params, feeds, overlays)`` for the recompiled graph."""
         while True:
             try:
+                fed = self._local_feeds(feeds) if self._multihost else feeds
                 with self._compiled_statics(c):
-                    new_states, sink_ins = c.step(self._states, params, feeds,
+                    new_states, sink_ins = c.step(self._states, params, fed,
                                                   overlays, stack=False)
                 break
             except GrError as e:
@@ -557,6 +562,23 @@ class Scheduler:
             event = torch.cuda.Event()
             event.record(torch.cuda.current_stream(c.device))
         return c, sink_ins, event
+
+    def _local_feeds(self, feeds: dict) -> dict:
+        """This process's time slice of the host feeds (≈ the JAX package's
+        ``_globalize_feeds``): every process's ``host_feed`` returns the
+        full global block, and process ``p`` of ``n`` keeps
+        ``[p·T/n, (p+1)·T/n)`` of its last axis (of each sub-step's when
+        batched)."""
+        n, p = self.mesh.process_count, self.mesh.process_index
+        out = {}
+        for uname, d in feeds.items():
+            od = {}
+            for port, arr in d.items():
+                arr = np.asarray(arr)
+                tl = arr.shape[-1] // n
+                od[port] = np.ascontiguousarray(arr[..., p * tl:(p + 1) * tl])
+            out[uname] = od
+        return out
 
     @contextlib.contextmanager
     def _compiled_statics(self, c: CompiledGraph):
@@ -1371,11 +1393,21 @@ class Scheduler:
                         # non-responsive blocks: wind the graph down
                         self.request_stop()
                     elif self.watchdog_action == "error":
-                        # mark the run failed NOW so waiters fail fast; the
-                        # wedged pump thread is abandoned (daemon)
-                        msg = (f"watchdog: no progress for {stalled_s:.1f}s at "
-                               f"step {self._step} — pump stalled (device hang "
-                               f"or wedged host feeder)")
+                        # collective-timeout escalation: a pump wedged inside
+                        # a collective cannot be unwound from Python — a dead
+                        # peer process can leave the survivor blocked in the
+                        # process group until its timeout. Mark the run
+                        # failed NOW so waiters fail fast and diagnosably;
+                        # the wedged pump thread is abandoned (daemon)
+                        msg = (f"watchdog: no progress for {stalled_s:.1f}s "
+                               f"at step {self._step}"
+                               + (" — collective timeout: a peer process "
+                                  "has likely died or partitioned "
+                                  f"(process {self.mesh.process_index} of "
+                                  f"{self.mesh.process_count})"
+                                  if self._multihost else
+                                  " — pump stalled (device hang or wedged "
+                                  "host feeder)"))
                         self.error = Error.here(msg, block=self.name)
                         self.bus.notify(self.name, "Error", {"message": msg})
                         self.fsm.force_error()

@@ -10,6 +10,11 @@ after another, on that device — no speed-up.
 
 The mesh's first device is its *home*: the scheduler's device, where block
 states, sink inputs, gather islands and ``chan``-axis streams live.
+
+A mesh may span processes (``parallel/multihost.py`` ``global_mesh``): its
+devices are every process's, process-major, each process holding the same
+number; ``process_index``/``process_count`` say which are this process's,
+and ``home`` is this process's first device.
 """
 
 from __future__ import annotations
@@ -53,7 +58,8 @@ def canonical_device(d: torch.device | str) -> torch.device:
 class Mesh:
     """Devices laid out on named axes (≈ ``jax.sharding.Mesh``)."""
 
-    def __init__(self, devices: Any, axis_names: Sequence[str]):
+    def __init__(self, devices: Any, axis_names: Sequence[str], *,
+                 process_index: int = 0, process_count: int = 1):
         arr = np.asarray(devices, dtype=object)
         flat = np.empty(arr.size, dtype=object)
         flat[:] = [canonical_device(d) for d in arr.reshape(-1)]
@@ -63,6 +69,11 @@ class Mesh:
             raise GrError(f"mesh of shape {self.devices.shape} needs "
                           f"{self.devices.ndim} axis names, got "
                           f"{self.axis_names}")
+        if self.devices.size % process_count:
+            raise GrError(f"mesh of {self.devices.size} devices does not "
+                          f"split over {process_count} processes")
+        self.process_index = int(process_index)
+        self.process_count = int(process_count)
 
     @property
     def shape(self) -> dict[str, int]:
@@ -74,9 +85,17 @@ class Mesh:
         return int(self.devices.size)
 
     @property
+    def local_devices(self) -> list[torch.device]:
+        """This process's devices, in mesh order."""
+        n = self.devices.size // self.process_count
+        flat = list(self.devices.flat)
+        return flat[self.process_index * n:(self.process_index + 1) * n]
+
+    @property
     def home(self) -> torch.device:
-        """The first device: the scheduler's device under this mesh."""
-        return self.devices.flat[0]
+        """This process's first device: the scheduler's device under this
+        mesh."""
+        return self.local_devices[0]
 
     def axis_devices(self, axis: str) -> list[torch.device]:
         """The devices along ``axis`` at index 0 of every other axis: where
@@ -89,8 +108,24 @@ class Mesh:
             out.append(self.devices[tuple(idx)])
         return out
 
+    def shard_axis(self, axis: str):
+        """The ``parallel.collectives.ShardAxis`` of a value split over
+        ``axis`` alone: this process's shard devices, its rank and the
+        process count."""
+        from .collectives import ShardAxis
+        if self.process_count == 1:
+            return ShardAxis(axis, tuple(self.axis_devices(axis)))
+        if self.axis_names != (axis,):
+            raise GrError(f"a mesh spanning processes shards over its one "
+                          f"axis; {axis!r} of {self.axis_names} is not it")
+        return ShardAxis(axis, tuple(self.local_devices),
+                         rank=self.process_index, world=self.process_count)
+
     def __repr__(self) -> str:
-        return f"Mesh({self.shape}, devices={[str(d) for d in self.devices.flat]})"
+        procs = "" if self.process_count == 1 else \
+            f", process {self.process_index} of {self.process_count}"
+        return (f"Mesh({self.shape}, devices="
+                f"{[str(d) for d in self.devices.flat]}{procs})")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -69,6 +69,9 @@ def build_sharded_rx(mesh: Mesh, cfg: ShardedRxConfig):
     the mesh's devices) or an already split grid (``x_sharding.split(x)``);
     ``audio`` ``[B, M, T/M/decim]`` and ``power`` (a 0-d tensor) come back
     on the mesh's home device, as do the state's tensors."""
+    if mesh.process_count > 1:
+        raise GrError("build_sharded_rx runs in one process; a mesh that "
+                      "spans processes shards a graph (Scheduler(mesh=))")
     if "dp" not in mesh.axis_names or "sp" not in mesh.axis_names:
         raise GrError(f"build_sharded_rx needs a mesh with 'dp' and 'sp' "
                       f"axes; got {mesh.axis_names}")

@@ -1,5 +1,6 @@
 """Host-side utilities of the port (≈ reference meta/: UncertainValue,
-HistoryBuffer)."""
+HistoryBuffer, MemoryMonitor)."""
 
 from .history import HistoryBuffer
+from .memory import MemoryMonitor
 from .uncertain import UncertainValue

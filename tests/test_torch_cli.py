@@ -4,10 +4,12 @@ and ``inspect`` print what the JAX package's print (``inspect``'s block and
 edge table), ``run --cpu`` plays ``examples/fm_receiver.yaml`` into a WAV
 whose bytes equal the JAX package's run's, ``run`` without ``--cpu`` on a
 machine with no card fails naming ``--cpu``, ``run --draw`` prints the
-flow's charts, and the commands not ported yet fail saying so. Exact (text
-and bytes)."""
+flow's charts, ``inspect`` draws each example flow as the JAX package draws
+it, ``new-block`` writes its pair, and ``bench`` (not ported yet) fails
+saying so. Exact (text and bytes)."""
 
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -53,10 +55,27 @@ def test_inspect_prints_the_jax_table():
     port = _cli("gnuradio4_tpu_torch", "inspect", path)
     jax = _cli("gnuradio4_tpu", "inspect", path)
     assert port.returncode == jax.returncode == 0, port.stderr
-    table = port.stdout.splitlines()
-    assert table[0] == "graph 'fm_receiver': 6 blocks, 5 edges"
-    # the JAX package draws the graph first; its table is the same text
+    lines = port.stdout.splitlines()
+    # the drawing first, then the table
+    table = lines[lines.index("graph 'fm_receiver': 6 blocks, 5 edges"):]
+    assert len(table) == 1 + 6 + 5
     assert jax.stdout.splitlines()[-len(table):] == table
+
+
+ANSI = re.compile("\x1b\\[[0-9;]*m")
+
+
+@pytest.mark.parametrize("flow", sorted(p.name for p in
+                                        (ROOT / "examples").glob("*.yaml")))
+def test_inspect_draws_what_the_jax_package_draws(flow):
+    """``inspect`` on each example flow prints the JAX package's drawing
+    above its table (ANSI colour stripped)."""
+    path = str(ROOT / "examples" / flow)
+    port = _cli("gnuradio4_tpu_torch", "inspect", path)
+    jax = _cli("gnuradio4_tpu", "inspect", path)
+    assert port.returncode == jax.returncode == 0, port.stderr
+    assert "edges:" in port.stdout and "┌" in port.stdout
+    assert ANSI.sub("", port.stdout) == ANSI.sub("", jax.stdout)
 
 
 def test_run_cpu_plays_the_fm_receiver(tmp_path):
@@ -83,11 +102,24 @@ def test_run_without_card_and_without_cpu_fails():
     assert "GrError" in r.stderr and "--cpu" in r.stderr
 
 
-@pytest.mark.parametrize("args", [["bench"], ["new-block", "MyBlock"]],
-                         ids=["bench", "new-block"])
+@pytest.mark.parametrize("args", [["bench"]], ids=["bench"])
 def test_commands_not_ported_yet_say_so(args):
     r = _cli("gnuradio4_tpu_torch", *args)
     assert r.returncode != 0 and "not ported" in r.stderr
+    assert "benchmark" in r.stderr
+
+
+def test_new_block_writes_its_pair(tmp_path):
+    r = _cli("gnuradio4_tpu_torch", "new-block", "CliMade", "--kind", "sink",
+             "--dir", str(tmp_path))
+    assert r.returncode == 0, r.stderr
+    assert (tmp_path / "cli_made.py").exists()
+    assert (tmp_path / "test_cli_made.py").exists()
+    assert r.stdout.splitlines() == [f"wrote {tmp_path / 'cli_made.py'}",
+                                     f"wrote {tmp_path / 'test_cli_made.py'}"]
+    again = _cli("gnuradio4_tpu_torch", "new-block", "CliMade", "--kind",
+                 "sink", "--dir", str(tmp_path))
+    assert again.returncode != 0 and "refusing to overwrite" in again.stderr
 
 
 def test_run_draw_prints_a_chart_frame():

@@ -567,32 +567,54 @@ def test_alias_to_a_missing_target_raises():
 # -- the receiver front half with carrier recovery ----------------------------------
 
 def _impaired_qpsk_link(pkg, rx):
+    """The chain FLL → PfbClockSync → Costas; the FLL's, the clock sync's
+    and the chain's outputs."""
     g = pkg.Graph()
     reg = pkg.global_registry
-    snk, fll_snk = reg.create("VectorSink"), reg.create("VectorSink")
+    snk, fll_snk, sync_snk = (reg.create("VectorSink") for _ in range(3))
     fll = reg.create("FllBandEdge", samples_per_symbol=4, rolloff=0.35, loop_bw=0.01)
-    g.connect_chain(reg.create("VectorSource", data=rx), fll,
-                    reg.create("PfbClockSync", sps=4, rolloff=0.35),
+    sync = reg.create("PfbClockSync", sps=4, rolloff=0.35)
+    g.connect_chain(reg.create("VectorSource", data=rx), fll, sync,
                     reg.create("CostasLoop", order=4, loop_bw=0.06), snk)
     g.connect(fll, fll_snk)
+    g.connect(sync, sync_snk)
     kw = {"device": "cpu"} if pkg is gt else {}
     pkg.Scheduler(g, block_len=8192, sample_rate=1e6, **kw).run_and_wait()
-    return np.asarray(fll_snk.data()), np.asarray(snk.data())
+    return (np.asarray(fll_snk.data()), np.asarray(sync_snk.data()),
+            np.asarray(snk.data()))
+
+
+def _one_block(pkg, x, block_len, btype, **settings):
+    """``btype`` alone over ``x`` (VectorSource → block → VectorSink)."""
+    g = pkg.Graph()
+    reg = pkg.global_registry
+    snk = reg.create("VectorSink")
+    g.connect_chain(reg.create("VectorSource", data=x),
+                    reg.create(btype, **settings), snk)
+    kw = {"device": "cpu"} if pkg is gt else {}
+    pkg.Scheduler(g, block_len=block_len, sample_rate=1e6, **kw).run_and_wait()
+    return np.asarray(snk.data())
 
 
 def test_full_receiver_chain_all_impairments():
     """tests/test_digital.py's FLL → PfbClockSync → Costas through CFO 0.03
     rad/sample, a 0.6-sample delay, 15 ppm clock drift and 20 dB SNR, in both
-    packages from the same input: the port recovers the symbols (> 99.9%,
-    the JAX test's bound) and its decisions after lock equal the JAX
-    package's. The FLL's outputs (tapped) agree within 2e-4·max(1, |y|) per
-    sample, tests/test_torch_dsp_extras.py's FLL_ATOL: the FLL's phase
-    integrates its float32 rounding (3.9e-5 measured over these 65536
-    samples). PfbClockSync picks a discrete polyphase arm, and that difference
-    moves its choice at some symbol (the first at symbol 2080 here), after
-    which the two outputs differ by an arm's step (up to 0.1). So the chain's
-    outputs are held within 1e-3 up to the first such flip, which must come
-    after the first 1024 symbols, and by their decisions after it."""
+    packages from the same input.
+
+    Stage by stage, on identical inputs: the FLL's outputs (tapped) agree
+    within 2e-4·max(1, |y|) per sample, tests/test_torch_dsp_extras.py's
+    FLL_ATOL (its phase integrates its float32 rounding: 3.9e-5 measured
+    over these 65536 samples); PfbClockSync, fed the JAX package's FLL
+    output in both packages, within 1e-3 over the first 1024 symbols (its
+    first arm flip comes at symbol 2205); CostasLoop, fed the JAX package's
+    clock-sync output in both, within 1e-5 (1.5e-6 measured).
+
+    End to end: both chains recover the symbols (> 99.9%, the JAX test's
+    bound) and their decisions agree after the chained outputs first part
+    by more than 1e-3. Where that first happens depends on the host's float
+    rounding (PfbClockSync picks a discrete polyphase arm, and the FLL's
+    small difference moves its first flip: symbol 2080 on one machine, 519
+    on another), so it is reported, not bounded."""
     sps, alpha = 4, 0.35
     rng = np.random.default_rng(3)
     nsym = 16384
@@ -609,23 +631,36 @@ def test_full_receiver_chain_all_impairments():
     rx = rx * np.exp(1j * 0.03 * np.arange(len(rx)))
     rx = (rx + (rng.standard_normal(len(rx)) + 1j * rng.standard_normal(len(rx)))
           * np.sqrt(0.005)).astype(np.complex64)
-    f, y = _impaired_qpsk_link(gt, rx)
-    fj, yj = _impaired_qpsk_link(gr, rx)
+    f, _, y = _impaired_qpsk_link(gt, rx)
+    fj, sj, yj = _impaired_qpsk_link(gr, rx)
     assert f.shape == fj.shape == rx.shape and f.dtype == fj.dtype
     np.testing.assert_array_less(np.abs(f - fj), 2e-4 * np.maximum(1.0, np.abs(fj)))
+    # the clock sync and the Costas loop, each on the JAX package's input
+    sync = {pkg: _one_block(pkg, fj, 8192, "PfbClockSync", sps=4, rolloff=0.35)
+            for pkg in (gt, gr)}
+    assert sync[gt].shape == sync[gr].shape == sj.shape
+    np.testing.assert_array_equal(sync[gr], sj)
+    np.testing.assert_allclose(sync[gt][:1024], sj[:1024], rtol=0, atol=1e-3)
+    costas = {pkg: _one_block(pkg, sj, 2048, "CostasLoop", order=4,
+                              loop_bw=0.06) for pkg in (gt, gr)}
+    np.testing.assert_array_equal(costas[gr], yj)
+    np.testing.assert_allclose(costas[gt], yj, rtol=0, atol=1e-5)
     assert y.shape == yj.shape and y.dtype == yj.dtype
     apart = np.nonzero(np.abs(y - yj) > 1e-3)[0]
     first = apart[0] if len(apart) else len(y)
-    assert first >= 1024, first
-    lo = len(y) - 2000
-    w = y[lo:lo + 1024]
-    best = max((abs(np.vdot(syms[k:k + 1024], w)), k) for k in range(lo - 48, lo + 48))
-    ref = syms[best[1]:best[1] + 1024]
-    rot = np.vdot(ref, w)
-    rot /= abs(rot)
 
     def quad(z):
         return np.round(np.angle(z * np.exp(-1j * np.pi / 4)) / (np.pi / 2)) % 4
-    dec = quad(w * np.conj(rot))
-    assert np.mean(dec == quad(ref)) > 0.999
-    np.testing.assert_array_equal(quad(y[first:]), quad(yj[first:]))
+    lo = len(y) - 2000
+    for got in (y, yj):
+        w = got[lo:lo + 1024]
+        best = max((abs(np.vdot(syms[k:k + 1024], w)), k)
+                   for k in range(lo - 48, lo + 48))
+        ref = syms[best[1]:best[1] + 1024]
+        rot = np.vdot(ref, w)
+        rot /= abs(rot)
+        assert np.mean(quad(w * np.conj(rot)) == quad(ref)) > 0.999
+    same = quad(y[first:]) == quad(yj[first:])
+    assert same.all(), (f"decisions differ at {np.count_nonzero(~same)} of "
+                        f"{len(same)} symbols after the chains first part "
+                        f"at symbol {first}")

@@ -54,6 +54,11 @@ def _subgraph_mod(pkg):
     # registers ScheduledSubgraph
     if pkg is gt:
         from gnuradio4_tpu_torch.core import subgraph
+        if not gt.global_registry.contains("ScheduledSubgraph"):
+            # an earlier file on this worker imported the module inside a
+            # fixture that then restored the registry as it found it
+            gt.global_registry.add("ScheduledSubgraph",
+                                   subgraph.ScheduledSubgraph)
     else:
         from gnuradio4_tpu.core import subgraph
     return subgraph
