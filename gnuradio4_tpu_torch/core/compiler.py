@@ -33,6 +33,7 @@ import torch
 from .block import Block, BlockCtx, SinkBlock
 from .errors import GrError
 from .graph import Edge, Graph
+from .profiler import NullProfiler
 from .stream import canonical_dtype, torch_dtype
 
 
@@ -116,6 +117,9 @@ class CompiledGraph:
     # out_sharding asks for (values stay whole on the home device)
     out_specs: dict[tuple[str, str], Any] = dataclasses.field(
         default_factory=dict)
+    # the scheduler's profiler: with an enabled one, a ``block.apply`` span
+    # around each block's apply and each loop group (``step(step=)``)
+    profiler: Any = dataclasses.field(default_factory=NullProfiler)
     _params_cache: Any = None
     _zero_feeds_cache: Any = None
     _pump_plan: Any = None
@@ -275,13 +279,33 @@ class CompiledGraph:
             raise GrError(f"feedback loop {names} failed: "
                           f"{type(e).__name__}: {e}") from e
 
-    def _substep(self, states, params, feeds):
+    def _runners(self, step: int | None):
+        """``(run, run_group)`` for one sub-step: :func:`_apply_or_raise`
+        and :meth:`_run_group_or_raise`, each inside a ``block.apply`` span
+        where the profiler is enabled (``step`` None: it is not)."""
+        if step is None:
+            return _apply_or_raise, self._run_group_or_raise
+        span = self.profiler.duration
+
+        def run(b, what, fn, *args):
+            with span("block.apply", block=b.name, step=step):
+                return _apply_or_raise(b, what, fn, *args)
+
+        def run_group(group, *args):
+            name = "loop[" + ",".join(m.name for m in group["order"]) + "]"
+            with span("block.apply", block=name, step=step):
+                self._run_group_or_raise(group, *args)
+
+        return run, run_group
+
+    def _substep(self, states, params, feeds, step=None):
+        run, run_group = self._runners(step)
         values: dict[tuple[str, str], torch.Tensor] = {}
         new_states: dict[str, Any] = {}
         sink_ins: dict[str, dict[str, torch.Tensor]] = {}
         for b in self.exec_plan:
             if isinstance(b, dict):      # a contracted feedback loop group
-                self._run_group_or_raise(b, states, params, values, new_states)
+                run_group(b, states, params, values, new_states)
                 continue
             uname = b.unique_name
             ctx = dataclasses.replace(self.block_ctx[uname],
@@ -293,14 +317,13 @@ class CompiledGraph:
                 ins = {**feeds[uname], **ins}
             if uname in self.sink_names:
                 sink_ins[uname] = ins
-            st, outs = _apply_or_raise(b, "apply", b.apply, states.get(uname),
-                                       ins, ctx)
+            st, outs = run(b, "apply", b.apply, states.get(uname), ins, ctx)
             new_states[uname] = st
             for pname, arr in outs.items():
                 values[(uname, pname)] = arr
         return new_states, sink_ins
 
-    def _substep_sp(self, states, params, feeds):
+    def _substep_sp(self, states, params, feeds, step=None):
         """One step under time sharding: every stream value is a list of
         local shards, one per device of ``sp_axis``; each block runs through
         its ``apply_sp``, a feedback loop group once on the home device over
@@ -314,6 +337,7 @@ class CompiledGraph:
         package's ``drain_local`` gives its sinks)."""
         from ..parallel.collectives import (gather, gather_global, split,
                                             split_local)
+        run, run_group = self._runners(step)
         axis = self.sp_axis
         home = axis.home
         values: dict[tuple[str, str], list[torch.Tensor]] = {}
@@ -329,7 +353,7 @@ class CompiledGraph:
                                 e.src.unique_name not in b["members"]:
                             full[key] = gather_global(values[key], axis,
                                                       home)
-                self._run_group_or_raise(b, states, params, full, new_states)
+                run_group(b, states, params, full, new_states)
                 for key in b["outputs"]:
                     values[key] = split(full[key], axis)
                 continue
@@ -350,20 +374,18 @@ class CompiledGraph:
             lctx = [dataclasses.replace(c, params=ctx.params)
                     for c in self.sp_local_ctx[uname]]
             if uname in self.sp_halos:      # the default lowering
-                st, outs = _apply_or_raise(
-                    b, "apply_sp", b.lower_sp, self.sp_halos[uname],
-                    states.get(uname), ins, ctx, lctx, axis)
+                st, outs = run(b, "apply_sp", b.lower_sp, self.sp_halos[uname],
+                               states.get(uname), ins, ctx, lctx, axis)
             else:
-                st, outs = _apply_or_raise(b, "apply_sp", b.apply_sp,
-                                           states.get(uname), ins, ctx, lctx,
-                                           axis)
+                st, outs = run(b, "apply_sp", b.apply_sp, states.get(uname),
+                               ins, ctx, lctx, axis)
             new_states[uname] = st
             for pname in outs[0]:
                 values[(uname, pname)] = [o[pname] for o in outs]
         return new_states, sink_ins
 
     def step(self, states, params, feeds=None, overlays=None, *,
-             stack: bool = True):
+             stack: bool = True, step: int = 0):
         """Run ``batch_steps`` sub-steps.
 
         ``feeds``: ``{uname: {port: ndarray}}`` for the host-fed sources, one
@@ -372,12 +394,15 @@ class CompiledGraph:
         params merged over ``params`` (tag-accurate ramps, mid-batch settings).
         With one sub-step the sink inputs are the blocks' tensors; with S > 1
         every sink input is S tensors, stacked on a leading [S] axis (the JAX
-        package's batched layout) or, with ``stack=False``, a list."""
+        package's batched layout) or, with ``stack=False``, a list.
+        ``step``: the scheduler's logical step of the first sub-step, which
+        the ``block.apply`` spans carry."""
         fed = {u: {p: _feed_tensor(a, self.device) for p, a in d.items()}
                for u, d in (feeds or {}).items()}
         substep = self._substep if self.sp_axis is None else self._substep_sp
+        traced = self.profiler.enabled
         if self.batch_steps == 1:
-            return substep(states, params, fed)
+            return substep(states, params, fed, step if traced else None)
         per: list[dict[str, dict[str, torch.Tensor]]] = []
         for k in range(self.batch_steps):
             p = params
@@ -387,7 +412,8 @@ class CompiledGraph:
                     p[uname] = {**params.get(uname, {}), **snaps[k]}
             states, sink_ins = substep(
                 states, p, {u: {q: t[k] for q, t in d.items()}
-                            for u, d in fed.items()})
+                            for u, d in fed.items()},
+                step + k if traced else None)
             per.append(sink_ins)
         join = torch.stack if stack else list
         return states, {u: {q: join([s[u][q] for s in per]) for q in per[0][u]}

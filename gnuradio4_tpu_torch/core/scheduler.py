@@ -181,7 +181,8 @@ class Scheduler:
     def init(self) -> None:
         """Compile the graph and create its states (≈ changeStateTo(INITIALISED))."""
         if self.fsm.state is State.IDLE:
-            self._recompile(reset_state=True)
+            with self.profiler.duration("scheduler.compile", step=self._step):
+                self._recompile(reset_state=True)
             self.fsm.transition_to(State.INITIALISED)
 
     def run_and_wait(self, n_steps: int | None = None) -> None:
@@ -327,6 +328,7 @@ class Scheduler:
             self._abs_in.setdefault(b.unique_name, 0)
             self._abs_out.setdefault(b.unique_name, 0)
         self._dirty = False
+        self.compiled.profiler = self.profiler
 
     def _zombify(self, name: str, reason: str) -> None:
         """Remove a failed block and every block whose non-optional input
@@ -397,7 +399,8 @@ class Scheduler:
                     feeds[uname] = c.zero_feeds()[uname]
             elif is_feed:
                 try:
-                    with self.profiler.duration("block.host_feed", block=b.name):
+                    with self.profiler.duration("block.host_feed", block=b.name,
+                                                step=self._step):
                         got = b.host_feed(c.out_len[uname], self._abs_out[uname])
                 except Exception as err:
                     if feed_failures is not None \
@@ -521,33 +524,39 @@ class Scheduler:
                     dst.handle_message(m, from_block=src)
         self._apply_staged_settings()
         if self._dirty:
-            with self.profiler.duration("scheduler.compile"):
+            with self.profiler.duration("scheduler.compile", step=self._step):
                 self._recompile(reset_state=False)
-        if self._async_delivery_active():
+        worker = self._async_delivery_active()
+        if worker:
             self._flush_deferred_errors()
-            while len(self._inflight) >= self.pipeline_depth:
-                # bounded queue (maxsize = pipeline_depth) gives backpressure:
-                # put() blocks when the delivery worker lags too far behind
-                self._dq.put(self._inflight.popleft())
-        else:
-            while len(self._inflight) >= self.pipeline_depth:
-                self._deliver(self._inflight.popleft())
+        if len(self._inflight) >= self.pipeline_depth:
+            with self.profiler.duration("scheduler.retire", step=self._step):
+                while len(self._inflight) >= self.pipeline_depth:
+                    if worker:
+                        # bounded queue (maxsize = pipeline_depth) gives
+                        # backpressure: put() blocks when the delivery
+                        # worker lags too far behind
+                        self._dq.put(self._inflight.popleft())
+                    else:
+                        self._deliver(self._inflight.popleft())
         return self.compiled
 
-    def _dispatch(self, c: CompiledGraph, params, feeds, overlays=None,
-                  refit=None):
+    def _dispatch(self, c: CompiledGraph, step: int, params, feeds,
+                  overlays=None, refit=None):
         """Run one (super-)step on the device. A block whose ``apply`` fails
         raises from inside the eager step, possibly after earlier blocks ran;
         under 'prune' the failing branch is removed and the WHOLE step runs
         again on the pruned graph from the states as they were before it (the
         failed attempt's new states are dropped). ``refit(c)`` rebuilds
-        ``(params, feeds, overlays)`` for the recompiled graph."""
+        ``(params, feeds, overlays)`` for the recompiled graph. ``step``: the
+        logical step of the first sub-step."""
         while True:
             try:
                 fed = self._local_feeds(feeds) if self._multihost else feeds
                 with self._compiled_statics(c):
                     new_states, sink_ins = c.step(self._states, params, fed,
-                                                  overlays, stack=False)
+                                                  overlays, stack=False,
+                                                  step=step)
                 break
             except GrError as e:
                 if self.on_block_error != "prune" or not e.block:
@@ -614,7 +623,7 @@ class Scheduler:
 
         # host tag sideband FIRST — tag-derived dynamic params must be visible
         # to this step's dispatch
-        with self.profiler.duration("scheduler.tags"):
+        with self.profiler.duration("scheduler.tags", step=self._step):
             sink_tags = self._advance_tags(n_valid)
 
         # settings staged by the tag walk (auto-update, context activation)
@@ -624,7 +633,7 @@ class Scheduler:
         self._apply_staged_settings(exclude=set(self._tag_ramps))
         if self._dirty:
             old_compiled, old_states = self.compiled, self._states
-            with self.profiler.duration("scheduler.compile"):
+            with self.profiler.duration("scheduler.compile", step=self._step):
                 self._recompile(reset_state=False)
             c = self.compiled
             if c.in_len != old_compiled.in_len \
@@ -664,7 +673,8 @@ class Scheduler:
                 return (params_with_ramps(c),
                         _refit_feeds(feeds, c.zero_feeds()), None)
 
-            c, sink_ins, event = self._dispatch(c, params_with_ramps(c), feeds,
+            c, sink_ins, event = self._dispatch(c, self._step,
+                                                params_with_ramps(c), feeds,
                                                 refit=refit)
 
         # book-keeping + pipelined sink delivery
@@ -737,7 +747,7 @@ class Scheduler:
                 return True
             (feeds_k, n_valid, n_valid_deliver, n_valid_ports,
              produced_k, done_k) = planned
-            with self.profiler.duration("scheduler.tags"):
+            with self.profiler.duration("scheduler.tags", step=self._step):
                 sink_tags = self._advance_tags(n_valid)
             ramp_events = self._tag_ramps
             self._tag_ramps = {}
@@ -790,8 +800,8 @@ class Scheduler:
                         {u: o for u, o in overlays.items() if u in alive})
 
             c, sink_ins, event = self._dispatch(
-                c, params_base, _stack_feeds(feeds_list, c.zero_feeds()),
-                overlays, refit=refit)
+                c, sub_meta[0].step, params_base,
+                _stack_feeds(feeds_list, c.zero_feeds()), overlays, refit=refit)
 
         self._inflight.append(_InFlight(
             step=sub_meta[0].step, sink_ins=sink_ins,
@@ -895,25 +905,26 @@ class Scheduler:
         """Sink tensors → host arrays. On CUDA: wait for the step's event on a
         side stream, copy into pinned memory, wait for the copies. A batched
         record's per-sub-step tensors land in one ``[S, ...]`` array."""
-        if rec.event is None:
-            return {p: (np.stack([t.detach().numpy() for t in a])
-                        if isinstance(a, list) else a.detach().numpy())
-                    for p, a in ins.items()}
-        if self._copy_stream is None:
-            self._copy_stream = torch.cuda.Stream(device=self.device)
-        stream = self._copy_stream
-        out = {}
-        with torch.cuda.stream(stream):
-            stream.wait_event(rec.event)
-            for p, a in ins.items():
-                parts = a if isinstance(a, list) else [a]
-                host = torch.empty((len(parts), *parts[0].shape),
-                                   dtype=parts[0].dtype, pin_memory=True)
-                for k, t in enumerate(parts):
-                    host[k].copy_(t, non_blocking=True)
-                out[p] = host if isinstance(a, list) else host[0]
-        stream.synchronize()
-        return {p: h.numpy() for p, h in out.items()}
+        with self.profiler.duration("scheduler.to_host", step=rec.step):
+            if rec.event is None:
+                return {p: (np.stack([t.detach().numpy() for t in a])
+                            if isinstance(a, list) else a.detach().numpy())
+                        for p, a in ins.items()}
+            if self._copy_stream is None:
+                self._copy_stream = torch.cuda.Stream(device=self.device)
+            stream = self._copy_stream
+            out = {}
+            with torch.cuda.stream(stream):
+                stream.wait_event(rec.event)
+                for p, a in ins.items():
+                    parts = a if isinstance(a, list) else [a]
+                    host = torch.empty((len(parts), *parts[0].shape),
+                                       dtype=parts[0].dtype, pin_memory=True)
+                    for k, t in enumerate(parts):
+                        host[k].copy_(t, non_blocking=True)
+                    out[p] = host if isinstance(a, list) else host[0]
+            stream.synchronize()
+            return {p: h.numpy() for p, h in out.items()}
 
     def _late_tag_routes(self, c: CompiledGraph, src_uname: str):
         """Downstream sink/tap consumers reachable from ``src_uname`` with the
@@ -1028,7 +1039,8 @@ class Scheduler:
                     nv = rec.n_valid_ports.get(uname) or \
                         {p.name: nv for p in block.in_ports}
                 try:
-                    with self.profiler.duration("block.consume", block=block.name):
+                    with self.profiler.duration("block.consume", block=block.name,
+                                                step=rec.step):
                         block.consume(arrays, tags, nv, rec.abs_in.get(uname, 0))
                 except Exception as err:
                     if deferred is not None:

@@ -51,15 +51,17 @@ _ANGLE = float(np.float32(2.0 * np.pi)) / 4294967296.0   # f32(2π)·2^-32
 
 @dataclasses.dataclass
 class KernelLibrary:
-    """The loaded kernel library: its path, build seconds (0 when the library
-    was already built for these sources) and the compiler's report
-    (``-Xptxas -v``: registers, shared memory and spills per kernel; kept
-    beside the library as ``.log``)."""
+    """The loaded kernel library: its path, the seconds its build and load
+    took, whether ``nvcc`` built it in this process (``built``; False when
+    the library was already built for these sources and only loaded) and
+    the compiler's report (``-Xptxas -v``: registers, shared memory and
+    spills per kernel; kept beside the library as ``.log``)."""
 
     lib: ctypes.CDLL
     path: Path
     seconds: float
     log: str
+    built: bool
 
 
 _library: KernelLibrary | None = None
@@ -125,7 +127,8 @@ def build() -> KernelLibrary:
             return _library
         so = BUILD_DIR / f"libgr4kernels_{_source_hash()}.so"
         t0 = time.perf_counter()
-        if so.exists():
+        built = not so.exists()
+        if not built:
             report = so.with_suffix(".log")
             log = report.read_text() if report.exists() else ""
         else:
@@ -147,7 +150,8 @@ def build() -> KernelLibrary:
         lib.gr4_fir_demod.restype = ctypes.c_int
         lib.gr4_error_string.argtypes = [ctypes.c_int]
         lib.gr4_error_string.restype = ctypes.c_char_p
-        _library = KernelLibrary(lib, so, time.perf_counter() - t0, log)
+        _library = KernelLibrary(lib, so, time.perf_counter() - t0, log,
+                                 built)
         return _library
 
 
