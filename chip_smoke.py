@@ -1320,7 +1320,7 @@ def suite_phases(dev, gen, results: dict) -> list[dict]:
     def count(label: str, want: dict) -> None:
         counts = ck.launch_counts()
         print(f"  launches {counts}")
-        check(counts == {**{k: 0 for k in KERNELS}, **want},
+        check({k: counts[k] for k in KERNELS} == {**{k: 0 for k in KERNELS}, **want},
               f"{label}: launches {counts}, expected {want}")
         for k in KERNELS:
             results[k]["launches"] += counts[k]
@@ -2280,7 +2280,8 @@ def modem_phases(dev, paths: list, results: dict) -> None:
           f"agree with the sent symbols at the best alignment: {best:.4f} "
           f"(> 0.995); launches {counts} over {s._step} steps (two RrcFilters)")
     check(best > 0.995, f"MMSymbolSync: {best}")
-    check(counts == {**{k: 0 for k in KERNELS}, "fir_banded": 2 * s._step},
+    check({k: counts[k] for k in KERNELS} == {**{k: 0 for k in KERNELS},
+                                              "fir_banded": 2 * s._step},
           f"RrcFilter: launches {counts}, expected 2 per step over {s._step}")
     results["fir_banded"]["launches"] += counts["fir_banded"]
     del s
@@ -2952,7 +2953,7 @@ def block_cost(dev, blk, ins: dict, n_out: int | None = None,
     step()
     ck.reset_launch_counts()
     kernels, ops = count_ops(step)
-    hand = sum(ck.launch_counts().values())
+    hand = sum(ck.launch_counts()[k] for k in KERNELS)
     ms, _ = events_ms_per_step(step, 1, windows=2)
     return kernels, ops, ms, hand
 
@@ -5885,7 +5886,7 @@ def main() -> int:
     gen = torch.Generator(device=dev).manual_seed(SEED)
     results: dict[str, dict] = {k: {"max_abs_err": 0.0} for k in KERNELS}
 
-    def fir_case(label, shape, x_dt, taps, decim, timed=False):
+    def fir_case(label, shape, x_dt, taps, decim, timed=False, plain_reps=10):
         k = len(taps)
         x = torch.randn(shape, dtype=x_dt, device=dev, generator=gen)
         hist = torch.randn((*shape[:-1], k - 1), dtype=x_dt, device=dev,
@@ -5900,7 +5901,7 @@ def main() -> int:
         if timed:
             row["ms"], row["plain_ms"] = kernel_vs_plain_ms(
                 lambda: ck.fir_banded(x, hist, h, decim),
-                lambda: ck.fir_banded_ref(x, hist, h, decim))
+                lambda: ck.fir_banded_ref(x, hist, h, decim), plain_reps)
             row["bound_ms"], row["bound_by"] = bound_ms(*fir_work(
                 shape, x.is_complex(), h.is_complex(), k, decim))
             row["share_of_bound"] = row["bound_ms"] / row["ms"]
@@ -5943,6 +5944,17 @@ def main() -> int:
              torch.complex64, lp63, 1024)
     fir_case("f32 x f32 taps K=63 decim 2048 T=2^22", (1 << 22,),
              torch.float32, lp63, 2048)
+    # fm_monitor's channel filter (963 taps at 20 MS/s, 100 kHz, +3.1 MHz,
+    # ÷40): the phase-grouped loop, every launch of it counted as such
+    fm_taps = freq_xlating_taps(fd.design_fir("lowpass", 963, sample_rate=20e6,
+                                              f_low=100e3), 3.1e6, 20e6)
+    launches, grouped = ck.fir_banded.launches, ck.fir_banded.phase_groups
+    fir_case("c64 x c64 taps K=963 decim 40 T=52428800 (fm_monitor)", (52428800,),
+             torch.complex64, fm_taps, 40, timed=True, plain_reps=3)
+    launches, grouped = ck.fir_banded.launches - launches, ck.fir_banded.phase_groups - grouped
+    print(f"  fir_banded K=963 decim 40: {grouped} of {launches} launches phase-grouped")
+    check(launches > 0 and grouped == launches,
+          f"fir_banded K=963 decim 40: {grouped} of {launches} launches phase-grouped")
     xl7 = np.ascontiguousarray(xl_taps[60:67])
     fir_case("c64 x c64 taps K=7 C=65539 T=64", (65539, 64), torch.complex64, xl7, 1)
     # K 16384 complex taps: the taps go in chunks (against float64: the plain

@@ -38,6 +38,20 @@
 //   grid x and walked by a grid-stride loop, so any channel count runs.
 // - Overlap of staging with the MACs comes from several resident blocks per
 //   SM (48 KB of shared memory a block at most).
+// - Phase groups (fir_banded only). Where the stage above cannot hold a whole
+//   tile (it would chunk planes or taps, or shrink the tile to one warp), the
+//   block is G groups of warps over the same n = lanes*kR outputs: group g
+//   runs the ring over phases g, g+G, ... (at most 8 groups, so each takes
+//   ceil(P/8) phases or one fewer). A tile's (n + Q - 1) rows of every plane
+//   are staged once, with the 16-byte loads of the contiguous run (one
+//   sample per (row, plane) where decim > K), into dynamic shared memory
+//   above 48 KB (planes padded to an odd length, so the scatter's lanes fall
+//   on distinct banks); the taps of every phase are staged once per block
+//   and stay resident, the blocks staying resident and walking the tiles
+//   (fir_banded.cu caps the grid). The G partial sums of an output are added through
+//   shared memory in group order (no atomics: runs are deterministic).
+//   Overlap of staging with the MACs comes from two resident blocks per SM.
+//   G = 1 (every other shape) is the staged loop unchanged, bit for bit.
 // - At decim 1 there is one plane holding every tap in order, so each output
 //   is one FMA chain over k = K-1 .. 0: the order of a direct-form loop.
 
@@ -52,12 +66,24 @@ constexpr int kR = 7;                 // outputs per thread (odd: see above)
 constexpr int kMaxThreads = 256;
 constexpr size_t kBudget = 48 * 1024;  // shared memory per block: several per SM
 constexpr int kSlots = 8;             // tap slots per ring block: kR taps, padded
+constexpr int kMaxGroups = 8;         // phase groups of a block at most
+constexpr int kGroupBatch = 8;        // 16-byte loads in flight per thread (groups)
+// dynamic shared memory of a phase-grouped block: at most Hopper's opt-in
+// limit, and no more than half an SM's 228 KB (less the 1 KB the SM keeps per
+// block) where the tile allows it, so that two blocks stay resident
+constexpr size_t kGroupBudget = 227 * 1024;
+constexpr size_t kGroupPairBudget = 228 * 1024 / 2 - 1024;
 static_assert(kR <= kSlots, "a ring block's taps fill one block of slots");
 
 template <typename T> __device__ __forceinline__ T zero();
 template <> __device__ __forceinline__ float zero<float>() { return 0.f; }
 template <> __device__ __forceinline__ float2 zero<float2>() {
   return make_float2(0.f, 0.f);
+}
+
+__device__ __forceinline__ float add(float a, float b) { return a + b; }
+__device__ __forceinline__ float2 add(float2 a, float2 b) {
+  return make_float2(a.x + b.x, a.y + b.y);
 }
 
 // acc += h * x for every (tap, sample) type pair the FIR takes.
@@ -88,9 +114,11 @@ struct Plan {
   int K, decim;
   int P, Q;                           // phase planes, most taps of one plane
   int pc, qc;                         // planes and taps per stage
-  int n;                              // outputs per tile: blockDim.x * kR
-  int ls;                             // staged samples per plane: n + qc - 1
+  int n;                              // outputs per tile: lanes * kR
+  int ls;                             // staged samples per plane: n + qc - 1 (odd for G > 1)
   int hs;                             // tap slots per plane: kSlots per kR taps
+  int G;                              // phase groups (1: the staged loop)
+  int lanes;                          // threads per group: blockDim.x / G
 };
 
 // floor(e / d) for e * d < 2^32 with m = magic(d): a staged index e < 2^16
@@ -280,6 +308,83 @@ struct TileLoop {
       }
     }
   }
+
+  // Phase groups (pl.G > 1): once per block, before its first tile, the taps
+  // of every phase, as run() stages them (they stay resident: no tile writes
+  // s_h).
+  __device__ __forceinline__ void stage_resident_taps() const {
+    for (int e = tid; e < pl.P * hs; e += nt) {
+      const int pi = e / hs, slot = e - pi * hs;
+      const int u = slot % kSlots, q = slot / kSlots * kR + u;
+      const int64_t j = int64_t(q) * decim + pi;
+      s_h[e] = (u < kR && q < pl.Q && j < K) ? taps[K - 1 - j] : zero<H>();
+    }
+  }
+
+  // One tile with phase groups: acc[r] = group g's share of v[m0 + j*kR + r]
+  // for the thread's lane j of its group, the sum over phases g, g+G, ... The
+  // tile's n + Q - 1 rows of every plane are staged once, by a copy of run()'s
+  // staging (a longer run, kGroupBatch loads in flight): one helper shared by
+  // both changed how ptxas allocates run()'s registers for f32 streams, and
+  // the staged loop ran 33-40% slower on an H100 at f32 K 63 ÷8 and K 127 ÷5.
+  // Starts and ends as run() does.
+  template <typename Y>
+  __device__ __forceinline__ void run_groups(Y (&acc)[kR], const X* xrow, const X* hrow,
+                                             int64_t m0, int g, int j) const {
+    constexpr int kEpv = 16 / sizeof(X);          // samples per 16-byte load
+    const int rows = pl.n + pl.Q - 1;
+    const int64_t g0 = m0 * decim;
+#pragma unroll
+    for (int r = 0; r < kR; ++r) acc[r] = zero<Y>();
+    __syncthreads();        // the previous tile's readers of s_x are done
+    if (pl.P == decim) {
+      const int cnt = rows * decim;
+      auto put = [&](int e, X v) {
+        const int i = div_magic(e, decim, dmul);
+        s_x[(e - i * decim) * ls + i] = v;
+      };
+      const int nh = int(K - 1 - g0 < 0 ? 0 : (K - 1 - g0 < cnt ? K - 1 - g0 : cnt));
+      for (int e = tid; e < nh; e += nt) put(e, hrow[g0 + e]);
+      const int64_t t_lo = g0 + nh - (K - 1), t_hi = g0 + cnt - (K - 1);
+      const int64_t t_end = t_hi < pl.T ? t_hi : pl.T;
+      if (t_lo < t_end) {
+        const int a = int((reinterpret_cast<uintptr_t>(xrow) / sizeof(X)) % kEpv);
+        const X* base = xrow - a;
+        const int64_t k_lo = (t_lo + a) / kEpv, k_hi = (t_end - 1 + a) / kEpv;
+        for (int64_t k = k_lo + tid; k <= k_hi; k += int64_t(kGroupBatch) * nt) {
+          float4 v[kGroupBatch];
+#pragma unroll
+          for (int b = 0; b < kGroupBatch; ++b)
+            if (k + b * nt <= k_hi) v[b] = load16(base + (k + b * nt) * kEpv);
+#pragma unroll
+          for (int b = 0; b < kGroupBatch; ++b) {
+            if (k + b * nt > k_hi) break;
+#pragma unroll
+            for (int u = 0; u < kEpv; ++u) {
+              const int64_t t = (k + b * nt) * kEpv + u - a;
+              if (t >= t_lo && t < t_end) put(int(t + (K - 1) - g0), lane<X>(v[b], u));
+            }
+          }
+        }
+      }
+      const int e_zero = int((t_end > t_lo ? t_end : t_lo) + (K - 1) - g0);
+      for (int e = e_zero + tid; e < cnt; e += nt) put(e, zero<X>());
+    } else {
+      // decim > K: the P phases of each row, one sample per (row, plane)
+      const unsigned pmul = magic(pl.P);
+      for (int e = tid; e < pl.P * rows; e += nt) {
+        const int i = div_magic(e, pl.P, pmul), pi = e - i * pl.P;
+        const int64_t gg = g0 + int64_t(i) * decim + pi;
+        const int64_t t = gg - (K - 1);
+        s_x[pi * ls + i] = gg < K - 1 ? hrow[gg] : t < pl.T ? xrow[t] : zero<X>();
+      }
+    }
+    __syncthreads();
+    for (int p = g; p < pl.P; p += pl.G) {
+      const int qp = (K - p + decim - 1) / decim;
+      plane_fir(acc, s_x + p * ls + j * kR, s_h + p * hs, qp);
+    }
+  }
 };
 
 template <typename X, typename H, typename Y>
@@ -291,8 +396,10 @@ size_t smem_bytes(int nt, int pc, int qc) {
   return align16(slots * sizeof(H)) + (planes > outs ? planes : outs);
 }
 
-// A tile loop's launch: its plan, block size, shared memory (at most kBudget,
-// so no opt-in above 48 KB is needed) and grid.
+// A tile loop's launch: its plan, block size, shared memory (at most kBudget
+// for the staged loop, so no opt-in above 48 KB is needed; at most
+// kGroupBudget with phase groups) and grid (one block a tile; with phase
+// groups the launcher caps it at the blocks that stay resident).
 struct Launch {
   Plan pl;
   int threads;
@@ -327,11 +434,47 @@ Launch plan(int64_t channels, int64_t T, int K, int decim, int overlap) {
   }
   pl.pc = pc; pl.qc = qc; pl.n = nt * kR; pl.ls = pl.n + qc - 1;
   pl.hs = (qc + kR - 1) / kR * kSlots;
+  pl.G = 1; pl.lanes = nt;
   const int step = pl.n - overlap;
   pl.tiles = (pl.M + step - 1) / step;
   const int64_t n_tiles = channels * pl.tiles;
   return {pl, nt, bytes(nt, pc, qc),
           unsigned(n_tiles < 0x7fffffff ? n_tiles : 0x7fffffff)};
+}
+
+// Phase groups (see the notes at the top) in place of L's staged loop, where
+// that loop cannot hold a whole tile at its widest: it chunks planes or taps,
+// or its tile shrank to one warp below what the outputs need. Rewrites L and
+// returns true where the grouped tile fits kGroupBudget; else leaves L as it
+// is. The one place that decides G (gr4_fir_banded reports it to its caller).
+template <typename X, typename H, typename Y>
+bool group_phases(Launch& L) {
+  Plan& pl = L.pl;
+  const bool whole = pl.pc == pl.P && pl.qc == pl.Q;
+  const bool narrow = L.threads == 32 && int64_t(32) * kR < pl.M;
+  if (pl.P < 2 || (whole && !narrow)) return false;
+  const int per = (pl.P + kMaxGroups - 1) / kMaxGroups;   // phases per group at most
+  const int G = (pl.P + per - 1) / per;
+  const int hs = (pl.Q + kR - 1) / kR * kSlots;
+  auto bytes = [&](int lanes) {
+    const int n = lanes * kR;
+    const size_t planes = size_t(pl.P) * ((n + pl.Q - 1) | 1) * sizeof(X);
+    const size_t outs = size_t(G) * n * sizeof(Y);
+    return align16(size_t(pl.P) * hs * sizeof(H)) + (planes > outs ? planes : outs);
+  };
+  // lanes: whole warps, no more than the outputs need, two blocks an SM
+  int lanes = 32;
+  while (2 * lanes * G <= kMaxThreads && int64_t(lanes) * kR < pl.M) lanes *= 2;
+  while (lanes > 32 && bytes(lanes) > kGroupPairBudget) lanes /= 2;
+  if (bytes(lanes) > kGroupBudget) return false;
+  pl.G = G; pl.lanes = lanes; pl.pc = pl.P; pl.qc = pl.Q;
+  pl.n = lanes * kR; pl.ls = (pl.n + pl.Q - 1) | 1; pl.hs = hs;
+  pl.tiles = (pl.M + pl.n - 1) / pl.n;
+  const int64_t n_tiles = pl.channels * pl.tiles;
+  L.threads = G * lanes;
+  L.smem = bytes(lanes);
+  L.grid = unsigned(n_tiles < 0x7fffffff ? n_tiles : 0x7fffffff);
+  return true;
 }
 
 }  // namespace gr4fir

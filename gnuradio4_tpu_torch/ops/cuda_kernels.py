@@ -136,7 +136,7 @@ def build() -> KernelLibrary:
         lib = ctypes.CDLL(str(so))
         lib.gr4_fir_banded.argtypes = [ctypes.c_void_p] * 4 + [
             ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+            ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
         lib.gr4_fir_banded.restype = ctypes.c_int
         lib.gr4_nco_mix.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
                                     ctypes.c_int64, ctypes.c_int64,
@@ -250,7 +250,9 @@ def fir_banded(x: torch.Tensor, hist: torch.Tensor, taps, decim: int = 1
     the same dtype; ``taps``: [K] float32 or complex64 (host array or tensor).
     The output is complex64 when the stream or the taps are complex.
     CPU tensors take :func:`fir_banded_ref`; CUDA tensors launch the kernel in
-    ``csrc/fir_banded.cu``."""
+    ``csrc/fir_banded.cu``. A launch that took the phase-grouped loop (long
+    decimating filters; the kernel's planner decides and reports it) also
+    counts in ``fir_banded.phase_groups``."""
     if x.device.type == "cpu":
         return fir_banded_ref(x, hist, taps, decim)
     name = "fir_banded"
@@ -273,16 +275,20 @@ def fir_banded(x: torch.Tensor, hist: torch.Tensor, taps, decim: int = 1
     y = torch.empty((*x.shape[:-1], t // decim), dtype=out_dt, device=dev)
     if y.numel() == 0:
         return y
+    groups = ctypes.c_int(0)
     err = build().lib.gr4_fir_banded(
         x.data_ptr(), hist.data_ptr(), h.data_ptr(), y.data_ptr(),
         channels, t, k, int(decim), int(x.is_complex()), int(h.is_complex()),
-        _stream(dev))
+        _stream(dev), ctypes.byref(groups))
     _check(err, name)
     fir_banded.launches += 1
+    if groups.value > 1:
+        fir_banded.phase_groups += 1
     return y
 
 
 fir_banded.launches = 0
+fir_banded.phase_groups = 0
 
 
 def _next_pow2(v: int) -> int:
@@ -573,7 +579,12 @@ KERNELS = (fir_banded, nco_mix, iir_sos, fir_demod)
 def reset_launch_counts() -> None:
     for fn in KERNELS:
         fn.launches = 0
+    fir_banded.phase_groups = 0
 
 
 def launch_counts() -> dict[str, int]:
-    return {fn.__name__: fn.launches for fn in KERNELS}
+    """Launches by wrapper, and ``fir_banded.phase_groups``: those of
+    ``fir_banded``'s launches that took its phase-grouped path."""
+    counts = {fn.__name__: fn.launches for fn in KERNELS}
+    counts["fir_banded.phase_groups"] = fir_banded.phase_groups
+    return counts

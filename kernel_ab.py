@@ -14,9 +14,13 @@ on the same inputs, times ``fir_banded`` at ``chip_smoke.py``'s timed shapes,
 f32 at decim 4) and ``iir_sos`` at Path B's (C 16, T 2^20), one channel of it
 and a short stream (C 16, T 4096), in turns (other, this, this, other) with
 ``chip_smoke.cuda_ms``, each row with its bound and the share of it reached.
-It checks ``fir_banded`` bitwise against the other's and against the plain
-version; ``fir_demod`` bitwise against the other's at decim 1 (one plane: the
-taps summed in the same order as the direct-form loop it replaced) and, at
+``fir_banded`` also runs at fm_monitor's channel filter (K 963, ÷40, T
+52,428,800), the RDS channel filter's shape and the RTL receiver's ÷50 audio
+FIR. It checks ``fir_banded`` against the plain version and bitwise against
+the other's wherever both run it with the same phase groups (the
+``groups`` out-parameter of ``gr4_fir_banded``; a tree without it has none);
+``fir_demod`` bitwise against the other's at decim 1 (one plane: the taps
+summed in the same order as the direct-form loop it replaced) and, at
 every shape, against ``fir_demod_ref`` within ``DEMOD_ATOL``·gain with the
 differences wrapped into (−π, π]; ``iir_sos`` (whose chunked scan rounds
 differently from the parent's serial loop) against scipy's float64
@@ -88,9 +92,10 @@ def registers(log: str) -> dict[str, int]:
     return regs
 
 
-def build_other(other: Path, ck) -> tuple[ctypes.CDLL, str]:
+def build_other(other: Path, ck) -> tuple[ctypes.CDLL, str, bool]:
     """OTHER's csrc/*.cu compiled with this tree's flags, one nvcc per source;
-    the library and the compilers' output."""
+    the library, the compilers' output and whether its ``gr4_fir_banded``
+    reports its phase groups through a last ``int*`` argument."""
     out = other / "gnuradio4_tpu_torch" / "_build"
     out.mkdir(parents=True, exist_ok=True)
     nvcc = ck._nvcc()
@@ -111,9 +116,11 @@ def build_other(other: Path, ck) -> tuple[ctypes.CDLL, str]:
     if r.returncode:
         raise SystemExit(f"linking failed for {other}:\n{r.stderr}")
     lib = ctypes.CDLL(str(so))
+    src = (other / "gnuradio4_tpu_torch" / "csrc" / "fir_banded.cu").read_text()
+    groups_out = "int* groups)" in src
     lib.gr4_fir_banded.argtypes = [ctypes.c_void_p] * 4 + [
         ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_void_p]
+        ctypes.c_int, ctypes.c_void_p] + [ctypes.POINTER(ctypes.c_int)] * groups_out
     lib.gr4_fir_demod.argtypes = [ctypes.c_void_p] * 4 + [
         ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_float, ctypes.c_void_p]
@@ -122,7 +129,7 @@ def build_other(other: Path, ck) -> tuple[ctypes.CDLL, str]:
     else:                                   # the serial kernel's interface
         lib.gr4_iir_sos.argtypes = [ctypes.c_void_p] * 5 + [
             ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_void_p]
-    return lib, logs
+    return lib, logs, groups_out
 
 
 def kernels(other: Path) -> int:
@@ -143,7 +150,7 @@ def kernels(other: Path) -> int:
                           "--format=csv,noheader"], capture_output=True, text=True)
     card = smi.stdout.strip().splitlines()[0]
     built = ck.build()
-    this, (that, that_log) = built.lib, build_other(other, ck)
+    this, (that, that_log, that_groups) = built.lib, build_other(other, ck)
     for name, log in (("this", built.log), ("other", that_log)):
         print(json.dumps({"registers": name, "kernels": registers(log), "card": card}))
     stream = lambda: torch.cuda.current_stream().cuda_stream
@@ -161,24 +168,40 @@ def kernels(other: Path) -> int:
     lp63 = fd.design_fir("lowpass", 63, sample_rate=fs, f_low=1e6).astype(np.float32)
     audio = fd.design_fir("lowpass", 127, sample_rate=cs.QUAD_RATE, f_low=15e3
                           ).astype(np.float32)
+    # fm_monitor's channel filter (20 MS/s, 100 kHz, +3.1 MHz, ÷40), the RDS
+    # channel filter's shape and the RTL receiver's ÷50 audio FIR
+    fm = freq_xlating_taps(fd.design_fir("lowpass", 963, sample_rate=20e6, f_low=100e3),
+                           3.1e6, 20e6)
+    rds = fd.design_fir("lowpass", 241, sample_rate=1.2e6, f_low=2.4e3).astype(np.float32)
+    rtl = fd.design_fir("lowpass", 127, sample_rate=1.2e6, f_low=12e3).astype(np.float32)
+    groups_out = {"this": True, "that": that_groups}
     for label, n, dt, taps, decim in (
             ("c64 x c64 taps K=127 decim 1 T=2^23", cs.BLOCK_LEN, torch.complex64, xl, 1),
             ("c64 x f32 taps K=127 decim 1 T=2^23", cs.BLOCK_LEN, torch.complex64, lp127, 1),
             ("c64 x f32 taps K=127 decim 1 T=2^22", cs.SUITE_BLOCK_LEN, torch.complex64, lp127, 1),
             ("f32 x f32 taps K=63 decim 8 T=2^23", cs.BLOCK_LEN, torch.float32, lp63, 8),
-            ("f32 x f32 taps K=127 decim 5 T=4194305", cs.WBFM_IN_LEN, torch.float32, audio, 5)):
+            ("f32 x f32 taps K=127 decim 5 T=4194305", cs.WBFM_IN_LEN, torch.float32, audio, 5),
+            ("c64 x c64 taps K=963 decim 40 T=52428800 (fm_monitor)", 52428800,
+             torch.complex64, fm, 40),
+            ("c64 x f32 taps K=241 decim 24 T=65568 (RDS)", 65568, torch.complex64, rds, 24),
+            ("f32 x f32 taps K=127 decim 50 T=262150 (RTL audio)", 262150, torch.float32,
+             rtl, 50)):
         k = len(taps)
         x = torch.randn(n, dtype=dt, device=dev, generator=gen)
         hist = torch.randn(k - 1, dtype=dt, device=dev, generator=gen)
         h = torch.from_numpy(np.ascontiguousarray(taps)).to(dev)
         ref = ck.fir_banded_ref(x, hist, h, decim)
         ys = {name: torch.empty_like(ref) for name in ("this", "that")}
+        groups = {"this": 1, "that": 1}     # a tree that does not report: staged
 
         def call(lib, name):
+            g = ctypes.c_int(0)
             assert lib.gr4_fir_banded(x.data_ptr(), hist.data_ptr(), h.data_ptr(),
                                       ys[name].data_ptr(), 1, n, k, decim,
                                       int(x.is_complex()), int(h.is_complex()),
-                                      stream()) == 0
+                                      stream(), *[ctypes.byref(g)] * groups_out[name]) == 0
+            if groups_out[name]:
+                groups[name] = g.value
         call(this, "this")
         call(that, "that")
         torch.cuda.synchronize()
@@ -186,12 +209,16 @@ def kernels(other: Path) -> int:
         same = torch.equal(ys["this"], ys["that"])
         ms, other_ms = in_turns(lambda: call(that, "that"), lambda: call(this, "this"))
         b_ms, b_by = cs.bound_ms(*cs.fir_work((n,), x.is_complex(), h.is_complex(), k, decim))
-        bad += max(err.values()) > cs.FIR_ATOL or not same
+        # a shape both trees run on the same loop is bitwise equal; one whose
+        # phase groups differ sums in another order: the plain version's bound
+        bad += max(err.values()) > cs.FIR_ATOL or (
+            groups["this"] == groups["that"] and not same)
         print(json.dumps({"kernel": "fir_banded", "case": label, "ms": ms,
                           "other_ms": other_ms, "bound_ms": b_ms, "bound_by": b_by,
                           "share_of_bound": b_ms / ms, "other_share": b_ms / other_ms,
                           "max_abs_err": err["this"], "other_max_abs_err": err["that"],
-                          "bitwise_equal": same, "card": card}))
+                          "bitwise_equal": same, "phase_groups": groups["this"],
+                          "other_phase_groups": groups["that"], "card": card}))
         del x, hist, ref, ys
 
     chan = fd.design_fir("lowpass", 127, sample_rate=cs.QUAD_RATE, f_low=80e3

@@ -62,6 +62,12 @@ def _taps(kind: str) -> np.ndarray:
                              ).astype(np.float32)
     if kind == "xlating7":
         return np.ascontiguousarray(_taps("xlating127")[60:67])
+    if kind == "xlating963":        # fm_monitor's channel filter, ÷40
+        return freq_xlating_taps(fd.design_fir("lowpass", 963, sample_rate=fs,
+                                               f_low=100e3), 3.1e6, fs)
+    if kind == "real963":
+        return fd.design_fir("lowpass", 963, sample_rate=fs, f_low=100e3
+                             ).astype(np.float32)
     if kind == "random16384":
         g = np.random.default_rng(16384)
         return ((g.standard_normal(16384) + 1j * g.standard_normal(16384))
@@ -122,6 +128,78 @@ def test_fir_banded_chain_shapes_on_the_shared_loop(cuda, x_dt, taps, decim, n):
     assert ck.fir_banded.launches == before + 1
     assert y.shape == y_ref.shape == (n // decim,)
     assert float((y - y_ref).abs().max()) <= FIR_ATOL
+
+
+# tiles of the phase-grouped loop at K 963 ÷40: 224 outputs of 40 samples
+GROUPED_TILE = 224 * 40
+
+
+@pytest.mark.parametrize("x_dt,taps,decim,shape", [
+    (torch.complex64, "xlating963", 40, (64 * GROUPED_TILE,)),    # whole tiles
+    (torch.complex64, "xlating963", 40, (64 * GROUPED_TILE + 1493,)),  # ragged
+    (torch.complex64, "real963", 40, (64 * GROUPED_TILE + 1493,)),
+    (torch.float32, "real963", 40, (64 * GROUPED_TILE + 1493,)),
+    (torch.complex64, "xlating963", 40, (2, 9 * GROUPED_TILE + 77)),  # channels
+    (torch.complex64, "real63", 64, (1 << 20,)),                  # decim > K
+    (torch.complex64, "xlating963", 40, (GROUPED_TILE - 41,)),    # one short tile
+])
+def test_fir_banded_phase_groups_match_plain(cuda, x_dt, taps, decim, shape):
+    """Long decimating filters take the phase-grouped loop (gr4_fir_banded
+    reports groups > 1, counted in fir_banded.phase_groups) and agree with
+    the plain version."""
+    g = torch.Generator(device=cuda).manual_seed(23)
+    h = _taps(taps)
+    k = len(h)
+    x = torch.randn(shape, dtype=x_dt, device=cuda, generator=g)
+    hist = torch.randn((*shape[:-1], k - 1), dtype=x_dt, device=cuda, generator=g)
+    before = ck.launch_counts()
+    y = ck.fir_banded(x, hist, h, decim)
+    y_ref = ck.fir_banded_ref(x, hist, h, decim)
+    torch.cuda.synchronize()
+    after = ck.launch_counts()
+    assert after["fir_banded"] == before["fir_banded"] + 1
+    assert (after["fir_banded.phase_groups"]
+            == before["fir_banded.phase_groups"] + 1)
+    assert y.shape == y_ref.shape == (*shape[:-1], shape[-1] // decim)
+    assert float((y - y_ref).abs().max()) <= FIR_ATOL
+
+
+@pytest.mark.parametrize("x_dt,taps,decim,n,grouped", [
+    (torch.complex64, "xlating963", 40, 1 << 22, True),   # fm's channel filter
+    (torch.complex64, "xlating127", 1, 1 << 20, False),   # the chain's FIR
+    (torch.float32, "real63", 8, 1 << 20, False)])        # its audio FIR
+def test_fir_banded_counts_phase_groups_by_path(cuda, x_dt, taps, decim, n, grouped):
+    """fir_banded.phase_groups counts the launches that took the
+    phase-grouped loop, and only those."""
+    h = _taps(taps)
+    x = torch.ones(n, dtype=x_dt, device=cuda)
+    hist = torch.zeros(len(h) - 1, dtype=x_dt, device=cuda)
+    ck.reset_launch_counts()
+    ck.fir_banded(x, hist, h, decim)
+    ck.fir_banded(x, hist, h, decim)
+    torch.cuda.synchronize()
+    counts = ck.launch_counts()
+    assert counts["fir_banded"] == 2
+    assert counts["fir_banded.phase_groups"] == (2 if grouped else 0)
+
+
+def test_fir_apply_state_carry_phase_groups_on_card(cuda):
+    """At K 963 ÷40 (the phase-grouped loop), two chunks through fir_apply
+    with the carried history equal one pass over the joined stream."""
+    g = torch.Generator(device=cuda).manual_seed(24)
+    h = _taps("xlating963")
+    n1, n2 = 37 * GROUPED_TILE + 40 * 101, 23 * GROUPED_TILE + 40 * 7
+    x = torch.randn(n1 + n2, dtype=torch.complex64, device=cuda, generator=g)
+    st0 = torch.randn(len(h) - 1, dtype=torch.complex64, device=cuda, generator=g)
+    before = ck.fir_banded.phase_groups
+    y_one, st_one = fir_apply(x, h, st0, decim=40)
+    y1, st = fir_apply(x[:n1], h, st0, decim=40)
+    y2, st = fir_apply(x[n1:], h, st, decim=40)
+    torch.cuda.synchronize()
+    assert ck.fir_banded.phase_groups == before + 3
+    assert y_one.shape == ((n1 + n2) // 40,)
+    assert float((torch.cat([y1, y2]) - y_one).abs().max()) <= FIR_ATOL
+    assert torch.equal(st, st_one)
 
 
 def test_fir_apply_state_carry_on_card(cuda):

@@ -157,6 +157,23 @@ def test_fir_banded_ref_short_streams(rng, t, k, decim):
     np.testing.assert_allclose(y, ref.reshape(y.shape), atol=FIR_ATOL)
 
 
+@pytest.mark.parametrize("t", [3 * 5120, 3 * 5120 + 297])
+def test_fir_banded_ref_long_decimating_filter_vs_float64(rng, t):
+    """fm_monitor's channel filter shape, complex stream and complex taps, K
+    963, ÷40, with history, over whole tiles of the plain version and a
+    ragged stream: against the direct-form decimating sum in float64. The
+    card's tests hold the kernel's phase-grouped loop to this plain version."""
+    k, decim = 963, 40
+    taps = _taps(rng, k, True)
+    x, hist = _cx(rng, t), _cx(rng, k - 1)
+    y = _port_fir(x, hist, taps, decim)
+    xc = np.concatenate([hist, x]).astype(np.complex128)
+    rows = np.lib.stride_tricks.sliding_window_view(xc, k)[::decim][: t // decim]
+    ref = rows @ taps.astype(np.complex128)[::-1]
+    assert y.shape == (t // decim,) and y.dtype == np.complex64
+    np.testing.assert_allclose(y, ref, atol=FIR_ATOL)
+
+
 def test_fir_apply_rejects_unported_rungs_and_methods(rng):
     """The rungs and ``matmul_int8`` are ported now and agree with the JAX
     package (tests/test_torch_precision.py holds every combination); an
@@ -217,7 +234,8 @@ def test_kernel_wrappers_raise_off_cpu_and_cuda():
     with pytest.raises(GrError, match="CUDA"):
         ck.fir_demod(x, np.ones(5, np.float32), 1, h[0], 1.0)
     assert ck.launch_counts() == dict.fromkeys(
-        ("fir_banded", "nco_mix", "iir_sos", "fir_demod"), 0)
+        ("fir_banded", "nco_mix", "iir_sos", "fir_demod",
+         "fir_banded.phase_groups"), 0)
 
 
 # -- integer NCO ---------------------------------------------------------------
