@@ -3,7 +3,8 @@ channel-axis plumbing (``ChannelSelect``, ``StreamToChannels``,
 ``ChannelsToStream``).
 
 The analysis block turns a 1-D wideband complex stream ``[T]`` into an M-channel
-stream ``[M, T/M]`` (rate fs/M per channel); the synthesis block inverts.
+stream ``[M, T/M]`` (rate fs/M per channel), or with ``oversample_rate`` O
+into ``[M, T·O/M]`` (rate O·fs/M); the synthesis block inverts.
 """
 
 from __future__ import annotations
@@ -17,8 +18,9 @@ from ..core.block import Block, Port
 from ..core.errors import GrError
 from ..core.registry import register_block
 from ..core.settings import Setting
-from ..ops.channelizer import (design_pfb_taps, pfb_analyze, pfb_init_state,
-                               pfb_synthesize)
+from ..ops.channelizer import (design_pfb_taps, frame_state, pfb_analyze,
+                               pfb_analyze_oversampled, pfb_hop, pfb_init_state,
+                               pfb_os_init_state, pfb_synthesize, shift_period)
 
 
 class _PfbBank(Block):
@@ -54,37 +56,93 @@ class _PfbBank(Block):
 
 @register_block("PFBChannelizer")
 class PFBChannelizer(_PfbBank):
-    """M-channel polyphase analysis bank: [T] → [M, T/M] (critically sampled)."""
+    """M-channel polyphase analysis bank: [T] → [M, T/M] (critically
+    sampled), or [M, T/D] with ``oversample_rate`` O and hop D = M/O
+    (``ops/channelizer.py``). At O = 1 the state is the branch FIRs' rows
+    [P−1, M]; at O > 1 ``{"hist": [P·M − D], "frame"}``."""
+
+    oversample_rate = Setting(
+        default=1, kind="static", limits=(1, 1 << 16),
+        description="output rate over fs/M (GNU Radio's oversample_rate); "
+                    "M/oversample_rate must be a whole number")
+
+    def __init__(self, name=None, **settings):
+        super().__init__(name=name, **settings)
+        self._hop()           # refused here, as GNU Radio's constructor does
+
+    def _hop(self) -> int:
+        return pfb_hop(int(self.settings.get("n_channels")),
+                       self.settings.get("oversample_rate"))
 
     @property
     def ratio(self):
-        return Fraction(1, int(self.settings.get("n_channels")))
+        return Fraction(1, self._hop())
 
     @property
     def alignment(self):
-        return int(self.settings.get("n_channels"))
+        return self._hop()
 
     def out_channels(self, port, in_channels):
         return int(self.settings.get("n_channels"))
 
+    def init_state(self, ctx):
+        state = super().init_state(ctx)     # also drops the uploaded taps
+        m, d = int(self.settings.get("n_channels")), self._hop()
+        if d == m:
+            return state
+        return pfb_os_init_state(m, int(self.settings.get("taps_per_phase")),
+                                 d, ctx.device)
+
     def apply(self, state, ins, ctx):
         x = ins["in"].to(torch.complex64)
+        if isinstance(state, dict):             # oversampled
+            m = int(self.settings.get("n_channels"))
+            y, new_state = pfb_analyze_oversampled(
+                x, self._device_taps(x.device), state, m, self._hop())
+            return new_state, {"out": y}
         y, new_state = pfb_analyze(x, self._device_taps(x.device), state)
         return new_state, {"out": y}
 
-    # time-sharding protocol: the branch-FIR history is the last
-    # (taps_per_phase−1)·M input samples, stored corner-turned as rows [P−1, M]
+    # time-sharding protocol: the branch FIRs' history is the last
+    # P·M − D input samples; at O = 1 stored corner-turned as rows [P−1, M]
     def sp_halo(self, ctx):
         m = int(self.settings.get("n_channels"))
         p = int(self.settings.get("taps_per_phase"))
-        return (p - 1) * m
+        return p * m - self._hop()
 
     def sp_state_to_tail(self, state, ctx):
+        if isinstance(state, dict):
+            return state["hist"]
         return state.reshape(*state.shape[:-2], -1)  # rows → flat input order
 
     def sp_tail_to_state(self, tail, state, ctx):
+        if isinstance(state, dict):
+            return {"hist": tail.to(torch.complex64), "frame": state["frame"]}
         m = int(self.settings.get("n_channels"))
         return tail.reshape(*tail.shape[:-1], -1, m).to(torch.complex64)
+
+    def lower_sp(self, h, state, ins, ctx, local_ctx, axis):
+        """The halo lowering; at O > 1 each shard's first frame takes its
+        shift index from the shard's global position."""
+        if not isinstance(state, dict):
+            return super().lower_sp(h, state, ins, ctx, local_ctx, axis)
+        from ..parallel.halo import halo_left, last_shard_tail
+        m, d = int(self.settings.get("n_channels")), self._hop()
+        period = shift_period(m, d)
+        xs = [s["in"] for s in ins]
+        per = xs[0].shape[-1] // d              # frames a shard
+        frame = int(state["frame"])
+        halos = halo_left(xs, h, self.sp_state_to_tail(state, ctx), axis)
+        outs = []
+        for i, (x, halo, lctx) in enumerate(zip(ins, halos, local_ctx),
+                                            start=axis.first):
+            st = self.sp_tail_to_state(
+                halo, {"frame": frame_state(frame + i * per, period)}, ctx)
+            outs.append(self.apply(st, x, lctx)[1])
+        tail = last_shard_tail(xs, h, axis)
+        return (self.sp_tail_to_state(
+            tail, {"frame": frame_state(frame + axis.size * per, period)},
+            ctx), outs)
 
 
 @register_block("PFBSynthesizer")

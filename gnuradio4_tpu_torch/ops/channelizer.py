@@ -11,13 +11,29 @@ elementwise multiply-adds over the corner-turned rows (the JAX package's
 ``branch_fir_macs``; real taps act on the float32 view of the complex rows),
 and the FFT across the branch axis is ``torch.fft`` (cuFFT on the card). The
 weighted overlap-add synthesis bank inverts it (channel → wideband).
+
+The oversampled bank (GNU Radio's ``oversample_rate`` O; harris, Dick & Rice,
+IEEE Trans. MTT 51(4), 2003) advances D = M/O input samples a frame. With i
+the absolute input index, n the absolute frame and i = (n+1)·D − M − jM + p:
+
+    y[n, m] = Σ_{j<P, p<M} h[jM + p] · x[i] · e^{−j2π·m·i/M}
+
+which at O = 1 is the critically sampled bank above. Since i ≡ (n+1)·D + p
+(mod M), it is the same branch FIRs over frames that overlap by M − D
+samples, the same FFT, and a phase e^{−j2π·m·s·D/M} per frame, s = (n+1) mod
+L with L = M/gcd(M, D): the circular shift of the branch outputs by
+(n+1)·D mod M, in the frequency domain (:func:`pfb_analyze_oversampled`).
 """
 
 from __future__ import annotations
 
+import functools
+import math
+
 import numpy as np
 import torch
 
+from ..core.errors import GrError
 from . import filter_design as fd
 
 
@@ -90,6 +106,100 @@ def pfb_analyze(x: torch.Tensor, taps, state: torch.Tensor
     y = torch.fft.fft(v, dim=-1)
     new_state = xc[r:].clone()
     return y.t().contiguous().to(torch.complex64), new_state
+
+
+def pfb_hop(n_channels: int, oversample_rate: float) -> int:
+    """The oversampled bank's hop D = M/O in input samples; a ``GrError``
+    where it is not a whole number of samples in [1, M], as GNU Radio's
+    ``pfb_channelizer_ccf`` refuses such an ``oversample_rate``."""
+    m, o = int(n_channels), float(oversample_rate)
+    d = m / o if o > 0 else 0.0
+    if not (1.0 <= o <= m and abs(d - round(d)) <= 1e-9 * m):
+        raise GrError(f"pfb_channelizer: oversample_rate {oversample_rate!r} "
+                      f"must be M/i for a whole i in [1, M] (M = {m})")
+    return int(round(d))
+
+
+def shift_period(n_channels: int, hop: int) -> int:
+    """Frames after which the oversampled bank's circular shift repeats."""
+    return n_channels // math.gcd(n_channels, hop)
+
+
+def frame_state(frame: int, period: int) -> torch.Tensor:
+    """The oversampled bank's frame index modulo the shift period, as a 0-d
+    int64 host tensor (read without a device sync)."""
+    return torch.tensor(int(frame) % period, dtype=torch.int64)
+
+
+def pfb_os_init_state(n_channels: int, taps_per_phase: int, hop: int,
+                      device: torch.device | str = "cpu",
+                      dtype: torch.dtype = torch.complex64) -> dict:
+    """The oversampled bank's state: ``hist``, the last P·M − D input
+    samples, and ``frame``, the next frame's absolute index modulo the shift
+    period (:func:`frame_state`)."""
+    m = n_channels
+    return {"hist": torch.zeros(taps_per_phase * m - hop, dtype=dtype,
+                                device=device),
+            "frame": frame_state(0, shift_period(m, hop))}
+
+
+@functools.lru_cache(maxsize=16)
+def _shift_phases(m: int, hop: int, device: torch.device) -> torch.Tensor:
+    """[L, L, M] complex64: row ``[s, a]`` is ``e^{−j2π·m·((s + a) mod
+    L)·D/M}`` over the channels m, the phase of the frame ``a`` frames after
+    one whose shift index is ``s``. Values on the axes are exact (±1, ±j)."""
+    period = shift_period(m, hop)
+    s = np.arange(period)
+    k = (s[:, None] + s[None, :]) % period                     # [s, a]
+    r = (k[:, :, None] * hop * np.arange(m)[None, None, :]) % m
+    ang = -2.0 * np.pi * r / m
+    re, im = np.cos(ang), np.sin(ang)
+    re[np.abs(re) < 1e-12] = 0.0
+    im[np.abs(im) < 1e-12] = 0.0
+    return torch.from_numpy((re + 1j * im).astype(np.complex64)).to(device)
+
+
+def pfb_analyze_oversampled(x: torch.Tensor, taps: torch.Tensor, state: dict,
+                            n_channels: int, hop: int
+                            ) -> tuple[torch.Tensor, dict]:
+    """Oversampled analysis step (hop D = ``hop`` < M).
+
+    x: [T] complex with T % D == 0; taps: [M·P] prototype on x's device;
+    state: :func:`pfb_os_init_state`'s. Returns (channels [M, T//D],
+    new_state). Frame f of the step reads the input ``xe[f·D : f·D + P·M]``
+    of ``xe`` = history then the step, as P rows of M: one strided view of
+    ``xe`` a branch tap, each one multiply-add over every frame. The per-frame
+    phase is applied in the pass that writes the channel-major output."""
+    pfb_analyze_oversampled.launches += 1
+    m, d = n_channels, hop
+    p = taps.shape[-1] // m
+    period = shift_period(m, d)
+    f = x.shape[-1] // d
+    xe = torch.cat([state["hist"].to(x.dtype), x])          # [P·M − D + T]
+    xr = torch.view_as_real(xe)
+    hp = _branch_taps(taps, p, m, x.device)[..., None]      # [P, M, 1]
+    acc = None
+    for j in range(p):
+        seg = xr.as_strided((f, m, 2), (2 * d, 2, 1),
+                            xr.storage_offset() + 2 * (p - 1 - j) * m)
+        acc = seg * hp[j] if acc is None else acc.addcmul_(seg, hp[j])
+    y = torch.fft.fft(torch.view_as_complex(acc), dim=-1)     # [F, M]
+    frame = int(state["frame"])
+    tab = _shift_phases(m, d, x.device)[(frame + 1) % period]   # [L, M]
+    out = torch.empty((m, f), dtype=torch.complex64, device=x.device)
+    ot = out.t()
+    body = f - f % period
+    if body:
+        torch.mul(y[:body].view(-1, period, m), tab,
+                  out=ot[:body].view(-1, period, m))
+    if body < f:
+        torch.mul(y[body:], tab[: f - body], out=ot[body:])
+    new_state = {"hist": xe[xe.shape[0] - (p * m - d):].clone(),
+                 "frame": frame_state(frame + f, period)}
+    return out, new_state
+
+
+pfb_analyze_oversampled.launches = 0
 
 
 def pfb_synthesize(channels: torch.Tensor, taps, state: torch.Tensor

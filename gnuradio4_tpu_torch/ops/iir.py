@@ -110,24 +110,16 @@ def _one_pole_blocked(x: torch.Tensor, pole: complex, y_prev: torch.Tensor
     matmul W[j,i] = p^{i−j} in full float32 (complex64 for a complex pole);
     the block carries chain through a scan over T/L values; the entering state
     folds back in one elementwise pass (y[b,i] = y_loc[b,i] + p^{i+1}·ent_b).
-    Exact algebra — only f32/c64 rounding differs from the sequential loop."""
+    Exact algebra — only f32/c64 rounding differs from the sequential loop.
+    The constants are built and uploaded once per pole and device
+    (:func:`_one_pole_blocks`)."""
     check_f32_matmul("one_pole_apply (blocked)")
     L = _BLK
     t = x.shape[-1]
     nb = t // L
     cx = x.is_complex() or pole.imag != 0.0
-    idx = np.arange(L)
-    d = idx[None, :] - idx[:, None]          # i − j
-    with np.errstate(over="ignore", under="ignore", invalid="ignore"):
-        w = np.where(d >= 0, np.asarray(pole, np.complex128) ** np.maximum(d, 0),
-                     0.0)
-        pv = np.asarray(pole, np.complex128) ** (idx + 1)       # p^{i+1}
-        cl = complex(np.asarray(pole, np.complex128) ** L)       # p^L
+    w_dev, pv_dev, cl_h = _one_pole_blocks(pole, cx, x.device)
     dt = torch.complex64 if cx else x.dtype
-    np_dt = np.complex64 if cx else np.float32
-    w_dev = torch.from_numpy((w if cx else w.real).astype(np_dt)).to(x.device)
-    pv_dev = torch.from_numpy((pv if cx else pv.real).astype(np_dt)).to(x.device)
-    cl_h = complex(np.complex64(cl)) if cx else _f32(cl.real)
     xb = x.to(dt).reshape(*x.shape[:-1], nb, L)
     y_loc = torch.matmul(xb, w_dev)
     e = y_loc[..., :, L - 1]                 # end-of-block local responses
@@ -138,6 +130,27 @@ def _one_pole_blocked(x: torch.Tensor, pole: complex, y_prev: torch.Tensor
     ent = torch.cat([yp[..., None], s[..., :-1]], dim=-1)
     y = y_loc + ent[..., :, None] * pv_dev
     return y.reshape(x.shape), s[..., -1]
+
+
+@functools.lru_cache(maxsize=64)
+def _one_pole_blocks(pole: complex, cx: bool, device: torch.device
+                     ) -> tuple[torch.Tensor, torch.Tensor, complex | float]:
+    """The blocked recurrence's constants for one pole on ``device``, in
+    complex64 (``cx``) or float32: W[j,i] = p^{i−j} ([L, L], lower-triangular
+    Toeplitz), p^{i+1} ([L]) and p^L, all from float64 powers."""
+    L = _BLK
+    idx = np.arange(L)
+    d = idx[None, :] - idx[:, None]          # i − j
+    with np.errstate(over="ignore", under="ignore", invalid="ignore"):
+        w = np.where(d >= 0, np.asarray(pole, np.complex128) ** np.maximum(d, 0),
+                     0.0)
+        pv = np.asarray(pole, np.complex128) ** (idx + 1)       # p^{i+1}
+        cl = complex(np.asarray(pole, np.complex128) ** L)       # p^L
+    np_dt = np.complex64 if cx else np.float32
+    w_dev = torch.from_numpy((w if cx else w.real).astype(np_dt)).to(device)
+    pv_dev = torch.from_numpy((pv if cx else pv.real).astype(np_dt)).to(device)
+    cl_h = complex(np.complex64(cl)) if cx else _f32(cl.real)
+    return w_dev, pv_dev, cl_h
 
 
 def _one_pole_scan(pole, v: torch.Tensor) -> torch.Tensor:
