@@ -15,9 +15,12 @@ result line:
    the shapes the kernels once refused (``fir_banded`` and ``fir_demod`` at
    decim 1024 and 2048, K 16384 complex taps against a float64 FIR, 65539
    channels; ``iir_sos`` with 17 and 33 sections, two calls with the state
-   carried against one, a narrow-band design against float64); device times
+   carried against one, a narrow-band design against float64; ``one_pole``
+   at the de-emphasis's [131072] and [100, 131072], real with FmDeemphasis's
+   gains and complex, against ``one_pole_ref`` and over two calls with the
+   carry); device times
    by CUDA events over calls queued behind a spin kernel, and for each timed
-   ``fir_banded``, ``fir_demod`` and ``iir_sos`` shape its bound (bytes over
+   ``fir_banded``, ``fir_demod``, ``iir_sos`` and ``one_pole`` shape its bound (bytes over
    the HBM rate or FLOPs over the FP32 peak) and the share of it reached,
    with ``F.conv1d``'s time (cuDNN TF32 off) as the FIR's yardstick and the
    unfused ``fir_banded`` → ``quadrature_demod`` as the fused kernel's;
@@ -31,14 +34,16 @@ result line:
 7. Path A, suite config 3: ComplexToneSource(10 kHz) → WbfmReceiver (nested
    graph: FreqXlatingFir(127) → QuadratureDemod → FirFilter(127, ÷5) →
    FmDeemphasis) at quad rate 250 kHz, block_len 2^22 (rounded to a multiple
-   of 5), 4 steps: two banded-FIR launches per step, the audio settles to the
+   of 5), 4 steps: two banded-FIR launches and one ``one_pole`` (the
+   de-emphasis) per step, the audio settles to the
    tone's constant 10/75, Msps timed; CPU against the card at block_len 5·8192
-   (blocked one-pole de-emphasis) and 5·8191 (its O(log T) scan);
+   (the CPU's blocked one-pole de-emphasis) and 5·8191 (its O(log T) scan);
 8. Path B: SignalGenerator(Sin 1 kHz, 16 channels) → IirFilter(Butterworth 5,
    15 kHz, engine auto) at 48 kHz, block_len 2^20, 3 steps: the biquad
    cascade's three launches per step, the sink against scipy's float64
    sosfilt, ms/step and the device-busy share timed; the order-4 design
-   takes the parallel engine (no launch), timed against the ``pallas``
+   takes the parallel engine (no ``iir_sos`` launch; two ``one_pole`` a
+   step, one per section), timed against the ``pallas``
    engine (the kernel) in turns; CPU against the card at block_len 2^12;
 9. the fused FIR→demod entry point ``fir_quad_demod_fused`` streamed over 4
    chunks of 2^22 samples of Path A's input with Path A's channel taps: one
@@ -355,6 +360,16 @@ IIR_CPU_BLOCK_LEN = 1 << 12
 # f32 biquads against each other: max|Δ| relative to the output RMS (FMA
 # contraction and summation order differ; ~4e-7 measured on the CPU)
 IIR_RTOL = 1e-5
+# one_pole against one_pole_ref (the same tiles and scans in PyTorch), relative
+# to the largest |y|: only the order of f32 roundings differs (each reads
+# ≤ 2.4e-7 of max |y| from float64 at these shapes); a wrong power or carry is
+# O(1)
+ONE_POLE_RTOL = 1e-5
+# the de-emphasis's shapes: fm_monitor's [131072] and fm_allband's 100
+# channels of it, 75 µs at 50 kHz (FmDeemphasis's pole 0.76347)
+DEEMPH_T = 131072
+DEEMPH_CHANNELS = 100
+DEEMPH_FS = 50e3
 # f32 against scipy's float64 sosfilt, relative to the RMS; the f32 error of a
 # stable low-pass settles (~5e-7 measured on the CPU at T = 2^12..2^16)
 SCIPY_RTOL = 2e-5
@@ -636,6 +651,10 @@ KERNELS = {
     "fir_demod": {
         "source": "gnuradio4_tpu_torch/csrc/fir_demod.cu",
         "replaces": "gnuradio4_tpu/ops/pallas_kernels.py:391",
+    },
+    "one_pole": {
+        "source": "gnuradio4_tpu_torch/csrc/one_pole.cu",
+        "replaces": "none (XLA ops)",
     },
 }
 # one H100 SXM at its 700 W limit (NVIDIA's data sheet): float32 outside the
@@ -6226,6 +6245,73 @@ def main() -> int:
     results["fir_demod"]["max_abs_err"] = max(results["fir_demod"]["max_abs_err"], err)
     del xc, y_one, y1, y2
 
+    # one_pole: against its plain version at the de-emphasis's shapes, real
+    # with FmDeemphasis's pole and K/A epilogue, complex with that pole turned
+    # by 0.4 rad; two calls with the carry against one; device times against
+    # the plain version and the bytes bound (x read once, y written once)
+    from gnuradio4_tpu_torch.ops.demod import fm_deemphasis_coeffs
+    from gnuradio4_tpu_torch.ops.iir import _f32
+    b_de, a_de = fm_deemphasis_coeffs(DEEMPH_FS, 75e-6)
+    p_de = -a_de[1] / a_de[0]
+    gains = (_f32(b_de[1] / a_de[1]), _f32(b_de[0] / a_de[0] - b_de[1] / a_de[1]))
+    pole_rows = {}
+    for label, shape, cx in (
+            (f"f32 [{DEEMPH_T}] (fm_monitor)", (DEEMPH_T,), False),
+            (f"f32 [{DEEMPH_CHANNELS}, {DEEMPH_T}] (fm_allband)",
+             (DEEMPH_CHANNELS, DEEMPH_T), False),
+            (f"c64 [{DEEMPH_T}]", (DEEMPH_T,), True),
+            (f"c64 [{DEEMPH_CHANNELS}, {DEEMPH_T}]", (DEEMPH_CHANNELS, DEEMPH_T), True)):
+        dt = torch.complex64 if cx else torch.float32
+        pole = p_de * np.exp(0.4j) if cx else p_de
+        x = torch.randn(shape, dtype=dt, device=dev, generator=gen)
+        u0 = torch.randn(shape[:-1], dtype=dt, device=dev, generator=gen)
+        kernel = lambda: ck.one_pole(x, pole, u0, *gains)
+        plain = lambda: ck.one_pole_ref(x, pole, u0, *gains)
+        before = ck.one_pole.launches
+        y, last = kernel()
+        check(ck.one_pole.launches == before + 1,
+              f"one_pole {label}: {ck.one_pole.launches - before} launches")
+        y_ref, last_ref = plain()
+        torch.cuda.synchronize()
+        check(y.shape == y_ref.shape and y.dtype == dt and last.shape == u0.shape,
+              f"one_pole {label}: shapes {y.shape} {last.shape}, dtype {y.dtype}")
+        scale = float(y_ref.abs().max())
+        err = max(float((y - y_ref).abs().max()),
+                  float((last - last_ref).abs().max())) / scale
+        row = {"case": label, "max_abs_err": err, "tol": ONE_POLE_RTOL}
+        row["ms"], row["plain_ms"] = kernel_vs_plain_ms(kernel, plain)
+        n = x.numel()
+        # u = p·u + x, then y = K·x + A·u with real gains: 5 FLOPs a real
+        # sample, 14 a complex one; x in, y out, the state in and out
+        row["bound_ms"], row["bound_by"] = bound_ms(
+            (14.0 if cx else 5.0) * n, 2.0 * x.element_size() * (n + u0.numel()))
+        row["share_of_bound"] = row["bound_ms"] / row["ms"]
+        pole_rows[label] = {key: row[key] for key in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "share_of_bound")}
+        if "fm_allband" in label:
+            results["one_pole"].update(
+                pole_rows[label], library_ms=None,
+                library_note="no single PyTorch call runs a first-order recurrence")
+        print(f"  one_pole {label}: max|Δ| {err:.3e}·max|y| (tol {ONE_POLE_RTOL}); "
+              f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, bound "
+              f"{row['bound_ms']:.5f} ms ({row['bound_by']}), "
+              f"{row['share_of_bound']:.2%} of it on {card}")
+        check(err <= ONE_POLE_RTOL, f"one_pole {label}: {err} > {ONE_POLE_RTOL}")
+        results["one_pole"]["max_abs_err"] = max(results["one_pole"]["max_abs_err"], err)
+        if shape[0] == DEEMPH_CHANNELS:
+            y1, st = ck.one_pole(x[:, :50001].contiguous(), pole, u0, *gains)
+            y2, st = ck.one_pole(x[:, 50001:].contiguous(), pole, st, *gains)
+            torch.cuda.synchronize()
+            err = max(float((torch.cat([y1, y2], -1) - y).abs().max()),
+                      float((st - last).abs().max())) / scale
+            print(f"  one_pole {label} two calls 50001 + {DEEMPH_T - 50001}, state "
+                  f"carried: max|Δ| to one call {err:.3e}·max|y| (tol {ONE_POLE_RTOL})")
+            check(err <= ONE_POLE_RTOL, f"one_pole {label} carry: {err} > {ONE_POLE_RTOL}")
+            results["one_pole"]["max_abs_err"] = max(results["one_pole"]["max_abs_err"],
+                                                     err)
+    results["one_pole"]["timed_shapes"] = pole_rows
+    del x, u0, y, last, y_ref, last_ref
+
     # 4 + 5. the main path, absorbed then not: launches counted over both runs
     ck.reset_launch_counts()
     print(f"[4 chain] block_len 2^23, {STEPS} steps, rotation absorbed")
@@ -6306,6 +6392,9 @@ def main() -> int:
           f"expected {2 * WBFM_STEPS}")
     check(counts["nco_mix"] == counts["iir_sos"] == counts["fir_demod"] == 0,
           f"unexpected launches on Path A: {counts}")
+    check(counts["one_pole"] == WBFM_STEPS,
+          f"one_pole launched {counts['one_pole']} times on Path A (the "
+          f"de-emphasis), expected {WBFM_STEPS}")
     for k in KERNELS:
         results[k]["launches"] += counts[k]
     check_wbfm_audio(audio, WBFM_IN_LEN // 5, WBFM_STEPS, "Path A (card)")
@@ -6340,8 +6429,8 @@ def main() -> int:
     # three launches per step: reduce, carry, rerun (one group of sections)
     check(counts["iir_sos"] == 3 * IIR_STEPS,
           f"iir_sos launched {counts['iir_sos']} times, expected {3 * IIR_STEPS}")
-    check(counts["fir_banded"] == counts["nco_mix"] == counts["fir_demod"] == 0,
-          f"unexpected launches on Path B: {counts}")
+    check(counts["fir_banded"] == counts["nco_mix"] == counts["fir_demod"]
+          == counts["one_pole"] == 0, f"unexpected launches on Path B: {counts}")
     for k in KERNELS:
         results[k]["launches"] += counts[k]
     check(x_src.shape == (IIR_CHANNELS, IIR_BLOCK_LEN * IIR_STEPS),
@@ -6351,8 +6440,13 @@ def main() -> int:
     iir4, y4 = run_iir_path("cuda", 4, IIR_BLOCK_LEN, IIR_STEPS)
     counts = ck.launch_counts()
     print(f"  order 4: launches {counts}; engine {iir4._engine(dev)}")
-    check(iir4._engine(dev) == "parallel" and counts["iir_sos"] == 0,
-          f"order 4 under auto: engine {iir4._engine(dev)}, launches {counts}")
+    # two second-order sections, each one complex one-pole recurrence
+    check(iir4._engine(dev) == "parallel" and counts["iir_sos"] == 0
+          and counts["one_pole"] == 2 * IIR_STEPS,
+          f"order 4 under auto: engine {iir4._engine(dev)}, launches {counts}, "
+          f"expected one_pole {2 * IIR_STEPS}")
+    for k in KERNELS:
+        results[k]["launches"] += counts[k]
     check_against_scipy(y4, x_src, 4, "Path B order 4 (parallel engine)")
     del y_b, y4, x_src
     def iir_step_ms(order: int, engine: str):

@@ -18,6 +18,7 @@ fir_banded         fir_planar_pallas, fir_ilv_pallas               fir_banded_re
 nco_mix            nco_mix_pallas                                  nco_mix_ref
 iir_sos            iir_sos_pallas                                  iir_sos_ref
 fir_demod          fir_demod_planar_pallas                         fir_demod_ref
+one_pole           none (ops/iir.py one_pole_apply's XLA ops)      one_pole_ref
 =================  ==============================================  ================
 """
 
@@ -148,6 +149,14 @@ def build() -> KernelLibrary:
             ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
             ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
         lib.gr4_fir_demod.restype = ctypes.c_int
+        lib.gr4_one_pole.argtypes = [ctypes.c_void_p] * 6 + [
+            ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
+            ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
+        lib.gr4_one_pole.restype = ctypes.c_int
+        for fn in ("threads", "stretch", "levels"):
+            getattr(lib, f"gr4_one_pole_{fn}").restype = ctypes.c_int
+        lib.gr4_one_pole_work_size.argtypes = [ctypes.c_int64]
+        lib.gr4_one_pole_work_size.restype = ctypes.c_int64
         lib.gr4_error_string.argtypes = [ctypes.c_int]
         lib.gr4_error_string.restype = ctypes.c_char_p
         _library = KernelLibrary(lib, so, time.perf_counter() - t0, log,
@@ -573,7 +582,176 @@ def fir_demod_ref(xc: torch.Tensor, taps, decim: int, prev: torch.Tensor,
     return y
 
 
-KERNELS = (fir_banded, nco_mix, iir_sos, fir_demod)
+# -- first-order recurrence ------------------------------------------------------
+
+# csrc/one_pole.cu's geometry (its wrapper checks that the library reports the
+# same): threads a block, samples a thread, and powers p^(2^j) in its table
+ONE_POLE_THREADS = 256
+ONE_POLE_STRETCH = 16
+ONE_POLE_LEVELS = 32
+
+
+@functools.lru_cache(maxsize=64)
+def one_pole_powers(pole, cx: bool) -> np.ndarray:
+    """[ONE_POLE_LEVELS] p^(2^j), read-only and cached per pole: the pole
+    rounded to complex64 (``cx``) or float32, squared in float64 and each
+    power rounded back. Entry 0 is the rounded pole itself."""
+    p = np.complex128(np.complex64(pole) if cx else np.float32(complex(pole).real))
+    out = np.empty(ONE_POLE_LEVELS, np.complex128)
+    with np.errstate(over="ignore", under="ignore", invalid="ignore"):
+        for j in range(ONE_POLE_LEVELS):
+            out[j] = p
+            p = p * p
+    return frozen(out.astype(np.complex64) if cx else out.real.astype(np.float32))
+
+
+@functools.lru_cache(maxsize=1)
+def _one_pole_lib() -> ctypes.CDLL:
+    """The library, after checking that csrc/one_pole.cu has this module's
+    geometry (the host builds the table, the plain version mirrors the
+    tiles)."""
+    lib = build().lib
+    got = (lib.gr4_one_pole_threads(), lib.gr4_one_pole_stretch(),
+           lib.gr4_one_pole_levels())
+    want = (ONE_POLE_THREADS, ONE_POLE_STRETCH, ONE_POLE_LEVELS)
+    if got != want:
+        raise GrError(f"one_pole: csrc/one_pole.cu has (threads, stretch, levels) "
+                      f"{got}, ops/cuda_kernels.py {want}")
+    return lib
+
+
+# the look-back's workspaces, zeroed once, by (device, stream): launches on one
+# stream never overlap, and each advances its workspace's epoch itself
+_one_pole_work: dict[tuple[int, int], tuple[torch.Tensor, int]] = {}
+
+
+def _one_pole_workspace(lib: ctypes.CDLL, dev: torch.device, stream: int,
+                        tiles: int) -> tuple[torch.Tensor, int]:
+    key = (dev.index, stream)
+    work, cap = _one_pole_work.get(key, (None, 0))
+    if cap < tiles:
+        cap = max(tiles, 2 * cap)
+        work = torch.zeros(-(-lib.gr4_one_pole_work_size(cap) // 4),
+                           dtype=torch.int32, device=dev)
+        _one_pole_work[key] = (work, cap)
+    return work, cap
+
+
+def one_pole(x: torch.Tensor, pole, state: torch.Tensor, gain_x: float = 0.0,
+             gain_u: float = 1.0) -> tuple[torch.Tensor, torch.Tensor]:
+    """The first-order recurrence ``u[n] = p·u[n−1] + x[n]`` over the last
+    axis, with ``u[−1] = state``, and ``y = gain_x·x + gain_u·u``. ``x``:
+    float32 (a real pole) or complex64 ``[..., T]``; ``state``: ``x.shape[:-1]``
+    of the same type; the pole a host constant, rounded to the stream's type;
+    the gains real. Returns ``(y, u[..., T−1])``. CPU tensors take
+    :func:`one_pole_ref`; CUDA tensors launch the kernel in
+    ``csrc/one_pole.cu``: one launch a call, whatever the shape."""
+    if x.device.type == "cpu":
+        return one_pole_ref(x, pole, state, gain_x, gain_u)
+    name = "one_pole"
+    if x.dtype not in (torch.float32, torch.complex64) or state.dtype != x.dtype:
+        raise GrError(f"{name}: stream and state must both be float32 or "
+                      f"complex64; got {x.dtype}, {state.dtype}")
+    cx = x.is_complex()
+    if not cx and complex(pole).imag != 0.0:
+        raise GrError(f"{name}: a complex pole needs a complex64 stream")
+    dev = _require_cuda(name, x, state)
+    if x.ndim < 1 or state.shape != x.shape[:-1]:
+        raise GrError(f"{name}: bad shapes x{tuple(x.shape)} state"
+                      f"{tuple(state.shape)}")
+    t = x.shape[-1]
+    channels = state.numel()
+    y = torch.empty_like(x)
+    new_state = torch.empty_like(state)
+    if channels == 0 or t == 0:
+        new_state.copy_(state)
+        return y, new_state
+    lib = _one_pole_lib()
+    stream = _stream(dev)
+    tiles = channels * -(-t // (ONE_POLE_THREADS * ONE_POLE_STRETCH))
+    work, cap = _one_pole_workspace(lib, dev, stream, tiles)
+    err = lib.gr4_one_pole(x.data_ptr(), y.data_ptr(), state.data_ptr(),
+                           new_state.data_ptr(), one_pole_powers(pole, cx).ctypes.data,
+                           work.data_ptr(), cap, channels, t, int(cx),
+                           float(gain_x), float(gain_u), stream)
+    _check(err, name)
+    one_pole.launches += 1
+    return y, new_state
+
+
+one_pole.launches = 0
+
+
+def one_pole_ref(x: torch.Tensor, pole, state: torch.Tensor, gain_x: float = 0.0,
+                 gain_u: float = 1.0) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of :func:`one_pole`: the kernel's algorithm in PyTorch,
+    which ``chip_smoke.py`` holds the kernel to on the card. Each channel is cut into tiles of THREADS·STRETCH samples
+    (the last padded with zeros), each tile into warps of 32 stretches of
+    STRETCH samples; every stretch runs from the zero state; a scan over the
+    warp's stretches, then over the tile's warps, with the powers of
+    :func:`one_pole_powers`, gives each stretch's zero-state entering state;
+    the tiles' entering states chain from ``state`` with p^tile; every
+    stretch runs again from its full entering state and gives y. The same
+    result as the sequential loop in exact arithmetic."""
+    cx = x.is_complex()
+    pw = [complex(v) if cx else float(v) for v in one_pole_powers(pole, cx)]
+    p, r, lanes = pw[0], ONE_POLE_STRETCH, 32
+    warps = ONE_POLE_THREADS // lanes
+    tile = ONE_POLE_THREADS * r
+    r_log, t_log = int(math.log2(r)), int(math.log2(tile))
+
+    def power(base: int, n: int):
+        v = 1.0
+        for b in range(n.bit_length()):
+            if n >> b & 1:
+                v = v * pw[base + b]
+        return v
+
+    def scan(v: torch.Tensor, base: int) -> torch.Tensor:
+        """Inclusive scan over the last axis of w_i = P·w_(i−1) + v_i, P the
+        table's power ``base`` (one element apart)."""
+        d, j = 1, 0
+        while d < v.shape[-1]:
+            nxt = v.clone()
+            nxt[..., d:] = v[..., d:] + pw[base + j] * v[..., :-d]
+            v, d, j = nxt, 2 * d, j + 1
+        return v
+
+    t = x.shape[-1]
+    c = state.numel()
+    if c == 0 or t == 0:
+        return x.clone(), state.clone()
+    k = -(-t // tile)
+    xs = torch.nn.functional.pad(x.reshape(c, t), (0, k * tile - t))
+    xs = xs.reshape(c, k, warps, lanes, r)
+    u = torch.zeros(xs.shape[:-1], dtype=x.dtype, device=x.device)
+    for j in range(r):
+        u = p * u + xs[..., j]
+    w = scan(u, r_log)                                     # in each warp
+    before = torch.nn.functional.pad(w[..., :-1], (1, 0))
+    v = scan(w[..., -1], r_log + 5)                        # over the warps
+    warp_in = torch.nn.functional.pad(v[..., :-1], (1, 0))
+    enter = [state.reshape(c).to(x.dtype)]
+    for i in range(k - 1):
+        enter.append(pw[t_log] * enter[-1] + v[:, i, -1])
+    tile_in = torch.stack(enter, dim=1)                    # [C, K]
+    warp_pow = torch.tensor([power(r_log + 5, i) for i in range(warps)],
+                            dtype=x.dtype, device=x.device)
+    lane_pow = torch.tensor([power(r_log, i) for i in range(lanes)],
+                            dtype=x.dtype, device=x.device)
+    into_warp = warp_in + warp_pow * tile_in[..., None]
+    u = before + lane_pow * into_warp[..., None]
+    us, ys = [], []
+    for j in range(r):
+        u = p * u + xs[..., j]
+        us.append(u)
+        ys.append(gain_u * u + gain_x * xs[..., j] if gain_x else gain_u * u)
+    y = torch.stack(ys, dim=-1).reshape(c, k * tile)[:, :t]
+    last = torch.stack(us, dim=-1).reshape(c, k * tile)[:, t - 1]
+    return y.reshape(x.shape), last.reshape(state.shape)
+
+
+KERNELS = (fir_banded, nco_mix, iir_sos, fir_demod, one_pole)
 
 
 def reset_launch_counts() -> None:

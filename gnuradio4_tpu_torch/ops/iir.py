@@ -27,7 +27,7 @@ import os
 import numpy as np
 import torch
 
-from .cuda_kernels import frozen
+from .cuda_kernels import frozen, one_pole
 from .precision import check_f32_matmul
 
 
@@ -80,14 +80,20 @@ def one_pole_apply(x: torch.Tensor, pole: complex | float,
     """Parallel first-order recurrence y[n] = pole·y[n-1] + x[n].
 
     The pole is a host constant (every caller's is: the JAX package's traced
-    poles come from dynamic settings no ported block has). With |pole| ≤ 1 on
-    a stream of T ≥ 4096 samples, T % 128 == 0, it takes the blocked two-level
-    path (:func:`_one_pole_blocked`); everything else takes the O(log T)-depth
-    scan. ``GR4TPU_NO_BLOCKED_ONEPOLE=1`` forces the scan, the same switch the
-    JAX package reads.
+    poles come from dynamic settings no ported block has). A CUDA stream
+    takes the ``one_pole`` kernel (ops/cuda_kernels.py): one launch, any T,
+    float32 or complex64 only (GrError otherwise, and for a complex pole
+    over a real stream), the output in the stream's type.
+    On the CPU, with |pole| ≤ 1 on a stream of T ≥ 4096 samples,
+    T % 128 == 0, it takes the blocked two-level path
+    (:func:`_one_pole_blocked`); everything else takes the O(log T)-depth
+    scan. ``GR4TPU_NO_BLOCKED_ONEPOLE=1`` forces the scan there, the same
+    switch the JAX package reads.
 
     x: [..., T]; y_prev: [...] (y[-1]); returns (y, y[T-1]).
     """
+    if x.device.type == "cuda":
+        return _one_pole_card(x, pole, y_prev)
     t = x.shape[-1]
     if abs(pole) <= 1.0 and t >= 4096 and t % _BLK == 0 \
             and os.environ.get("GR4TPU_NO_BLOCKED_ONEPOLE") != "1":
@@ -97,6 +103,17 @@ def one_pole_apply(x: torch.Tensor, pole: complex | float,
     v[..., 0] += pole * y_prev.to(x.dtype)
     ys = _one_pole_scan(pole, v)
     return ys, ys[..., -1]
+
+
+def _one_pole_card(x: torch.Tensor, pole, u_prev: torch.Tensor,
+                   gain_x: float = 0.0, gain_u: float = 1.0
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The ``one_pole`` kernel in the stream's own type, which it refuses
+    unless float32 or complex64; ``u_prev`` in that type, broadcast to the
+    stream's channels."""
+    return one_pole(x.contiguous(), pole,
+                    u_prev.to(x.dtype).expand(x.shape[:-1]).contiguous(),
+                    gain_x, gain_u)
 
 
 _BLK = 128   # in-block Toeplitz size
@@ -344,6 +361,9 @@ def one_pole_ba_apply(x: torch.Tensor, b: np.ndarray, a: np.ndarray,
     p = -a1
     K = b1 / a1
     A = b0 - b1 / a1
+    if x.device.type == "cuda":       # the epilogue in the kernel's one pass
+        y, last = _one_pole_card(x.to(torch.float32), p, u_prev, _f32(K), _f32(A))
+        return y.to(x.dtype), last
     u, last = one_pole_apply(x.to(torch.float32), p, u_prev.to(torch.float32))
     y = _f32(K) * x + _f32(A) * u
     return y.to(x.dtype), last

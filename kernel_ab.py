@@ -24,8 +24,10 @@ summed in the same order as the direct-form loop it replaced) and, at
 every shape, against ``fir_demod_ref`` within ``DEMOD_ATOL``·gain with the
 differences wrapped into (−π, π]; ``iir_sos`` (whose chunked scan rounds
 differently from the parent's serial loop) against scipy's float64
-``sosfilt``. It prints one JSON line per shape and exits non-zero if any
-check fails. OTHER's ``gr4_iir_sos`` may have either C interface: the serial
+``sosfilt``. ``one_pole`` has no counterpart in OTHER: it runs at
+fm_monitor's and fm_allband's de-emphasis shapes against this tree's torch
+path (``one_pole_rows``). It prints one JSON line per shape and exits
+non-zero if any check fails. OTHER's ``gr4_iir_sos`` may have either C interface: the serial
 kernel's or the chunked scan's.
 
 The second form imports ``chip_smoke`` and the package from ROOT (default: this
@@ -296,7 +298,59 @@ def kernels(other: Path) -> int:
                           "share_of_bound": b_ms / ms, "other_share": b_ms / other_ms,
                           "float64_rms_err": err["this"],
                           "other_float64_rms_err": err["that"], "card": card}))
+    bad += one_pole_rows(cs, ck, card)
     return 1 if bad else 0
+
+
+def one_pole_rows(cs, ck, card: str) -> int:
+    """``one_pole`` with FmDeemphasis's coefficients (75 µs at 50 kHz, the
+    K/A epilogue) at fm_monitor's [131072] and fm_allband's [100, 131072],
+    against this tree's torch path on the card (ops/iir.py
+    ``_one_pole_blocked`` and the epilogue, the parent's route), in turns;
+    both against a float64 loop. Returns the number of failed checks."""
+    import numpy as np
+    import torch
+    from scipy import signal
+    from portbench.yardstick import bound_ms
+    from gnuradio4_tpu_torch.ops import iir
+    from gnuradio4_tpu_torch.ops.demod import fm_deemphasis_coeffs
+    dev = torch.device("cuda")
+    b, a = fm_deemphasis_coeffs(50e3, 75e-6)
+    p, k, amp = -a[1] / a[0], b[1] / a[1], b[0] / a[0] - b[1] / a[1]
+    kf, af = iir._f32(k), iir._f32(amp)
+    gen = torch.Generator(device=dev).manual_seed(cs.SEED)
+    bad = 0
+    for label, shape in (("f32 [131072] (fm_monitor)", (131072,)),
+                         ("f32 [100, 131072] (fm_allband)", (100, 131072))):
+        x = torch.randn(shape, device=dev, generator=gen)
+        u0 = torch.randn(shape[:-1], device=dev, generator=gen)
+        kernel = lambda: ck.one_pole(x, p, u0, kf, af)
+
+        def torch_path():
+            u, last = iir._one_pole_blocked(x, complex(p), u0)
+            return kf * x + af * u, last
+        y, _ = kernel()
+        y_t, _ = torch_path()
+        pf = float(np.float32(p))
+        zi = (pf * u0.cpu().numpy().astype(np.float64))[..., None]
+        x64 = x.cpu().numpy().astype(np.float64)
+        u64, _ = signal.lfilter([1.0], [1.0, -pf], x64, axis=-1, zi=zi)
+        want = k * x64 + amp * u64
+        scale = float(np.abs(want).max())
+        err = float(np.abs(y.cpu().numpy() - want).max()) / scale
+        err_t = float(np.abs(y_t.cpu().numpy() - want).max()) / scale
+        t = [cs.cuda_ms(torch_path), cs.cuda_ms(kernel), cs.cuda_ms(kernel),
+             cs.cuda_ms(torch_path)]
+        ms, torch_ms = statistics.median(t[1:3]), statistics.median((t[0], t[3]))
+        n = x.numel()
+        b_ms, b_by = bound_ms(5.0 * n, 8.0 * n + 8.0 * u0.numel())
+        bad += err > 1e-5
+        print(json.dumps({"kernel": "one_pole", "case": label, "ms": ms,
+                          "torch_path_ms": torch_ms, "bound_ms": b_ms, "bound_by": b_by,
+                          "share_of_bound": b_ms / ms, "torch_path_share": b_ms / torch_ms,
+                          "float64_err": err, "torch_path_float64_err": err_t,
+                          "card": card}))
+    return bad
 
 
 if __name__ == "__main__":

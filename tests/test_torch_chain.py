@@ -331,5 +331,5 @@ def test_cpu_kernel_wrappers_count_no_launch(rng):
     h, _, _, _ = _chain(gt, sink="NullSink")
     gt.Scheduler(h, block_len=1 << 13, sample_rate=FS, device="cpu").run_and_wait(2)
     assert ck.launch_counts() == dict.fromkeys(
-        ("fir_banded", "nco_mix", "iir_sos", "fir_demod",
+        ("fir_banded", "nco_mix", "iir_sos", "fir_demod", "one_pole",
          "fir_banded.phase_groups"), 0)

@@ -667,3 +667,166 @@ def test_resampler_forms_and_ldpc_forms_agree_on_card(cuda):
         bits, ok = fn(graph, llr.to(cuda), 25)
         np.testing.assert_array_equal(bits.cpu().numpy(), want)
         np.testing.assert_array_equal(ok.cpu().numpy(), ok_want)
+
+
+# one_pole (csrc/one_pole.cu) against a float64 sequential loop with the pole
+# rounded as the kernel rounds it, relative to the largest |y|: f32 rounding
+# through stretches of 16, scans of 8 levels and the tiles' carries (the plain
+# version reads at most 2.1e-06 at |p| 0.999999, T 2^20); a wrong power or
+# carry is O(1)
+ONE_POLE_RTOL = 1e-5
+# FmDeemphasis on the card against the CPU's blocked torch path, relative to
+# the largest |y|
+DEEMPH_RTOL = 1e-6
+
+
+def _one_pole_case(shape, t, mag, cx, seed):
+    """(pole, x, state) on the host: a real pole of magnitude ``mag`` or the
+    complex one at angle 0.3 rad; unit-variance samples and state."""
+    g = torch.Generator().manual_seed(seed)
+    full = (*shape, t)
+    dt = torch.complex64 if cx else torch.float32
+    return (mag * np.exp(0.3j) if cx else mag, torch.randn(full, dtype=dt, generator=g),
+            torch.randn(shape, dtype=dt, generator=g))
+
+
+def _one_pole_float64(x, pole, state):
+    """u[n] = p·u[n−1] + x[n] in float64 by scipy's lfilter (a sequential
+    loop), p rounded to the stream's type."""
+    signal = pytest.importorskip("scipy.signal")
+    cx = x.is_complex()
+    p = complex(np.complex64(pole)) if cx else float(np.float32(pole))
+    x64 = x.numpy().astype(np.complex128 if cx else np.float64)
+    zi = (p * state.numpy().astype(x64.dtype))[..., None]
+    u, _ = signal.lfilter([1.0], [1.0, -p], x64, axis=-1, zi=zi)
+    return u
+
+
+@pytest.mark.parametrize("shape", [(), (1,), (100,)])
+@pytest.mark.parametrize("t", [1, 127, 4096, 131071, 131072, 1 << 20])
+@pytest.mark.parametrize("mag", [0.2, 0.76347, 0.995, 0.999999])
+@pytest.mark.parametrize("cx", [False, True])
+def test_one_pole_matches_float64_loop(cuda, cx, mag, t, shape):
+    """One launch a call at every shape: one tile (T ≤ 4096), partial last
+    tiles (127, 131071), the look-back over 32 (fm's T) and 256 tiles of a
+    channel, and 100 channels."""
+    pole, x, s = _one_pole_case(shape, t, mag, cx, seed=t + len(shape))
+    before = ck.one_pole.launches
+    y, last = ck.one_pole(x.to(cuda), pole, s.to(cuda))
+    torch.cuda.synchronize()
+    assert ck.one_pole.launches == before + 1
+    assert y.shape == x.shape and last.shape == s.shape and y.dtype == x.dtype
+    want = _one_pole_float64(x, pole, s)
+    scale = float(np.abs(want).max())
+    assert float(np.abs(y.cpu().numpy() - want).max()) <= ONE_POLE_RTOL * scale
+    assert float(np.abs(last.cpu().numpy() - want[..., -1]).max()) <= ONE_POLE_RTOL * scale
+
+
+@pytest.mark.parametrize("cx", [False, True])
+def test_one_pole_four_calls_equal_one(cuda, cx):
+    """Four calls with the carry equal one call over their concatenation
+    within f32 rounding (each call's tiles start at its first sample), and
+    each call counts one launch."""
+    pole, x, s = _one_pole_case((100,), 4 * 131072, 0.995, cx, seed=41)
+    x, s = x.to(cuda), s.to(cuda)
+    y_one, last_one = ck.one_pole(x, pole, s)
+    before = ck.launch_counts()["one_pole"]
+    ys, st = [], s
+    for part in x.chunk(4, dim=-1):
+        y, st = ck.one_pole(part.contiguous(), pole, st)
+        ys.append(y)
+    torch.cuda.synchronize()
+    assert ck.launch_counts()["one_pole"] == before + 4
+    scale = float(y_one.abs().max())
+    assert float((torch.cat(ys, -1) - y_one).abs().max()) <= ONE_POLE_RTOL * scale
+    assert float((st - last_one).abs().max()) <= ONE_POLE_RTOL * scale
+
+
+@pytest.mark.parametrize("shape", [(131072,), (100, 131072), (3, 5000)])
+def test_fm_deemphasis_card_matches_cpu(cuda, shape):
+    """FmDeemphasis (75 µs at 50 kHz) over three steps with its state carried,
+    the card's kernel against the CPU's blocked torch path (T 5000: its scan)."""
+    from gnuradio4_tpu_torch.blocks.sdr import FmDeemphasis
+    from gnuradio4_tpu_torch.core.block import BlockCtx
+    ch = shape[0] if len(shape) == 2 else 0
+    outs = {}
+    for dev in ("cpu", cuda):
+        blk = FmDeemphasis(tau=75e-6, sample_rate_in=50e3)
+        ctx = BlockCtx(in_len={"in": shape[-1]}, out_len={"out": shape[-1]},
+                       sample_rate=50e3, params={}, channels={"in": ch, "out": ch},
+                       device=torch.device(dev))
+        g = torch.Generator().manual_seed(43)
+        state, ys = blk.init_state(ctx), []
+        for _ in range(3):
+            state, out = blk.apply(state, {"in": torch.randn(shape, generator=g).to(dev)},
+                                   ctx)
+            ys.append(out["out"].cpu())
+        outs[str(dev)] = (torch.cat(ys, -1), state.cpu())
+    (y_cpu, s_cpu), (y_card, s_card) = outs["cpu"], outs["cuda"]
+    scale = float(y_cpu.abs().max())
+    assert float((y_card - y_cpu).abs().max()) <= DEEMPH_RTOL * scale
+    assert float((s_card - s_cpu).abs().max()) <= DEEMPH_RTOL * scale
+
+
+def test_deemphasis_is_one_kernel_and_no_copy(cuda):
+    """One de-emphasis call at fm_allband's shape is one launch of one_pole
+    and no other kernel, copy or fill on the card (after the first call,
+    which zeroes the look-back's workspace once)."""
+    from torch.profiler import ProfilerActivity, profile
+    from gnuradio4_tpu_torch.ops.demod import fm_deemphasis_coeffs
+    from gnuradio4_tpu_torch.ops.iir import one_pole_ba_apply
+    b, a = fm_deemphasis_coeffs(50e3, 75e-6)
+    x = torch.randn(100, 131072, device=cuda)
+    u = torch.zeros(100, device=cuda)
+    one_pole_ba_apply(x, b, a, u)
+    torch.cuda.synchronize()
+    before = ck.launch_counts()["one_pole"]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        one_pole_ba_apply(x, b, a, u)
+        torch.cuda.synchronize()
+    assert ck.launch_counts()["one_pole"] == before + 1
+    device_ops = [e.name for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(device_ops) == 1 and "one_pole" in device_ops[0], device_ops
+
+
+def test_one_pole_refuses_what_the_kernel_does_not_take(cuda):
+    x = torch.zeros(8, device=cuda)
+    with pytest.raises(GrError, match="complex pole"):
+        ck.one_pole(x, 0.5j, torch.zeros((), device=cuda))
+    with pytest.raises(GrError, match="float32 or"):
+        ck.one_pole(x, 0.5, torch.zeros((), dtype=torch.complex64, device=cuda))
+    with pytest.raises(GrError, match="shapes"):
+        ck.one_pole(x, 0.5, torch.zeros(2, device=cuda))
+    with pytest.raises(GrError, match="contiguous"):
+        ck.one_pole(torch.zeros(8, 2, device=cuda).t(), 0.5, torch.zeros(2, device=cuda))
+
+
+@pytest.mark.parametrize("dt,pole", [(torch.float32, 0.995), (torch.complex64, 0.995),
+                                     (torch.complex64, 0.995 * np.exp(0.3j))])
+def test_one_pole_apply_keeps_the_stream_type_on_card(cuda, dt, pole):
+    """one_pole_apply on a float32 or complex64 card stream returns that
+    type, as the CPU's path does, with the CPU's values within f32 rounding."""
+    from gnuradio4_tpu_torch.ops.iir import one_pole_apply
+    g = torch.Generator().manual_seed(47)
+    x = torch.randn(3, 4096, dtype=dt, generator=g)
+    s = torch.randn(3, dtype=dt, generator=g)
+    y_cpu, last_cpu = one_pole_apply(x, pole, s)
+    y, last = one_pole_apply(x.to(cuda), pole, s.to(cuda))
+    assert y.dtype == last.dtype == y_cpu.dtype == last_cpu.dtype == dt
+    scale = float(y_cpu.abs().max())
+    assert float((y.cpu() - y_cpu).abs().max()) <= ONE_POLE_RTOL * scale
+    assert float((last.cpu() - last_cpu).abs().max()) <= ONE_POLE_RTOL * scale
+
+
+@pytest.mark.parametrize("dt", [torch.float64, torch.complex128])
+def test_one_pole_apply_refuses_other_types_on_card(cuda, dt):
+    """The card takes float32 and complex64 streams only: a wider type is
+    refused, never narrowed, and so is a complex pole over a real stream."""
+    from gnuradio4_tpu_torch.ops.iir import one_pole_apply
+    x = torch.zeros(2, 4096, dtype=dt, device=cuda)
+    with pytest.raises(GrError, match="float32 or"):
+        one_pole_apply(x, 0.5, torch.zeros(2, dtype=dt, device=cuda))
+    with pytest.raises(GrError, match="complex pole"):
+        one_pole_apply(torch.zeros(4096, device=cuda), 0.5j,
+                       torch.zeros((), device=cuda))

@@ -234,7 +234,7 @@ def test_kernel_wrappers_raise_off_cpu_and_cuda():
     with pytest.raises(GrError, match="CUDA"):
         ck.fir_demod(x, np.ones(5, np.float32), 1, h[0], 1.0)
     assert ck.launch_counts() == dict.fromkeys(
-        ("fir_banded", "nco_mix", "iir_sos", "fir_demod",
+        ("fir_banded", "nco_mix", "iir_sos", "fir_demod", "one_pole",
          "fir_banded.phase_groups"), 0)
 
 
