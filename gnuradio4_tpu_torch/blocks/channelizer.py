@@ -18,9 +18,9 @@ from ..core.block import Block, Port
 from ..core.errors import GrError
 from ..core.registry import register_block
 from ..core.settings import Setting
-from ..ops.channelizer import (design_pfb_taps, frame_state, pfb_analyze,
-                               pfb_analyze_oversampled, pfb_hop, pfb_init_state,
-                               pfb_os_init_state, pfb_synthesize, shift_period)
+from ..ops.channelizer import (design_pfb_taps, pfb_analyze_oversampled,
+                               pfb_history, pfb_hop, pfb_init_state,
+                               pfb_os_init_state, pfb_state, pfb_synthesize)
 
 
 class _PfbBank(Block):
@@ -58,8 +58,7 @@ class _PfbBank(Block):
 class PFBChannelizer(_PfbBank):
     """M-channel polyphase analysis bank: [T] → [M, T/M] (critically
     sampled), or [M, T/D] with ``oversample_rate`` O and hop D = M/O
-    (``ops/channelizer.py``). At O = 1 the state is the branch FIRs' rows
-    [P−1, M]; at O > 1 ``{"hist": [P·M − D], "frame"}``."""
+    (``ops/channelizer.py``, which also sets the state's layout)."""
 
     oversample_rate = Setting(
         default=1, kind="static", limits=(1, 1 << 16),
@@ -86,63 +85,40 @@ class PFBChannelizer(_PfbBank):
         return int(self.settings.get("n_channels"))
 
     def init_state(self, ctx):
-        state = super().init_state(ctx)     # also drops the uploaded taps
-        m, d = int(self.settings.get("n_channels")), self._hop()
-        if d == m:
-            return state
-        return pfb_os_init_state(m, int(self.settings.get("taps_per_phase")),
-                                 d, ctx.device)
+        super().init_state(ctx)             # drops the uploaded taps
+        return pfb_os_init_state(int(self.settings.get("n_channels")),
+                                 int(self.settings.get("taps_per_phase")),
+                                 self._hop(), ctx.device)
 
     def apply(self, state, ins, ctx):
         x = ins["in"].to(torch.complex64)
-        if isinstance(state, dict):             # oversampled
-            m = int(self.settings.get("n_channels"))
-            y, new_state = pfb_analyze_oversampled(
-                x, self._device_taps(x.device), state, m, self._hop())
-            return new_state, {"out": y}
-        y, new_state = pfb_analyze(x, self._device_taps(x.device), state)
+        y, new_state = pfb_analyze_oversampled(
+            x, self._device_taps(x.device), state,
+            int(self.settings.get("n_channels")), self._hop())
         return new_state, {"out": y}
 
-    # time-sharding protocol: the branch FIRs' history is the last
-    # P·M − D input samples; at O = 1 stored corner-turned as rows [P−1, M]
+    # time sharding: the branch FIRs' history is the last P·M − D inputs
     def sp_halo(self, ctx):
         m = int(self.settings.get("n_channels"))
         p = int(self.settings.get("taps_per_phase"))
         return p * m - self._hop()
 
-    def sp_state_to_tail(self, state, ctx):
-        if isinstance(state, dict):
-            return state["hist"]
-        return state.reshape(*state.shape[:-2], -1)  # rows → flat input order
-
-    def sp_tail_to_state(self, tail, state, ctx):
-        if isinstance(state, dict):
-            return {"hist": tail.to(torch.complex64), "frame": state["frame"]}
-        m = int(self.settings.get("n_channels"))
-        return tail.reshape(*tail.shape[:-1], -1, m).to(torch.complex64)
-
     def lower_sp(self, h, state, ins, ctx, local_ctx, axis):
-        """The halo lowering; at O > 1 each shard's first frame takes its
-        shift index from the shard's global position."""
-        if not isinstance(state, dict):
-            return super().lower_sp(h, state, ins, ctx, local_ctx, axis)
+        """The halo lowering, each shard's first frame at its global
+        position (every frame's index is 0 at O = 1)."""
         from ..parallel.halo import halo_left, last_shard_tail
         m, d = int(self.settings.get("n_channels")), self._hop()
-        period = shift_period(m, d)
         xs = [s["in"] for s in ins]
         per = xs[0].shape[-1] // d              # frames a shard
-        frame = int(state["frame"])
-        halos = halo_left(xs, h, self.sp_state_to_tail(state, ctx), axis)
-        outs = []
-        for i, (x, halo, lctx) in enumerate(zip(ins, halos, local_ctx),
-                                            start=axis.first):
-            st = self.sp_tail_to_state(
-                halo, {"frame": frame_state(frame + i * per, period)}, ctx)
-            outs.append(self.apply(st, x, lctx)[1])
-        tail = last_shard_tail(xs, h, axis)
-        return (self.sp_tail_to_state(
-            tail, {"frame": frame_state(frame + axis.size * per, period)},
-            ctx), outs)
+        hist, frame = pfb_history(state)
+
+        def at(tail, i):                        # shard i's state
+            return pfb_state(tail.to(torch.complex64), frame + i * per, m, d)
+        halos = halo_left(xs, h, hist, axis)
+        outs = [self.apply(at(halo, i), x, lctx)[1]
+                for i, (x, halo, lctx) in enumerate(zip(ins, halos, local_ctx),
+                                                    start=axis.first)]
+        return at(last_shard_tail(xs, h, axis), axis.size), outs
 
 
 @register_block("PFBSynthesizer")

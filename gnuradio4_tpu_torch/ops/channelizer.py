@@ -6,11 +6,8 @@ Critically sampled M-channel analysis bank:
     v[n, p] = Σ_j h[jM + p] · X[n−j, p]                  (M branch FIRs of P taps)
     y[n, m] = FFT_p(v[n, ·])[m]                          (batched FFT)
 
-Channel m is centered at m·fs/M, output rate fs/M. The branch FIRs are P
-elementwise multiply-adds over the corner-turned rows (the JAX package's
-``branch_fir_macs``; real taps act on the float32 view of the complex rows),
-and the FFT across the branch axis is ``torch.fft`` (cuFFT on the card). The
-weighted overlap-add synthesis bank inverts it (channel → wideband).
+Channel m is centered at m·fs/M, output rate fs/M. The weighted overlap-add
+synthesis bank inverts it (channel → wideband).
 
 The oversampled bank (GNU Radio's ``oversample_rate`` O; harris, Dick & Rice,
 IEEE Trans. MTT 51(4), 2003) advances D = M/O input samples a frame. With i
@@ -22,7 +19,17 @@ which at O = 1 is the critically sampled bank above. Since i ≡ (n+1)·D + p
 (mod M), it is the same branch FIRs over frames that overlap by M − D
 samples, the same FFT, and a phase e^{−j2π·m·s·D/M} per frame, s = (n+1) mod
 L with L = M/gcd(M, D): the circular shift of the branch outputs by
-(n+1)·D mod M, in the frequency domain (:func:`pfb_analyze_oversampled`).
+(n+1)·D mod M, in the frequency domain. One body (:func:`_analyze`) runs
+every D in [1, M]: the branch FIRs as one multiply-add a tap over strided
+views of the input (real taps on the float32 view of the complex samples),
+the FFT across the branch axis with ``torch.fft`` (cuFFT on the card), and
+one pass that writes the channel-major output with the per-frame phase,
+which at D = M (L = 1) is a row of exact ones.
+
+The carried state is the last P·M − D input samples and the next frame's
+index. At D = M it is held as the reference's rows [P−1, M] (the samples in
+input order; every frame's index is 0), otherwise as ``{"hist", "frame"}``:
+:func:`pfb_state` and :func:`pfb_history` map between the two.
 """
 
 from __future__ import annotations
@@ -91,21 +98,12 @@ def _branch_taps(taps, p: int, m: int, device: torch.device,
 
 def pfb_analyze(x: torch.Tensor, taps, state: torch.Tensor
                 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Analysis channelizer step.
+    """Critically sampled analysis step: the bank at hop M.
 
     x: [T] complex with T % M == 0; taps: [M·P] prototype (host or tensor);
     state: [P-1, M]. Returns (channels [M, T//M], new_state)."""
     m = state.shape[-1]
-    p = state.shape[0] + 1
-    rows = x.reshape(-1, m)                           # [T/M, M] corner turn
-    r = rows.shape[0]
-    xc = torch.cat([state.to(rows.dtype), rows], dim=0)   # [P-1+T/M, M]
-    v = branch_fir_macs(xc, _branch_taps(taps, p, m, x.device), r)
-    # channel m (centered at +m·fs/M) picks the e^{-j2πpm/M} combination → FFT.
-    # branch gain ≈ 1/M (prototype sums to 1) × FFT sum M → unity channel gain.
-    y = torch.fft.fft(v, dim=-1)
-    new_state = xc[r:].clone()
-    return y.t().contiguous().to(torch.complex64), new_state
+    return pfb_analyze_oversampled(x, taps, state, m, m)
 
 
 def pfb_hop(n_channels: int, oversample_rate: float) -> int:
@@ -131,16 +129,30 @@ def frame_state(frame: int, period: int) -> torch.Tensor:
     return torch.tensor(int(frame) % period, dtype=torch.int64)
 
 
+def pfb_state(hist: torch.Tensor, frame: int, n_channels: int, hop: int):
+    """The bank's carried state at hop D = ``hop`` from ``hist``, its last
+    P·M − D input samples, and ``frame``, the next frame's absolute index:
+    rows [P−1, M] at D = M, else ``{"hist", "frame"}`` (:func:`frame_state`)."""
+    if hop == n_channels:
+        return hist.reshape(-1, n_channels)
+    return {"hist": hist, "frame": frame_state(frame, shift_period(n_channels, hop))}
+
+
+def pfb_history(state) -> tuple[torch.Tensor, int]:
+    """:func:`pfb_state`'s inverse: (the last P·M − D input samples, the next
+    frame's index modulo the shift period)."""
+    if torch.is_tensor(state):
+        return state.reshape(-1), 0
+    return state["hist"], int(state["frame"])
+
+
 def pfb_os_init_state(n_channels: int, taps_per_phase: int, hop: int,
                       device: torch.device | str = "cpu",
-                      dtype: torch.dtype = torch.complex64) -> dict:
-    """The oversampled bank's state: ``hist``, the last P·M − D input
-    samples, and ``frame``, the next frame's absolute index modulo the shift
-    period (:func:`frame_state`)."""
-    m = n_channels
-    return {"hist": torch.zeros(taps_per_phase * m - hop, dtype=dtype,
-                                device=device),
-            "frame": frame_state(0, shift_period(m, hop))}
+                      dtype: torch.dtype = torch.complex64):
+    """The bank's state at hop D before any input (:func:`pfb_state`)."""
+    hist = torch.zeros(taps_per_phase * n_channels - hop, dtype=dtype,
+                       device=device)
+    return pfb_state(hist, 0, n_channels, hop)
 
 
 @functools.lru_cache(maxsize=16)
@@ -159,23 +171,19 @@ def _shift_phases(m: int, hop: int, device: torch.device) -> torch.Tensor:
     return torch.from_numpy((re + 1j * im).astype(np.complex64)).to(device)
 
 
-def pfb_analyze_oversampled(x: torch.Tensor, taps: torch.Tensor, state: dict,
-                            n_channels: int, hop: int
-                            ) -> tuple[torch.Tensor, dict]:
-    """Oversampled analysis step (hop D = ``hop`` < M).
+def _analyze(x: torch.Tensor, taps, hist: torch.Tensor, frame: int, m: int,
+             d: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The bank at hop D = ``d``: (channels [M, T//D], the new history).
 
-    x: [T] complex with T % D == 0; taps: [M·P] prototype on x's device;
-    state: :func:`pfb_os_init_state`'s. Returns (channels [M, T//D],
-    new_state). Frame f of the step reads the input ``xe[f·D : f·D + P·M]``
-    of ``xe`` = history then the step, as P rows of M: one strided view of
-    ``xe`` a branch tap, each one multiply-add over every frame. The per-frame
-    phase is applied in the pass that writes the channel-major output."""
-    pfb_analyze_oversampled.launches += 1
-    m, d = n_channels, hop
-    p = taps.shape[-1] // m
+    Frame f of the step reads the input ``xe[f·D : f·D + P·M]`` of ``xe`` =
+    ``hist`` then ``x``, as P rows of M: one strided view of ``xe`` a branch
+    tap, each one multiply-add over every frame. ``frame`` is the first
+    frame's index; its phase is applied in the pass that writes the
+    channel-major output."""
+    p = (hist.shape[-1] + d) // m
     period = shift_period(m, d)
     f = x.shape[-1] // d
-    xe = torch.cat([state["hist"].to(x.dtype), x])          # [P·M − D + T]
+    xe = torch.cat([hist.to(x.dtype), x])                   # [P·M − D + T]
     xr = torch.view_as_real(xe)
     hp = _branch_taps(taps, p, m, x.device)[..., None]      # [P, M, 1]
     acc = None
@@ -183,8 +191,9 @@ def pfb_analyze_oversampled(x: torch.Tensor, taps: torch.Tensor, state: dict,
         seg = xr.as_strided((f, m, 2), (2 * d, 2, 1),
                             xr.storage_offset() + 2 * (p - 1 - j) * m)
         acc = seg * hp[j] if acc is None else acc.addcmul_(seg, hp[j])
+    # channel m (centered at +m·fs/M) picks the e^{-j2πpm/M} combination → FFT.
+    # branch gain ≈ 1/M (prototype sums to 1) × FFT sum M → unity channel gain.
     y = torch.fft.fft(torch.view_as_complex(acc), dim=-1)     # [F, M]
-    frame = int(state["frame"])
     tab = _shift_phases(m, d, x.device)[(frame + 1) % period]   # [L, M]
     out = torch.empty((m, f), dtype=torch.complex64, device=x.device)
     ot = out.t()
@@ -194,12 +203,19 @@ def pfb_analyze_oversampled(x: torch.Tensor, taps: torch.Tensor, state: dict,
                   out=ot[:body].view(-1, period, m))
     if body < f:
         torch.mul(y[body:], tab[: f - body], out=ot[body:])
-    new_state = {"hist": xe[xe.shape[0] - (p * m - d):].clone(),
-                 "frame": frame_state(frame + f, period)}
-    return out, new_state
+    return out, xe[xe.shape[0] - (p * m - d):].clone()
 
 
-pfb_analyze_oversampled.launches = 0
+def pfb_analyze_oversampled(x: torch.Tensor, taps, state, n_channels: int,
+                            hop: int):
+    """Analysis step at hop D = ``hop`` in [1, M].
+
+    x: [T] complex with T % D == 0; taps: [M·P] prototype (host or tensor);
+    state: :func:`pfb_os_init_state`'s. Returns (channels [M, T//D],
+    new_state)."""
+    hist, frame = pfb_history(state)
+    y, hist = _analyze(x, taps, hist, frame, n_channels, hop)
+    return y, pfb_state(hist, frame + y.shape[-1], n_channels, hop)
 
 
 def pfb_synthesize(channels: torch.Tensor, taps, state: torch.Tensor

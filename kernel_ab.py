@@ -18,7 +18,7 @@ and a short stream (C 16, T 4096), in turns (other, this, this, other) with
 52,428,800), the RDS channel filter's shape and the RTL receiver's ÷50 audio
 FIR. It checks ``fir_banded`` against the plain version and bitwise against
 the other's wherever both run it with the same phase groups (the
-``groups`` out-parameter of ``gr4_fir_banded``; a tree without it has none);
+``groups`` out-parameter of ``gr4_fir_banded``);
 ``fir_demod`` bitwise against the other's at decim 1 (one plane: the taps
 summed in the same order as the direct-form loop it replaced) and, at
 every shape, against ``fir_demod_ref`` within ``DEMOD_ATOL``·gain with the
@@ -94,10 +94,9 @@ def registers(log: str) -> dict[str, int]:
     return regs
 
 
-def build_other(other: Path, ck) -> tuple[ctypes.CDLL, str, bool]:
-    """OTHER's csrc/*.cu compiled with this tree's flags, one nvcc per source;
-    the library, the compilers' output and whether its ``gr4_fir_banded``
-    reports its phase groups through a last ``int*`` argument."""
+def build_other(other: Path, ck) -> tuple[ctypes.CDLL, str]:
+    """OTHER's csrc/*.cu compiled with this tree's flags, one nvcc per source:
+    the library and the compilers' output."""
     out = other / "gnuradio4_tpu_torch" / "_build"
     out.mkdir(parents=True, exist_ok=True)
     nvcc = ck._nvcc()
@@ -118,11 +117,9 @@ def build_other(other: Path, ck) -> tuple[ctypes.CDLL, str, bool]:
     if r.returncode:
         raise SystemExit(f"linking failed for {other}:\n{r.stderr}")
     lib = ctypes.CDLL(str(so))
-    src = (other / "gnuradio4_tpu_torch" / "csrc" / "fir_banded.cu").read_text()
-    groups_out = "int* groups)" in src
     lib.gr4_fir_banded.argtypes = [ctypes.c_void_p] * 4 + [
         ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_void_p] + [ctypes.POINTER(ctypes.c_int)] * groups_out
+        ctypes.c_int, ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
     lib.gr4_fir_demod.argtypes = [ctypes.c_void_p] * 4 + [
         ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_float, ctypes.c_void_p]
@@ -131,7 +128,7 @@ def build_other(other: Path, ck) -> tuple[ctypes.CDLL, str, bool]:
     else:                                   # the serial kernel's interface
         lib.gr4_iir_sos.argtypes = [ctypes.c_void_p] * 5 + [
             ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_void_p]
-    return lib, logs, groups_out
+    return lib, logs
 
 
 def kernels(other: Path) -> int:
@@ -152,7 +149,7 @@ def kernels(other: Path) -> int:
                           "--format=csv,noheader"], capture_output=True, text=True)
     card = smi.stdout.strip().splitlines()[0]
     built = ck.build()
-    this, (that, that_log, that_groups) = built.lib, build_other(other, ck)
+    this, (that, that_log) = built.lib, build_other(other, ck)
     for name, log in (("this", built.log), ("other", that_log)):
         print(json.dumps({"registers": name, "kernels": registers(log), "card": card}))
     stream = lambda: torch.cuda.current_stream().cuda_stream
@@ -176,7 +173,6 @@ def kernels(other: Path) -> int:
                            3.1e6, 20e6)
     rds = fd.design_fir("lowpass", 241, sample_rate=1.2e6, f_low=2.4e3).astype(np.float32)
     rtl = fd.design_fir("lowpass", 127, sample_rate=1.2e6, f_low=12e3).astype(np.float32)
-    groups_out = {"this": True, "that": that_groups}
     for label, n, dt, taps, decim in (
             ("c64 x c64 taps K=127 decim 1 T=2^23", cs.BLOCK_LEN, torch.complex64, xl, 1),
             ("c64 x f32 taps K=127 decim 1 T=2^23", cs.BLOCK_LEN, torch.complex64, lp127, 1),
@@ -194,16 +190,15 @@ def kernels(other: Path) -> int:
         h = torch.from_numpy(np.ascontiguousarray(taps)).to(dev)
         ref = ck.fir_banded_ref(x, hist, h, decim)
         ys = {name: torch.empty_like(ref) for name in ("this", "that")}
-        groups = {"this": 1, "that": 1}     # a tree that does not report: staged
+        groups = {}
 
         def call(lib, name):
             g = ctypes.c_int(0)
             assert lib.gr4_fir_banded(x.data_ptr(), hist.data_ptr(), h.data_ptr(),
                                       ys[name].data_ptr(), 1, n, k, decim,
                                       int(x.is_complex()), int(h.is_complex()),
-                                      stream(), *[ctypes.byref(g)] * groups_out[name]) == 0
-            if groups_out[name]:
-                groups[name] = g.value
+                                      stream(), ctypes.byref(g)) == 0
+            groups[name] = g.value
         call(this, "this")
         call(that, "that")
         torch.cuda.synchronize()

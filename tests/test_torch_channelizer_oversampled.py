@@ -2,8 +2,8 @@
 ``oversample_rate``; ``ops/channelizer.py`` ``pfb_analyze_oversampled``) on
 the CPU: against the bank's dense definition, at O = 1 bit for bit with the
 critically sampled bank, in steps of any multiple of the hop, time-sharded,
-its refusals, its YAML round trip, its launch count and the order in which
-it takes its taps."""
+its refusals, its YAML round trip and the order in which it takes its
+taps."""
 
 import numpy as np
 import pytest
@@ -93,29 +93,42 @@ def test_o1_is_bitwise_the_critically_sampled_bank():
     np.testing.assert_array_equal(y, np.concatenate(parts, axis=-1))
 
 
-@pytest.mark.parametrize("o", [2, 4])
+@pytest.mark.parametrize("o", [1, 2, 4])
 def test_steps_of_any_multiple_of_the_hop_chain_to_one_call(o):
+    """At O = 1 through ``pfb_analyze`` and its row state [P−1, M]."""
     m, p = 12, 4
     d = m // o
     x = torch.from_numpy(_signal(40 * d))
     h = torch.from_numpy(_taps(m, p))
-    whole, _ = ch.pfb_analyze_oversampled(x, h, ch.pfb_os_init_state(m, p, d), m, d)
-    st, parts, at = ch.pfb_os_init_state(m, p, d), [], 0
+    if o == 1:
+        init, step = (lambda: ch.pfb_init_state(m, p)), \
+            (lambda xs, st: ch.pfb_analyze(xs, h, st))
+    else:
+        init, step = (lambda: ch.pfb_os_init_state(m, p, d)), \
+            (lambda xs, st: ch.pfb_analyze_oversampled(xs, h, st, m, d))
+    whole, _ = step(x, init())
+    st, parts, at = init(), [], 0
     for frames in (3, 5, 1, 7, 2, 9, 13):
-        y, st = ch.pfb_analyze_oversampled(x[at:at + frames * d], h, st, m, d)
+        y, st = step(x[at:at + frames * d], st)
         parts.append(y)
         at += frames * d
     assert at == x.shape[0]
     chained = torch.cat(parts, dim=-1)
-    assert int(st["frame"]) == 40 % ch.shift_period(m, d)
+    if o == 1:
+        assert st.shape == (p - 1, m)
+        torch.testing.assert_close(st, x[-(p - 1) * m:].reshape(p - 1, m),
+                                   rtol=0, atol=0)
+    else:
+        assert int(st["frame"]) == 40 % ch.shift_period(m, d)
     torch.testing.assert_close(chained, whole, rtol=0,
                                atol=RTOL * float(whole.abs().max()))
 
 
-def test_the_time_sharded_bank_equals_the_unsharded_one():
+@pytest.mark.parametrize("o", [1, 2])
+def test_the_time_sharded_bank_equals_the_unsharded_one(o):
     """Scheduler(mesh=) over 4 time shards: the halo lowering with each
     shard's frame index from its global position."""
-    m, p, o = 16, 4, 2
+    m, p = 16, 4
     block = 4 * 1024
     x = _signal(3 * block)
     kw = dict(n_channels=m, taps_per_phase=p, oversample_rate=o)
@@ -156,16 +169,6 @@ def test_oversample_rate_survives_yaml():
     g3.connect_chain(VectorSource(x), blocks["pfb"], snk)
     gt.Scheduler(g3, block_len=block, device="cpu").run_and_wait()
     np.testing.assert_array_equal(np.asarray(snk.data()), want)
-
-
-def test_launch_counts_count_the_oversampled_branch_only():
-    f = ch.pfb_analyze_oversampled
-    x = _signal(4 * 1024)
-    f.launches = 0
-    _run(x, 1024, n_channels=8, taps_per_phase=4, oversample_rate=1)
-    assert f.launches == 0
-    _, s = _run(x, 1024, n_channels=8, taps_per_phase=4, oversample_rate=2)
-    assert f.launches == s.steps > 0
 
 
 @pytest.mark.parametrize("o", [1, 2])
